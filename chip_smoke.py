@@ -1,0 +1,494 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port on one NVIDIA GPU and check it end to end.
+
+Usage: python3 chip_smoke.py [--seed 0] [--requests 48]
+
+Builds the port's CUDA kernels from ``vector_quantization_tpu_torch/csrc``
+(one ``nvcc`` per source, all at once), then runs these phases, each
+printing one JSON line; any failure exits non-zero:
+
+1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
+   CUDA versions; TF32 is switched off for matmuls and cuDNN.
+2. ``int8_matmul``: kernel against its plain version at the serving shapes
+   (B = 64; qkv, o, gate+up, down, lm head of Llama-medium), B in {1, 7} and
+   a ragged F; max relative error <= 1e-3 (bf16 inputs, f32 sums in another
+   order). Device times per call (CUDA graph replay, weights rotated through
+   enough copies to exceed the 50 MB L2) for the kernel, the plain version
+   and a yardstick ``library_ms`` = ``torch.matmul(x, w_bf16) * scale`` over
+   a pre-dequantised bf16 weight (twice the weight bytes: not the same
+   work).
+3. ``paged_decode_attention``: kernel against its plain version at B = 64,
+   H = 16, Dh = 64, ps = 64, L = 24 with random page tables and ragged
+   lengths (0 and 1 included), int8 pools (limit 1e-4) and bf16 pools
+   (limit 2e-3), abs error over max(1, max|ref|). Device times with the
+   layer rotated over all 24; ``library_ms`` =
+   ``F.scaled_dot_product_attention`` over an already gathered, dequantised
+   bf16 dense cache.
+4. ``decode_step``: one full-width Llama-medium decode step (24 layers, 16
+   heads, hidden 1024, ffn 2816, vocab 17385; bf16, INT8 weights, fused
+   qkv, INT8 paged pool, B = 64) on the same inputs twice, through the
+   kernels and through the plain versions. Each block, fed the kernel
+   path's own input, agrees within max|diff| <= 1e-2 * max|out| (a couple
+   of bf16 steps); the logits, after 24 layers of bf16 rounding that
+   amplify the kernels' ~3e-7 summation-order differences, within
+   max|diff| <= 5e-2 * max|ref|, with >= 90% of rows' argmax equal.
+5. ``serving``: ``ARServer`` at that width (weights made from ``--seed``
+   with numpy), INT8 KV, page size 64, 64 batch rows (32 CFG streams),
+   ``steps_per_sync`` 64, alpha 1.75, top-k 600, top-p 0.92, 256 image
+   tokens; ``--requests`` requests so slots turn over. Every request must
+   finish with 256 codes in [0, 16384), every page must be freed, both
+   kernels must have launched, and no plain version may have run on a
+   CUDA tensor.
+6. ``decode_profile``: the decode step of phase 4 on the host clock and,
+   under torch.profiler, its device time; their ratio gives the device's
+   idle share (run last: the profiler slows later host dispatch).
+7. ``kernels``: per kernel, launches in phase 5, device time per call,
+   the bound, the plain version's and the yardstick's time.
+
+The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
+exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12  # dense tensor-core bf16
+F32_FLOPS = 67e12  # float32 outside the tensor cores
+
+# Llama-medium C2I (configs/ar/transformers/llama.py, bench.py serving recipe)
+NUM_CATEGORIES, CODEBOOK = 1000, 16384
+MEDIUM = dict(hidden_size=1024, num_layers=24, num_heads=16, ffn_dim=2816)
+VOCAB = NUM_CATEGORIES + 1 + CODEBOOK
+SLOTS, IMAGE_TOKENS, STEPS_PER_SYNC, PAGE_SIZE = 64, 256, 64, 64
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def graph_ms(calls, replays: int = 10) -> float:
+    """Device milliseconds per call: ``calls`` (a list of thunks) captured
+    once into a CUDA graph, replayed ``replays`` times between CUDA
+    events. Host overhead of the Python wrappers is out of the number."""
+    for c in calls:  # eager warm-up: builds, allocations
+        c()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for c in calls:
+            c()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        g.replay()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / (replays * len(calls))
+
+
+def phase_device() -> tuple[str, dict]:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({
+        "phase": "device", "nvidia_smi": smi,
+        "name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+        "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+    })
+    return smi, {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                 "count": torch.cuda.device_count()}
+
+
+def phase_build() -> None:
+    from vector_quantization_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    regs = {
+        name: sorted({ln.split(":", 1)[1].strip() for ln in log.splitlines() if "Used" in ln})
+        for name, log in logs.items()
+    }
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "sources": sorted(logs), "ptxas": regs})
+
+
+def phase_int8_matmul(dev, gen) -> dict:
+    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+
+    d, f = MEDIUM["hidden_size"], MEDIUM["ffn_dim"]
+    serving = [  # (name, B, D, F, launches per decode step)
+        ("qkv", SLOTS, d, 3 * d, 24), ("o", SLOTS, d, d, 24),
+        ("gateup", SLOTS, d, 2 * f, 24), ("down", SLOTS, f, d, 24),
+        ("lm_head", SLOTS, d, VOCAB, 1),
+    ]
+    extra = [("b1_qkv", 1, d, 3 * d, 0), ("b7_lm_head", 7, d, VOCAB, 0),
+             ("ragged", 5, 1000, 777, 0)]
+    rows = []
+    for name, b, dd, ff, per_step in serving + extra:
+        x = torch.randn((b, dd), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randint(-127, 128, (dd, ff), generator=gen, device=dev, dtype=torch.int8)
+        s = torch.rand((ff,), generator=gen, device=dev) * 0.02 + 1e-3
+        got = int8_matmul(x, w, s)
+        want = int8_matmul_reference(x, w, s)
+        torch.cuda.synchronize()
+        abs_err = float((got - want).abs().max())
+        rel_err = abs_err / float(want.abs().max())
+        row = {"phase": "int8_matmul", "shape": name, "B": b, "D": dd, "F": ff,
+               "max_abs_err": abs_err, "max_rel_err": rel_err, "limit": 1e-3}
+        if rel_err > 1e-3 or not torch.isfinite(got).all():
+            emit(row)
+            raise SystemExit(f"int8_matmul {name}: max_rel_err {rel_err} > 1e-3")
+        if per_step:
+            copies = -(-150_000_000 // (dd * ff))  # > 50 MB L2 per rotation
+            ws = [w] + [torch.randint(-127, 128, (dd, ff), generator=gen, device=dev,
+                                      dtype=torch.int8) for _ in range(copies - 1)]
+            wb = [wi.to(torch.bfloat16) for wi in ws]
+            byts = dd * ff + b * dd * 2 + ff * 4 + b * ff * 4
+            ops = 2 * b * dd * ff
+            row.update({
+                "launches_per_step": per_step, "weight_copies": copies,
+                "ms": graph_ms([lambda wi=wi: int8_matmul(x, wi, s) for wi in ws]),
+                "plain_ms": graph_ms([lambda wi=wi: int8_matmul_reference(x, wi, s) for wi in ws]),
+                "library_ms": graph_ms([lambda wi=wi: torch.matmul(x, wi) * s for wi in wb]),
+                "bytes": byts, "ops": ops,
+                "bound_ms": 1e3 * max(byts / HBM_BYTES_PER_S, ops / BF16_FLOPS),
+            })
+            rows.append(row)
+            del ws, wb
+        emit(row)
+    n = sum(r["launches_per_step"] for r in rows)
+
+    def per_launch(key):
+        return sum(r[key] * r["launches_per_step"] for r in rows) / n
+
+    return {
+        "name": "int8_matmul", "route": "cuda",
+        "source": "vector_quantization_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "vector_quantization_tpu/ops/int8_matmul.py:53",
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": per_launch("ms"), "plain_ms": per_launch("plain_ms"),
+        "bound_ms": per_launch("bound_ms"), "bound_by": "bytes",
+        "library_ms": per_launch("library_ms"),
+        "note": "mean per launch over one decode step's 97 launches (24x qkv, o, gateup, down + lm head)",
+    }
+
+
+def phase_paged_attention(dev, gen) -> dict:
+    import torch.nn.functional as F
+
+    from vector_quantization_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_reference,
+    )
+    from vector_quantization_tpu_torch.ops.paged_kv import PagedKVCache, paged_gather
+
+    b, h, dh, ps, n_layers = SLOTS, MEDIUM["num_heads"], 64, PAGE_SIZE, MEDIUM["num_layers"]
+    p_slot = -(-(IMAGE_TOKENS + STEPS_PER_SYNC) // ps)  # 5 pages per row
+    num_pages = 1 + b * p_slot
+    rng = np.random.default_rng(0)
+    table_np = np.resize(rng.permutation(np.arange(1, num_pages)), (b, p_slot + 1)).astype(np.int32)
+    len_np = rng.integers(0, p_slot * ps + 1, b).astype(np.int32)
+    len_np[:4] = [0, 1, ps, ps + 1]
+    table = torch.from_numpy(table_np).to(dev)[:, :p_slot]  # sliced: rows strided
+    lengths = torch.from_numpy(len_np).to(dev)
+    live = int(np.minimum(len_np, p_slot * ps).sum())
+    q = torch.randn((b, h, dh), generator=gen, device=dev).to(torch.bfloat16)
+    shape = (n_layers, num_pages, ps, h, dh)
+    kernel_row = None
+    for pool in ("int8", "bf16"):
+        if pool == "int8":
+            k = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+            v = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+            ksc = torch.rand(shape[:4], generator=gen, device=dev) * 0.02 + 1e-3
+            vsc = torch.rand(shape[:4], generator=gen, device=dev) * 0.02 + 1e-3
+            tol, elt = 1e-4, 1
+        else:
+            k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            ksc = vsc = None
+            tol, elt = 2e-3, 2
+        kw = dict(k_scale_pool=ksc, v_scale_pool=vsc)
+        err = 0.0
+        for layer in (0, 13, n_layers - 1):
+            got = paged_decode_attention(q, k, v, table, lengths, layer, **kw)
+            want = paged_decode_attention_reference(q, k, v, table, lengths, layer, **kw)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all() or bool((got[0] != 0).any()):
+                raise SystemExit(f"paged_decode_attention {pool}: non-finite or length-0 row not 0")
+            err = max(err, float((got - want).abs().max()) / max(1.0, float(want.abs().max())))
+        row = {"phase": "paged_decode_attention", "pool": pool, "B": b, "H": h, "Dh": dh,
+               "ps": ps, "L": n_layers, "P": num_pages, "P_cap": p_slot,
+               "mean_length": float(len_np.mean()), "max_err": err, "limit": tol}
+        if err > tol:
+            emit(row)
+            raise SystemExit(f"paged_decode_attention {pool}: max_err {err} > {tol}")
+        layers = range(n_layers)
+        byts = live * h * (2 * dh * elt + (8 if pool == "int8" else 0)) \
+            + b * h * dh * (2 + 4) + table.numel() * 4 + b * 4
+        ops = live * h * 4 * dh
+        # yardstick: SDPA over an already gathered, dequantised dense cache
+        dense = []
+        for layer in range(4):
+            kg, vg, ks, vs = paged_gather(PagedKVCache(k, v, table, ksc, vsc), layer)
+            kg, vg = kg.float(), vg.float()
+            if ks is not None:
+                kg, vg = kg * ks[..., None], vg * vs[..., None]
+            dense.append((kg.to(torch.bfloat16).transpose(1, 2).contiguous(),
+                          vg.to(torch.bfloat16).transpose(1, 2).contiguous()))
+        mask = (torch.arange(p_slot * ps, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        row.update({
+            "ms": graph_ms([lambda i=i: paged_decode_attention(q, k, v, table, lengths, i, **kw)
+                            for i in layers]),
+            "plain_ms": graph_ms([lambda i=i: paged_decode_attention_reference(
+                q, k, v, table, lengths, i, **kw) for i in layers], replays=3),
+            "library_ms": graph_ms([lambda kv=kv: F.scaled_dot_product_attention(
+                q4, kv[0], kv[1], attn_mask=mask) for kv in dense]),
+            "bytes": byts, "ops": ops,
+            "bound_ms": 1e3 * max(byts / HBM_BYTES_PER_S, ops / F32_FLOPS),
+        })
+        emit(row)
+        if pool == "int8":
+            kernel_row = row
+        del k, v, ksc, vsc, dense
+    return {
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "vector_quantization_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "vector_quantization_tpu/ops/paged_attention.py:110",
+        "max_abs_err": kernel_row["max_err"], "ms": kernel_row["ms"],
+        "plain_ms": kernel_row["plain_ms"], "bound_ms": kernel_row["bound_ms"],
+        "bound_by": "bytes", "library_ms": kernel_row["library_ms"],
+        "note": f"int8 pool, B=64, mean live length {kernel_row['mean_length']}",
+    }
+
+
+def make_medium(seed: int, dev):
+    """Llama-medium with INT8 weights and fused projections, weights made
+    from ``seed`` with numpy in the flax layout and loaded via the bridge."""
+    from vector_quantization_tpu_torch.models.transformers.llama import (
+        LlamaTransformer, fuse_llama_params, quantize_params_int8,
+    )
+    from vector_quantization_tpu_torch.utils.bridge import llama_params_from_flax
+
+    rng = np.random.default_rng(seed)
+    d, f = MEDIUM["hidden_size"], MEDIUM["ffn_dim"]
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    params = {"embedding": normal(VOCAB, d), "final_norm": {"scale": np.ones(d, np.float32)},
+              "lm_head": normal(d, VOCAB)}
+    for i in range(MEDIUM["num_layers"]):
+        params[f"layer{i}"] = {
+            "input_norm": {"scale": np.ones(d, np.float32)},
+            "post_norm": {"scale": np.ones(d, np.float32)},
+            **{p: {"kernel": normal(d, d)} for p in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            "gate_proj": {"kernel": normal(d, f)}, "up_proj": {"kernel": normal(d, f)},
+            "down_proj": {"kernel": normal(f, d)},
+        }
+    params = fuse_llama_params(quantize_params_int8(params))
+    model = LlamaTransformer(vocabulary_size=VOCAB, max_length=1 + IMAGE_TOKENS + STEPS_PER_SYNC,
+                             dtype="bfloat16", quantize=True, fused_qkv=True, **MEDIUM)
+    model.load_state_dict(llama_params_from_flax(params))
+    return model.to(dev).eval()
+
+
+def step_wall(model, tokens, cache, positions, steps: int = 3) -> float:
+    """Seconds per eager decode step on the host clock, each ending in a
+    synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        model(tokens, cache, slot_positions=positions)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps
+
+
+def step_device(model, tokens, cache, positions, steps: int = 3) -> float:
+    """Device seconds per decode step: the sum of the kernels' device time
+    that torch.profiler records over ``steps`` steps. Run last: the
+    profiler's tracing slows later host dispatch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            model(tokens, cache, slot_positions=positions)
+        torch.cuda.synchronize()
+    device_us = sum(e.self_device_time_total for e in prof.key_averages())
+    if device_us <= 0:
+        raise SystemExit("decode_profile: the profiler recorded no device time")
+    return device_us / steps / 1e6
+
+
+def phase_decode_step(model, dev, gen):
+    from vector_quantization_tpu_torch.models.transformers import llama as llama_mod
+    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul_reference
+    from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention_reference
+
+    b, ps = SLOTS, PAGE_SIZE
+    p_slot = -(-(IMAGE_TOKENS + STEPS_PER_SYNC) // ps)
+    num_pages = 1 + b * p_slot
+    cache = model.init_paged_cache(b, num_pages, ps, p_slot, dtype=torch.int8, device=dev)
+    rng = np.random.default_rng(1)
+    pos_np = rng.integers(0, IMAGE_TOKENS, b).astype(np.int32)
+    pos_np[:2] = 0
+    table = np.zeros((b, p_slot), np.int32)
+    free = list(rng.permutation(np.arange(1, num_pages)))
+    for r in range(b):
+        for p in range(pos_np[r] // ps + 1):
+            table[r, p] = free.pop()
+    cache.page_table.copy_(torch.from_numpy(table))
+    for t in (cache.k, cache.v):
+        t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device=dev, dtype=torch.int8))
+    for t in (cache.k_scale, cache.v_scale):
+        t.copy_(torch.rand(t.shape, generator=gen, device=dev) * 0.02)
+    tokens = torch.from_numpy(rng.integers(0, VOCAB, (b, 1)).astype(np.int32)).to(dev)
+    positions = torch.from_numpy(pos_np).to(dev)
+
+    def clone():
+        return cache._replace(**{f: getattr(cache, f).clone()
+                                 for f in ("k", "v", "k_scale", "v_scale")})
+
+    blocks = model.blocks()
+    ins, outs = [], []
+    hooks = [blk.register_forward_pre_hook(lambda m, a: ins.append(a[0].clone()))
+             for blk in blocks]
+    hooks += [blk.register_forward_hook(lambda m, a, o: outs.append(o.clone()))
+              for blk in blocks]
+    with torch.inference_mode():
+        got, _ = model(tokens, clone(), slot_positions=positions)
+        for hk in hooks:
+            hk.remove()
+        step_s = step_wall(model, tokens, clone(), positions)
+        saved = llama_mod.int8_matmul, llama_mod.paged_decode_attention
+        llama_mod.int8_matmul = int8_matmul_reference
+        llama_mod.paged_decode_attention = paged_decode_attention_reference
+        try:
+            want, _ = model(tokens, clone(), slot_positions=positions)
+            # each block alone on the kernel path's own input: no cascade
+            c = clone()
+            layer_err = max(
+                float((blk(ins[i], positions[:, None], c, i, positions) - outs[i]).abs().max())
+                / float(outs[i].abs().max())
+                for i, blk in enumerate(blocks)
+            )
+        finally:
+            llama_mod.int8_matmul, llama_mod.paged_decode_attention = saved
+        torch.cuda.synchronize()
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    row = {"phase": "decode_step", "B": b, "vocab": VOCAB, **MEDIUM, "dtype": "bfloat16",
+           "logits_shape": list(got.shape), "max_abs_err_over_max_ref": err, "limit": 5e-2,
+           "mean_abs_diff": float((got - want).abs().mean()),
+           "mean_abs_ref": float(want.abs().mean()), "argmax_agree_frac": agree,
+           "per_block_max_err_over_max_ref": layer_err, "per_block_limit": 1e-2,
+           "eager_step_ms_host_clock": 1e3 * step_s}
+    emit(row)
+    if (got.shape != (b, 1, VOCAB) or not torch.isfinite(got).all() or err > 5e-2
+            or layer_err > 1e-2 or agree < 0.9):
+        raise SystemExit("decode_step: kernel and plain paths disagree (see the decode_step line)")
+
+    def profile_step() -> None:
+        with torch.inference_mode():
+            wall = step_wall(model, tokens, clone(), positions)
+            device = step_device(model, tokens, clone(), positions)
+        emit({"phase": "decode_profile", "eager_step_ms_host_clock": 1e3 * wall,
+              "device_ms_per_step_profiler": 1e3 * device,
+              "device_idle_frac": 1.0 - device / wall})
+
+    return profile_step
+
+
+def phase_serving(model, dev, seed: int, n_requests: int) -> dict:
+    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+    from vector_quantization_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_reference,
+    )
+    from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook
+    from vector_quantization_tpu_torch.tasks.serving import ARServer
+
+    server = ARServer(
+        model, None, TokenCodebook(NUM_CATEGORIES + 1, CODEBOOK),
+        image_tokens=IMAGE_TOKENS, batch_slots=SLOTS,
+        sampler={"temperature": 1.0, "top_k": 600, "top_p": 0.92},
+        cfg_alpha=1.75, uncond_token=NUM_CATEGORIES, steps_per_sync=STEPS_PER_SYNC,
+        cache_dtype=torch.int8, paged=True, page_size=PAGE_SIZE, seed=seed, device=dev,
+    )
+    rids = [server.submit(category=i % NUM_CATEGORIES) for i in range(n_requests)]
+    int8_matmul.launches = paged_decode_attention.launches = 0
+    plain0 = int8_matmul_reference.cuda_calls + paged_decode_attention_reference.cuda_calls
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = dict(server.run_until_drained())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"int8_matmul": int8_matmul.launches,
+                "paged_decode_attention": paged_decode_attention.launches}
+    plain_runs = int8_matmul_reference.cuda_calls + paged_decode_attention_reference.cuda_calls - plain0
+    rep = server.efficiency_report()
+    row = {"phase": "serving", "requests": n_requests, "finished": len(done),
+           "image_tokens": IMAGE_TOKENS, "batch_slots": SLOTS, "steps_per_sync": STEPS_PER_SYNC,
+           "wall_s": wall, "effective_tokens_per_s": n_requests * IMAGE_TOKENS / wall,
+           "images_per_min": n_requests / wall * 60.0, "launches": launches,
+           "plain_runs_on_cuda": plain_runs,
+           "pages_free": len(server._free_pages), "pages_total": server._total_pages,
+           "efficiency_report": rep}
+    emit(row)
+    ok = (sorted(done) == rids
+          and all(c.shape == (IMAGE_TOKENS,) and (c >= 0).all() and (c < CODEBOOK).all()
+                  for c in done.values())
+          and len(server._free_pages) == server._total_pages and server._pages_reserved == 0
+          and all(n > 0 for n in launches.values()) and plain_runs == 0)
+    if not ok:
+        raise SystemExit("serving: a check failed (see the serving line)")
+    return launches
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--requests", type=int, default=48)
+    args = p.parse_args()
+    import vector_quantization_tpu_torch  # noqa: F401  (the port must sit beside this script)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels run only on an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    smi, device = phase_device()
+    phase_build()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    k_int8 = phase_int8_matmul(dev, gen)
+    k_attn = phase_paged_attention(dev, gen)
+    torch.cuda.empty_cache()
+    model = make_medium(args.seed, dev)
+    profile_step = phase_decode_step(model, dev, gen)
+    launches = phase_serving(model, dev, args.seed, args.requests)
+    profile_step()
+    for k in (k_int8, k_attn):
+        k["launches"] = launches[k["name"]]
+    emit({"kernels": [k_int8, k_attn]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": device})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

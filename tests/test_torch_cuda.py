@@ -1,0 +1,109 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips without an NVIDIA GPU (decided inside the
+fixture, never at import). On a GPU machine without JAX run them with
+``python -m pytest --noconftest tests/test_torch_cuda.py -q`` (the repo's
+``tests/conftest.py`` imports JAX).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vector_quantization_tpu_torch.ops.int8_matmul import (
+    int8_matmul,
+    int8_matmul_reference,
+)
+from vector_quantization_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_reference,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize(
+    "b,d,f",
+    [
+        (64, 1024, 3072), (64, 1024, 1024), (64, 1024, 5632),
+        (64, 2816, 1024), (64, 1024, 17385),
+        (1, 1024, 3072), (7, 2816, 1024), (3, 100, 37), (130, 96, 200),
+    ],
+)
+def test_int8_matmul_kernel_matches_plain(dev, b, d, f):
+    # bf16 inputs, exact bf16*int8 products, f32 sums in another order
+    rng = np.random.default_rng(b * 7 + d + f)
+    x = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev, torch.bfloat16)
+    w = torch.from_numpy(rng.integers(-127, 128, (d, f), dtype=np.int8)).to(dev)
+    s = torch.from_numpy(rng.uniform(1e-3, 2e-2, f).astype(np.float32)).to(dev)
+    before = int8_matmul.launches
+    got = int8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, f)
+    assert _rel_err(got, int8_matmul_reference(x, w, s)) <= 1e-3
+
+
+def _paged_inputs(dev, *, pool_dtype, q_dtype, b=64, h=16, dh=64, ps=64,
+                  n_layers=3, p_cap=5, seed=0):
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + b * p_cap
+    shape = (n_layers, num_pages, ps, h, dh)
+    if pool_dtype == torch.int8:
+        k = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8))
+        v = torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8))
+        ksc = torch.from_numpy(rng.uniform(1e-3, 2e-2, shape[:4]).astype(np.float32))
+        vsc = torch.from_numpy(rng.uniform(1e-3, 2e-2, shape[:4]).astype(np.float32))
+        ksc, vsc = ksc.to(dev), vsc.to(dev)
+    else:
+        k = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(pool_dtype)
+        v = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(pool_dtype)
+        ksc = vsc = None
+    # non-contiguous page ids, a table wider than the slice passed in
+    perm = rng.permutation(np.arange(1, num_pages)).astype(np.int32)
+    table = torch.from_numpy(np.resize(perm, b * (p_cap + 2)).reshape(b, p_cap + 2))
+    lengths = rng.integers(0, p_cap * ps + 1, b).astype(np.int32)
+    lengths[:6] = [0, 1, ps, ps + 1, p_cap * ps, 2]
+    q = torch.from_numpy(rng.standard_normal((b, h, dh), dtype=np.float32)).to(q_dtype)
+    return dict(
+        q=q.to(dev), k=k.to(dev), v=v.to(dev), ksc=ksc, vsc=vsc,
+        table=table.to(dev)[:, :p_cap], lengths=torch.from_numpy(lengths).to(dev),
+    )
+
+
+@pytest.mark.parametrize(
+    "pool_dtype,q_dtype,dh,ps,tol",
+    [
+        (torch.int8, torch.bfloat16, 64, 64, 1e-4),
+        (torch.int8, torch.float32, 64, 4, 1e-4),
+        (torch.bfloat16, torch.bfloat16, 64, 64, 2e-3),
+        (torch.float32, torch.float32, 32, 16, 1e-4),
+        (torch.int8, torch.bfloat16, 128, 64, 1e-4),
+    ],
+)
+def test_paged_attention_kernel_matches_plain(dev, pool_dtype, q_dtype, dh, ps, tol):
+    t = _paged_inputs(dev, pool_dtype=pool_dtype, q_dtype=q_dtype, dh=dh, ps=ps, h=4 if dh == 128 else 16)
+    kw = dict(k_scale_pool=t["ksc"], v_scale_pool=t["vsc"])
+    args = (t["q"], t["k"], t["v"], t["table"], t["lengths"], 1)
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    want = paged_decode_attention_reference(*args, **kw)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= tol * max(1.0, float(want.abs().max()))
+    # length-0 rows give exactly 0
+    assert torch.all(got[0] == 0)

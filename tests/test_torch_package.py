@@ -1,0 +1,85 @@
+"""Package boundaries of the port: it imports neither JAX nor the JAX
+package, runs on CUDA unless asked for the CPU, and counts a kernel launch
+only where a kernel launches."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import vector_quantization_tpu_torch
+from vector_quantization_tpu_torch.models.transformers.llama import LlamaTransformer
+from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul
+from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention
+from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook, pack_c2i_tokens
+from vector_quantization_tpu_torch.tasks.serving import ARServer
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import importlib, pkgutil, runpy, sys
+import vector_quantization_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+runpy.run_path("chip_smoke.py", run_name="not_main")
+bad = [k for k in ("jax", "jaxlib", "flax", "vector_quantization_tpu") if k in sys.modules]
+print("LOADED", bad)
+"""
+
+
+def test_no_jax_or_jax_package_imported():
+    # a fresh interpreter: this test process has JAX loaded already
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_all_submodules_listed():
+    names = {m.name for m in pkgutil.walk_packages(
+        vector_quantization_tpu_torch.__path__, "vector_quantization_tpu_torch.")}
+    assert {
+        "vector_quantization_tpu_torch.ops.int8_matmul",
+        "vector_quantization_tpu_torch.ops.paged_attention",
+        "vector_quantization_tpu_torch.ops.paged_kv",
+        "vector_quantization_tpu_torch.models.transformers.llama",
+        "vector_quantization_tpu_torch.models.transformers.sampling",
+        "vector_quantization_tpu_torch.tasks.serving",
+        "vector_quantization_tpu_torch.tasks.sequence_modeling",
+        "vector_quantization_tpu_torch.utils.bridge",
+        "vector_quantization_tpu_torch.utils.registry",
+        "vector_quantization_tpu_torch.registries",
+    } <= names
+
+
+def test_server_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tr = LlamaTransformer(vocabulary_size=32, hidden_size=32, num_layers=1, num_heads=2, ffn_dim=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ARServer(tr, None, TokenCodebook(11, 16), image_tokens=4, batch_slots=2, paged=True)
+
+
+def test_cpu_calls_never_count_launches():
+    i0, a0 = int8_matmul.launches, paged_decode_attention.launches
+    x = torch.ones(2, 8)
+    int8_matmul(x, torch.ones(8, 4, dtype=torch.int8), torch.full((4,), 0.5))
+    pool = torch.zeros(1, 2, 4, 2, 8)
+    paged_decode_attention(
+        torch.ones(2, 2, 8), pool, pool, torch.zeros(2, 1, dtype=torch.int32),
+        torch.ones(2, dtype=torch.int32), 0,
+    )
+    assert (int8_matmul.launches, paged_decode_attention.launches) == (i0, a0)
+
+
+def test_pack_c2i_tokens():
+    cb = TokenCodebook(start=11, size=16)
+    codes = torch.from_numpy(np.arange(8).reshape(2, 2, 2))
+    out = pack_c2i_tokens(torch.tensor([3, 4]), codes, cb)
+    assert out.dtype == torch.int32
+    assert out.tolist() == [[3, 11, 12, 13, 14], [4, 15, 16, 17, 18]]
+    assert cb.debias(out[:, 1:]).tolist() == [[0, 1, 2, 3], [4, 5, 6, 7]]

@@ -1,0 +1,12 @@
+"""The registry tree, trimmed to what the port builds so far.
+
+Mirrors ``vector_quantization_tpu/registries.py``: the same root and child
+names, so a config's ``type`` resolves to the port's class of that name.
+"""
+
+from .utils.registry import Registry
+
+VQRegistry = Registry("VQ")
+
+ModelRegistry = VQRegistry.child("models")
+TransformerRegistry = ModelRegistry.child("transformers")
