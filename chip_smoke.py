@@ -8,7 +8,8 @@ Builds the port's CUDA kernels from ``vector_quantization_tpu_torch/csrc``
 printing one JSON line; any failure exits non-zero:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions; TF32 is switched off for matmuls and cuDNN.
+   CUDA versions; TF32 is switched off for matmuls and cuDNN convolutions
+   for the whole run.
 2. ``int8_matmul``: kernel against its plain version at the serving shapes
    (B = 64; qkv, o, gate+up, down, lm head of Llama-medium), B in {1, 7} and
    a ragged F; max relative error <= 1e-3 (bf16 inputs, f32 sums in another
@@ -39,11 +40,34 @@ printing one JSON line; any failure exits non-zero:
    finish with 256 codes in [0, 16384), every page must be freed, both
    kernels must have launched, and no plain version may have run on a
    CUDA tensor.
-6. ``decode_profile``: the decode step of phase 4 on the host clock and,
+6. ``vq_lookup``: the nearest-code kernel against its plain version at
+   the tokenizer's shape N = K = 16384, D = 8 (f32 and bf16), the flagship
+   D = 256, a ragged 1000 x 777 x 40 (cosine), N = 1, and planted exact
+   ties (duplicated codebook rows). Codes may differ only as near-ties
+   (both codes' plain scores within 1e-5 * max|score| of the row's best:
+   f32 sums in another order); planted ties go to the lowest index
+   exactly. Device times at the tokenizer's shape; ``library_ms`` =
+   ``argmin(addmm(esq/2, x, e^T, alpha=-1))``, which writes and reads the
+   N x K matrix (not the same work).
+7. ``tokenizer``: the LlamaGen VQGAN (configs/llamagen/vqgan_imagenet_ddp.py,
+   built through the port's config loader and registry; 69,593,227
+   parameters, weights made from ``--seed`` with numpy in the flax layout
+   and loaded through the bridge), f32. 64 images of 256 px: encode_to_quant
+   -> (64, 16, 16) codes through the kernel, the same features again
+   through the plain lookup (codes agree, near-ties aside),
+   decode_from_quant -> (64, 256, 256, 3), and the full forward on 8 images.
+   Encode and decode images/s on the host clock (after a warm-up pass of
+   the same batch), and the convolutions' and Linears' FLOPs per image.
+8. ``class_to_image``: the code grids of the requests that phase 5 served
+   -> decode_from_quant -> pixel_decode -> uint8 (requests, 256, 256, 3).
+9. ``decode_profile``: the decode step of phase 4 on the host clock and,
    under torch.profiler, its device time; their ratio gives the device's
    idle share (run last: the profiler slows later host dispatch).
-7. ``kernels``: per kernel, launches in phase 5, device time per call,
-   the bound, the plain version's and the yardstick's time.
+10. ``tokenizer_profile``: one encode + decode of the 64 images of phase 7
+   under torch.profiler: device time by kernel and the idle share.
+11. ``kernels``: per kernel, launches in its path's run (phase 5 for the
+   server's two, phase 7 for the lookup), device time per call, the bound,
+   the plain version's and the yardstick's time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
@@ -56,6 +80,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -69,10 +94,39 @@ NUM_CATEGORIES, CODEBOOK = 1000, 16384
 MEDIUM = dict(hidden_size=1024, num_layers=24, num_heads=16, ffn_dim=2816)
 VOCAB = NUM_CATEGORIES + 1 + CODEBOOK
 SLOTS, IMAGE_TOKENS, STEPS_PER_SYNC, PAGE_SIZE = 64, 256, 64, 64
+# the LlamaGen VQGAN tokenizer: f16 at 256 px, 16384 x 8 codebook
+VQGAN_CONFIG = "configs/llamagen/vqgan_imagenet_ddp.py"
+VQGAN_PARAMS, IMAGE_SIZE, GRID, TOKENIZER_BATCH = 69_593_227, 256, 16, 64
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def zero_launches() -> None:
+    """Set every kernel wrapper's launch count to 0 (before a path's run)."""
+    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul
+    from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention
+    from vector_quantization_tpu_torch.ops.vq_lookup import nearest_codes
+
+    int8_matmul.launches = paged_decode_attention.launches = nearest_codes.launches = 0
+
+
+def read_launches() -> tuple[dict, int]:
+    """Every kernel wrapper's launch count, and the number of times any
+    plain version ran on a CUDA tensor so far."""
+    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+    from vector_quantization_tpu_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_reference,
+    )
+    from vector_quantization_tpu_torch.ops.vq_lookup import nearest_codes, nearest_codes_reference
+
+    launches = {"int8_matmul": int8_matmul.launches,
+                "paged_decode_attention": paged_decode_attention.launches,
+                "nearest_codes": nearest_codes.launches}
+    plain = (int8_matmul_reference.cuda_calls + paged_decode_attention_reference.cuda_calls
+             + nearest_codes_reference.cuda_calls)
+    return launches, plain
 
 
 def graph_ms(calls, replays: int = 10) -> float:
@@ -415,11 +469,7 @@ def phase_decode_step(model, dev, gen):
     return profile_step
 
 
-def phase_serving(model, dev, seed: int, n_requests: int) -> dict:
-    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
-    from vector_quantization_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_reference,
-    )
+def phase_serving(model, dev, seed: int, n_requests: int) -> tuple[dict, dict]:
     from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook
     from vector_quantization_tpu_torch.tasks.serving import ARServer
 
@@ -431,16 +481,15 @@ def phase_serving(model, dev, seed: int, n_requests: int) -> dict:
         cache_dtype=torch.int8, paged=True, page_size=PAGE_SIZE, seed=seed, device=dev,
     )
     rids = [server.submit(category=i % NUM_CATEGORIES) for i in range(n_requests)]
-    int8_matmul.launches = paged_decode_attention.launches = 0
-    plain0 = int8_matmul_reference.cuda_calls + paged_decode_attention_reference.cuda_calls
+    zero_launches()
+    _, plain0 = read_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = dict(server.run_until_drained())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"int8_matmul": int8_matmul.launches,
-                "paged_decode_attention": paged_decode_attention.launches}
-    plain_runs = int8_matmul_reference.cuda_calls + paged_decode_attention_reference.cuda_calls - plain0
+    launches, plain = read_launches()
+    plain_runs = plain - plain0
     rep = server.efficiency_report()
     row = {"phase": "serving", "requests": n_requests, "finished": len(done),
            "image_tokens": IMAGE_TOKENS, "batch_slots": SLOTS, "steps_per_sync": STEPS_PER_SYNC,
@@ -454,10 +503,240 @@ def phase_serving(model, dev, seed: int, n_requests: int) -> dict:
           and all(c.shape == (IMAGE_TOKENS,) and (c >= 0).all() and (c < CODEBOOK).all()
                   for c in done.values())
           and len(server._free_pages) == server._total_pages and server._pages_reserved == 0
-          and all(n > 0 for n in launches.values()) and plain_runs == 0)
+          and launches["int8_matmul"] > 0 and launches["paged_decode_attention"] > 0
+          and plain_runs == 0)
     if not ok:
         raise SystemExit("serving: a check failed (see the serving line)")
-    return launches
+    return launches, done
+
+
+def phase_vq_lookup(dev, gen) -> dict:
+    from vector_quantization_tpu_torch.ops.vq_lookup import (
+        NEAR_TIE_REL_TOL, compare_codes, nearest_codes, nearest_codes_reference,
+    )
+
+    n_path = TOKENIZER_BATCH * GRID * GRID
+    cases = [  # (name, N, K, D, dtype, metric, planted ties)
+        ("path_f32", n_path, CODEBOOK, 8, torch.float32, "l2", False),
+        ("path_bf16", n_path, CODEBOOK, 8, torch.bfloat16, "l2", False),
+        ("flagship_d256", 16384, 16384, 256, torch.float32, "l2", False),
+        ("ragged_cosine", 1000, 777, 40, torch.float32, "cosine", False),
+        ("n1", 1, CODEBOOK, 8, torch.float32, "l2", False),
+        ("planted_ties", 4096, 1000, 8, torch.float32, "l2", True),
+    ]
+    kernel_row = None
+    for name, n, k, d, dtype, metric, ties in cases:
+        x = torch.randn((n, d), generator=gen, device=dev)
+        e = torch.randn((k, d), generator=gen, device=dev)
+        if ties:  # odd codes repeat the even ones; every third row sits on one
+            e[1::2] = e[0::2][: k // 2]
+            x[::3] = e[torch.randint(0, k // 2, (x[::3].shape[0],), generator=gen, device=dev) * 2]
+        x, e = x.to(dtype), e.to(dtype)
+        got = nearest_codes(x, e, metric)
+        want = nearest_codes_reference(x, e, metric)
+        torch.cuda.synchronize()
+        rep = compare_codes(x, e, got, want, metric)
+        row = {"phase": "vq_lookup", "shape": name, "N": n, "K": k, "D": d,
+               "dtype": str(dtype).removeprefix("torch."), "metric": metric,
+               "rows_differing": rep["differ"], "rows_excused_as_near_ties": rep["excused"],
+               "near_tie_rows": rep["near_tie_rows"], "near_tie_abs_tol": rep["tol"],
+               "near_tie_rel_tol": NEAR_TIE_REL_TOL, "max_score_gap": rep["max_score_gap"]}
+        ok = rep["ok"] and got.dtype == torch.int32 and got.shape == (n,)
+        if ties:
+            planted = torch.arange(0, n, 3, device=dev)
+            row["planted_ties_exact"] = bool(torch.equal(got[planted], want[planted])
+                                             and (got[planted] % 2 == 0).all())
+            ok = ok and row["planted_ties_exact"]
+        if not ok:
+            emit(row)
+            raise SystemExit(f"vq_lookup {name}: kernel and plain codes disagree beyond near-ties")
+        if name == "path_f32":
+            esq_half = 0.5 * (e * e).sum(dim=1)
+            byts = n * d * 4 + k * d * 4 + k * 4 + n * 4
+            ops = 2 * n * k * d + 2 * n * k
+            row.update({
+                "ms": graph_ms([lambda: nearest_codes(x, e)]),
+                "plain_ms": graph_ms([lambda: nearest_codes_reference(x, e)], replays=3),
+                "library_ms": graph_ms([lambda: torch.argmin(
+                    torch.addmm(esq_half, x, e.T, alpha=-1), dim=1)], replays=3),
+                "bytes": byts, "ops": ops,
+                "bound_ms": 1e3 * max(byts / HBM_BYTES_PER_S, ops / F32_FLOPS),
+            })
+            kernel_row = row
+        emit(row)
+        del x, e, got, want
+    return {
+        "name": "nearest_codes", "route": "cuda",
+        "source": "vector_quantization_tpu_torch/csrc/vq_lookup.cu",
+        "replaces": "vector_quantization_tpu/ops/vq_lookup.py:93",
+        "max_abs_err": kernel_row["max_score_gap"], "ms": kernel_row["ms"],
+        "plain_ms": kernel_row["plain_ms"], "bound_ms": kernel_row["bound_ms"],
+        "bound_by": "operations", "library_ms": kernel_row["library_ms"],
+        "note": (f"N = K = 16384, D = 8, f32; max_abs_err is the largest plain-score gap "
+                 f"between the kernel's code and the row's best ({kernel_row['rows_differing']} "
+                 f"rows differ, all near-ties); library_ms writes the N x K matrix"),
+    }
+
+
+def make_vqgan(seed: int, dev):
+    """The LlamaGen VQGAN through the port's config loader and registry,
+    weights made from ``seed`` with numpy in the flax layout (conv and
+    Dense kernels N(0, 1/fan_in), GroupNorm scale 1 and bias 0, the
+    codebook uniform(-1/K, 1/K)) and loaded through the bridge."""
+    from vector_quantization_tpu_torch.registries import ModelRegistry
+    from vector_quantization_tpu_torch.utils.bridge import flax_param_shapes, state_dict_from_flax
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    path = Path(__file__).resolve().parent / VQGAN_CONFIG
+    cfg = Config.load(str(path))["trainer"]["algorithm"]["model"]
+    model = ModelRegistry.build(cfg, device=dev)
+    rng = np.random.default_rng(seed)
+
+    def make(tree, leaf=None):
+        if isinstance(tree, dict):
+            return {k: make(v, k) for k, v in tree.items()}
+        if leaf == "kernel":
+            fan_in = int(np.prod(tree[:-1]))
+            return rng.standard_normal(tree, dtype=np.float32) / np.float32(np.sqrt(fan_in))
+        if leaf == "codebook":
+            return rng.uniform(-1.0 / tree[0], 1.0 / tree[0], tree).astype(np.float32)
+        return (np.ones if leaf == "scale" else np.zeros)(tree, np.float32)
+
+    model.load_state_dict(state_dict_from_flax(model, make(flax_param_shapes(model))))
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != VQGAN_PARAMS:
+        raise SystemExit(f"tokenizer: {n_params} parameters, the config gives {VQGAN_PARAMS}")
+    return model.eval(), cfg
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def conv_linear_flops(model, fn) -> int:
+    """2 x the multiply-adds of every Conv2d and Linear that ``fn`` runs
+    (the attention block's two matmuls, the norms and the lookup are not
+    counted)."""
+    total = 0
+
+    def count(mod, inputs, out):
+        nonlocal total
+        if isinstance(mod, torch.nn.Conv2d):
+            kh, kw = mod.kernel_size
+            total += 2 * out.numel() * (mod.in_channels // mod.groups) * kh * kw
+        else:
+            total += 2 * out.numel() * mod.in_features
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total
+
+
+def phase_tokenizer(model, cfg, dev, seed: int):
+    from vector_quantization_tpu_torch.data.base import pixel_encode
+    from vector_quantization_tpu_torch.ops import vq_lookup
+    from vector_quantization_tpu_torch.ops.distances import normalize
+
+    rng = np.random.default_rng(seed + 1)
+    u8 = rng.integers(0, 256, (TOKENIZER_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)
+    x = pixel_encode(torch.from_numpy(u8).to(dev))
+    with torch.inference_mode():
+        enc_flops = conv_linear_flops(model, lambda: model.encode_to_quant(x[:1]))
+        dec_flops = conv_linear_flops(model, lambda: model.decode_from_quant(
+            torch.zeros((1, GRID, GRID), dtype=torch.int32, device=dev)))
+        model.decode_from_quant(model.encode_to_quant(x))  # warm-up: cuDNN plans, allocator
+        zero_launches()
+        _, plain0 = read_launches()
+        codes, enc_s = _timed(lambda: model.encode_to_quant(x))
+        pixels, dec_s = _timed(lambda: model.decode_from_quant(codes))
+        launches, plain = read_launches()
+        plain_runs = plain - plain0
+        # the same features through the plain lookup, swapped in
+        feat = model.encode(x).reshape(-1, cfg["quantizer"]["embedding_dim"])
+        saved = vq_lookup.nearest_codes
+        vq_lookup.nearest_codes = vq_lookup.nearest_codes_reference
+        try:
+            plain_codes = model.quantizer.encode(feat)
+        finally:
+            vq_lookup.nearest_codes = saved
+        rep = vq_lookup.compare_codes(normalize(feat), model.quantizer.effective_codebook(),
+                                      codes, plain_codes)
+        out = model(x[:8])
+    torch.cuda.synchronize()
+    q = out["quantizer"]
+    row = {"phase": "tokenizer", "config": VQGAN_CONFIG,
+           "params": sum(p.numel() for p in model.parameters()), "dtype": "float32",
+           "images": TOKENIZER_BATCH, "image_size": IMAGE_SIZE, "codes_shape": list(codes.shape),
+           "pixels_shape": list(pixels.shape), "encode_s": enc_s, "decode_s": dec_s,
+           "encode_images_per_s": TOKENIZER_BATCH / enc_s,
+           "decode_images_per_s": TOKENIZER_BATCH / dec_s,
+           "encode_gflop_per_image": enc_flops / 1e9, "decode_gflop_per_image": dec_flops / 1e9,
+           "encode_tflop_per_s": enc_flops * TOKENIZER_BATCH / enc_s / 1e12,
+           "decode_tflop_per_s": dec_flops * TOKENIZER_BATCH / dec_s / 1e12,
+           "launches": launches, "plain_runs_on_cuda": plain_runs,
+           "codes_vs_plain": {k: rep[k] for k in ("differ", "excused", "near_tie_rows", "tol")},
+           "distinct_codes": int(torch.unique(codes).numel()),
+           "forward_loss_vqgan": float(q.losses["loss_vqgan"]),
+           "forward_codes_equal_encode_to_quant": bool(torch.equal(q.codes, codes[:8]))}
+    emit(row)
+    ok = (codes.shape == (TOKENIZER_BATCH, GRID, GRID) and bool((codes >= 0).all())
+          and bool((codes < CODEBOOK).all()) and rep["ok"]
+          and pixels.shape == (TOKENIZER_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)
+          and bool(torch.isfinite(pixels).all()) and launches["nearest_codes"] > 0
+          and plain_runs == 0
+          and out["pred"].shape == (8, IMAGE_SIZE, IMAGE_SIZE, 3)
+          and bool(torch.isfinite(out["pred"]).all()) and bool(torch.isfinite(q.loss))
+          and row["forward_codes_equal_encode_to_quant"])
+    if not ok:
+        raise SystemExit("tokenizer: a check failed (see the tokenizer line)")
+
+    def profile_tokenizer() -> None:
+        """Device time of one encode + decode of the batch by kernel, and
+        the device's idle share against the host clock (under the
+        profiler, so the host side is slower than in the timed run)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, wall = _timed(lambda: model.decode_from_quant(model.encode_to_quant(x)))
+        events = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
+        device_us = sum(e.self_device_time_total for e in events)
+        if device_us <= 0:
+            raise SystemExit("tokenizer_profile: the profiler recorded no device time")
+        emit({"phase": "tokenizer_profile", "images": TOKENIZER_BATCH,
+              "host_ms": 1e3 * wall, "device_ms": device_us / 1e3,
+              "device_idle_frac": 1.0 - device_us / 1e6 / wall,
+              "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                               "ms": e.self_device_time_total / 1e3,
+                               "share": e.self_device_time_total / device_us}
+                              for e in events[:8]]})
+
+    return launches, profile_tokenizer
+
+
+def phase_class_to_image(model, done: dict, dev) -> None:
+    from vector_quantization_tpu_torch.data.base import pixel_decode
+
+    grids = torch.stack([torch.as_tensor(done[r]).reshape(GRID, GRID) for r in sorted(done)]).to(dev)
+    zero_launches()
+    with torch.inference_mode():
+        images, wall = _timed(lambda: pixel_decode(model.decode_from_quant(grids)))
+    launches, _ = read_launches()  # decode runs the gather and convolutions: no ported kernel
+    row = {"phase": "class_to_image", "requests": len(done), "images_shape": list(images.shape),
+           "launches": launches,
+           "dtype": str(images.dtype).removeprefix("torch."), "decode_s": wall,
+           "decode_images_per_s": len(done) / wall}
+    emit(row)
+    if images.dtype != torch.uint8 or images.shape != (len(done), IMAGE_SIZE, IMAGE_SIZE, 3):
+        raise SystemExit("class_to_image: the served codes did not become uint8 images")
 
 
 def main() -> int:
@@ -480,11 +759,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     model = make_medium(args.seed, dev)
     profile_step = phase_decode_step(model, dev, gen)
-    launches = phase_serving(model, dev, args.seed, args.requests)
+    launches, done = phase_serving(model, dev, args.seed, args.requests)
+    k_vq = phase_vq_lookup(dev, gen)
+    torch.cuda.empty_cache()
+    vqgan, vqgan_cfg = make_vqgan(args.seed, dev)
+    tok_launches, profile_tokenizer = phase_tokenizer(vqgan, vqgan_cfg, dev, args.seed)
+    phase_class_to_image(vqgan, done, dev)
     profile_step()
+    profile_tokenizer()
     for k in (k_int8, k_attn):
         k["launches"] = launches[k["name"]]
-    emit({"kernels": [k_int8, k_attn]})
+    k_vq["launches"] = tok_launches["nearest_codes"]
+    emit({"kernels": [k_int8, k_attn, k_vq]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})
     return 0

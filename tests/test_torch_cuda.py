@@ -18,6 +18,11 @@ from vector_quantization_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_reference,
 )
+from vector_quantization_tpu_torch.ops.vq_lookup import (
+    compare_codes,
+    nearest_codes,
+    nearest_codes_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -107,3 +112,40 @@ def test_paged_attention_kernel_matches_plain(dev, pool_dtype, q_dtype, dh, ps, 
     assert float((got - want).abs().max()) <= tol * max(1.0, float(want.abs().max()))
     # length-0 rows give exactly 0
     assert torch.all(got[0] == 0)
+
+
+@pytest.mark.parametrize(
+    "n,k,d,dtype,metric,ties",
+    [
+        (16384, 16384, 8, torch.float32, "l2", False),  # the tokenizer's lookup
+        (16384, 16384, 8, torch.bfloat16, "l2", False),
+        (16384, 16384, 256, torch.float32, "l2", False),
+        (1000, 777, 40, torch.float32, "cosine", False),
+        (1, 16384, 8, torch.float32, "l2", False),
+        (4096, 1000, 8, torch.float32, "l2", True),
+        (4096, 1000, 8, torch.bfloat16, "l2", True),
+    ],
+)
+def test_nearest_codes_kernel_matches_plain(dev, n, k, d, dtype, metric, ties):
+    # f32 scores summed in another order: rows may differ only as near-ties
+    # (compare_codes); planted exact ties go to the lowest index exactly
+    rng = np.random.default_rng(n + k + d)
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    e = rng.standard_normal((k, d), dtype=np.float32)
+    if ties:
+        e[1::2] = e[0::2][: k // 2]
+        x[::3] = e[rng.integers(0, k // 2, x[::3].shape[0]) * 2]
+    x = torch.from_numpy(x).to(dev, dtype)
+    e = torch.from_numpy(e).to(dev, dtype)
+    before = nearest_codes.launches
+    got = nearest_codes(x, e, metric)
+    torch.cuda.synchronize()
+    assert nearest_codes.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    want = nearest_codes_reference(x, e, metric)
+    rep = compare_codes(x, e, got, want, metric)
+    assert rep["ok"], rep
+    if ties:
+        planted = torch.arange(0, n, 3, device=dev)
+        assert torch.equal(got[planted], want[planted])
+        assert bool((got[planted] % 2 == 0).all())

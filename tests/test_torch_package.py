@@ -15,6 +15,8 @@ import vector_quantization_tpu_torch
 from vector_quantization_tpu_torch.models.transformers.llama import LlamaTransformer
 from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul
 from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention
+from vector_quantization_tpu_torch.ops.vq_lookup import nearest_codes, vq_quantize
+from vector_quantization_tpu_torch.registries import ModelRegistry
 from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook, pack_c2i_tokens
 from vector_quantization_tpu_torch.tasks.serving import ARServer
 
@@ -54,6 +56,19 @@ def test_all_submodules_listed():
         "vector_quantization_tpu_torch.utils.bridge",
         "vector_quantization_tpu_torch.utils.registry",
         "vector_quantization_tpu_torch.registries",
+        "vector_quantization_tpu_torch.ops.vq_lookup",
+        "vector_quantization_tpu_torch.ops.distances",
+        "vector_quantization_tpu_torch.ops.losses",
+        "vector_quantization_tpu_torch.ops.ste",
+        "vector_quantization_tpu_torch.models.layers",
+        "vector_quantization_tpu_torch.models.connectors",
+        "vector_quantization_tpu_torch.models.quantizers.base",
+        "vector_quantization_tpu_torch.models.quantizers.vq",
+        "vector_quantization_tpu_torch.models.autoencoders.vqgan",
+        "vector_quantization_tpu_torch.tasks.image_tokenization",
+        "vector_quantization_tpu_torch.tasks.image_reconstruction",
+        "vector_quantization_tpu_torch.data.base",
+        "vector_quantization_tpu_torch.utils.config",
     } <= names
 
 
@@ -64,8 +79,22 @@ def test_server_defaults_to_cuda(monkeypatch):
         ARServer(tr, None, TokenCodebook(11, 16), image_tokens=4, batch_slots=2, paged=True)
 
 
+def test_tokenizer_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dict(
+        type="AutoencoderModel",
+        encoder=dict(type="VQGANEncoder", width=32, out_channels=8, width_mults=(1,), depth_mult=1),
+        quantizer=dict(type="VectorQuantizer", codebook_size=16, embedding_dim=8),
+        decoder=dict(type="VQGANDecoder", width=32, in_channels=8, width_mults=(1,), depth_mult=1),
+    )
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelRegistry.build(cfg)
+    model = ModelRegistry.build(cfg, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
 def test_cpu_calls_never_count_launches():
-    i0, a0 = int8_matmul.launches, paged_decode_attention.launches
+    i0, a0, v0 = int8_matmul.launches, paged_decode_attention.launches, nearest_codes.launches
     x = torch.ones(2, 8)
     int8_matmul(x, torch.ones(8, 4, dtype=torch.int8), torch.full((4,), 0.5))
     pool = torch.zeros(1, 2, 4, 2, 8)
@@ -73,7 +102,9 @@ def test_cpu_calls_never_count_launches():
         torch.ones(2, 2, 8), pool, pool, torch.zeros(2, 1, dtype=torch.int32),
         torch.ones(2, dtype=torch.int32), 0,
     )
-    assert (int8_matmul.launches, paged_decode_attention.launches) == (i0, a0)
+    nearest_codes(torch.ones(3, 8), torch.ones(5, 8), "cosine")
+    vq_quantize(torch.ones(3, 8), torch.ones(5, 8))
+    assert (int8_matmul.launches, paged_decode_attention.launches, nearest_codes.launches) == (i0, a0, v0)
 
 
 def test_pack_c2i_tokens():

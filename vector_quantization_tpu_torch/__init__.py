@@ -7,13 +7,22 @@ CUDA C++ (``csrc/``), built with ``nvcc`` for ``sm_90a`` at first use; on
 CPU tensors every kernel wrapper runs its plain PyTorch version. The port
 imports neither ``jax`` nor ``vector_quantization_tpu``.
 
-Covered so far: the INT8-weight, INT8-paged-KV, CFG continuous-batching
-server (``tasks.serving.ARServer`` with ``paged=True``) over the Llama
-decoder, and the two kernels on its path (``ops.int8_matmul``,
-``ops.paged_attention``).
+Covered so far:
+- the INT8-weight, INT8-paged-KV, CFG continuous-batching server
+  (``tasks.serving.ARServer`` with ``paged=True``) over the Llama decoder,
+  with its two kernels (``ops.int8_matmul``, ``ops.paged_attention``);
+- the VQGAN tokenizer's inference path (``tasks.image_reconstruction
+  .AutoencoderModel``: encode, nearest-code lookup, decode), built from the
+  files under ``configs/`` (``utils.config``, the registries), with the
+  nearest-code kernel (``ops.vq_lookup``).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
 from . import registries  # noqa: F401
-from .models.transformers import llama as _llama  # noqa: F401  (registers LlamaTransformer)
+# importing these registers their classes under the configs' type names
+from .models import connectors as _connectors  # noqa: F401
+from .models.autoencoders import vqgan as _vqgan  # noqa: F401
+from .models.quantizers import vq as _vq  # noqa: F401
+from .models.transformers import llama as _llama  # noqa: F401
+from .tasks import image_reconstruction as _image_reconstruction  # noqa: F401

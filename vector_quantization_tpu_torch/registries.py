@@ -9,4 +9,8 @@ from .utils.registry import Registry
 VQRegistry = Registry("VQ")
 
 ModelRegistry = VQRegistry.child("models")
+EncoderRegistry = ModelRegistry.child("encoders")
+DecoderRegistry = ModelRegistry.child("decoders")
+QuantizerRegistry = ModelRegistry.child("quantizers")
+ConnectorRegistry = ModelRegistry.child("connectors")
 TransformerRegistry = ModelRegistry.child("transformers")

@@ -7,12 +7,28 @@ model it is held against.
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Iterator, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["llama_params_from_flax"]
+from ..models.autoencoders.vqgan import _VQGANBackbone
+from ..models.connectors import ConvConnector
+from ..models.layers import AttnBlock, Downsample, ResBlock, Upsample
+
+__all__ = ["flax_param_shapes", "llama_params_from_flax", "state_dict_from_flax"]
+
+# the port's child name -> flax's, where flax named the child itself
+# (``GroupNorm32_0``, ``Conv_0``); every other child keeps its flax name
+_FLAX_CHILD = {
+    ResBlock: {"norm1": "GroupNorm32_0", "norm2": "GroupNorm32_1"},
+    AttnBlock: {"norm": "GroupNorm32_0"},
+    Downsample: {"conv": "Conv_0"},
+    Upsample: {"conv": "Conv_0"},
+    ConvConnector: {"conv": "Conv_0"},
+    _VQGANBackbone: {"norm_out": "GroupNorm32_0"},
+}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
@@ -39,3 +55,84 @@ def llama_params_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]
         name: torch.from_numpy(np.array(value, copy=True))
         for name, value in _flatten(params).items()
     }
+
+
+def _flax_leaves(module: nn.Module) -> Iterator[tuple[str, tuple[str, ...], str]]:
+    """(port parameter name, flax leaf path, layout) for every parameter of
+    ``module``: layout ``conv`` (flax HWIO, port OIHW), ``dense`` (flax
+    (in, out), port (out, in)) or ``same``."""
+
+    def visit(mod: nn.Module, path: tuple[str, ...], prefix: str):
+        if isinstance(mod, nn.GroupNorm):
+            yield prefix + "weight", path + ("GroupNorm_0", "scale"), "same"
+            yield prefix + "bias", path + ("GroupNorm_0", "bias"), "same"
+            return
+        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+            yield prefix + "weight", path + ("kernel",), "conv" if isinstance(mod, nn.Conv2d) else "dense"
+            if mod.bias is not None:
+                yield prefix + "bias", path + ("bias",), "same"
+            return
+        for name, _ in mod.named_parameters(recurse=False):
+            yield prefix + name, path + (name,), "same"
+        renames = _FLAX_CHILD.get(type(mod), {})
+        for name, child in mod.named_children():
+            yield from visit(child, path + (renames.get(name, name),), f"{prefix}{name}.")
+
+    return visit(module, (), "")
+
+
+_TO_PORT = {"conv": (3, 2, 0, 1), "dense": (1, 0)}  # axes of np.transpose
+_TO_FLAX = {"conv": (2, 3, 1, 0), "dense": (1, 0)}
+
+
+def state_dict_from_flax(module: nn.Module, params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The flax params (the ``params`` collection, numpy or JAX arrays) of a
+    tokenizer model or any of its parts -> a state dict for ``module``, the
+    port's module of the same configuration.
+
+    Walks the port's module tree beside flax's names (auto-generated ones
+    included: ``GroupNorm32_0/GroupNorm_0`` in each block, the ``Conv_0`` of
+    ``Downsample``/``Upsample``): a conv kernel goes HWIO -> OIHW, a Dense
+    kernel (in, out) -> Linear (out, in), GroupNorm ``scale``/``bias`` ->
+    ``weight``/``bias``, and a module's own parameters (the codebook) are
+    copied as they are. Raises on a flax leaf it did not consume, on a
+    parameter of ``module`` it did not fill, and on a shape mismatch.
+    """
+    want = module.state_dict()
+    out: dict[str, torch.Tensor] = {}
+    used: set[str] = set()
+    for name, path, layout in _flax_leaves(module):
+        node: Any = params
+        for part in path:
+            if not isinstance(node, Mapping) or part not in node:
+                raise KeyError(f"flax params have no {'/'.join(path)}")
+            node = node[part]
+        used.add(".".join(path))
+        value = np.asarray(node, dtype=np.float32)
+        if layout != "same":
+            value = value.transpose(_TO_PORT[layout])
+        if tuple(want[name].shape) != value.shape:
+            raise ValueError(f"{name}: flax gives {value.shape}, the port has {tuple(want[name].shape)}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(value))
+    unused = set(_flatten(params)) - used
+    if unused:
+        raise ValueError(f"flax leaves not consumed: {sorted(unused)}")
+    if want.keys() - out.keys():
+        raise ValueError(f"port parameters not filled: {sorted(want.keys() - out.keys())}")
+    return out
+
+
+def flax_param_shapes(module: nn.Module) -> dict[str, Any]:
+    """The nested flax params tree (leaf: shape tuple) that
+    :func:`state_dict_from_flax` takes for ``module``: for making weights
+    in the flax layout without JAX."""
+    tree: dict[str, Any] = {}
+    for name, path, layout in _flax_leaves(module):
+        shape = tuple(module.get_parameter(name).shape)
+        if layout != "same":
+            shape = tuple(shape[a] for a in _TO_FLAX[layout])
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = shape
+    return tree

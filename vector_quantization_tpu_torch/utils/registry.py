@@ -3,12 +3,16 @@
 The port's own copy of ``vector_quantization_tpu/utils/registry.py``,
 trimmed to registration, lookup and ``build``. ``build`` takes a plain
 mapping: ``type`` names the class, the remaining keys are its keyword
-arguments (a config's ``_delete_`` merge marker is dropped).
+arguments (a config's ``_delete_`` merge marker is dropped). A class may
+define a ``build_pre_hook(config, registry)`` classmethod, which ``build``
+runs first so the class can build its children and infer their widths.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Mapping, TypeVar
+
+from .config import Config
 
 T = TypeVar("T")
 
@@ -99,10 +103,12 @@ class Registry:
 
     def build(self, config: Mapping[str, Any] | None, **extra: Any) -> Any:
         """Instantiate ``config['type']`` with the remaining keys (and
-        ``extra``) as keyword arguments."""
+        ``extra``, deep-merged over them) as keyword arguments, after the
+        class's ``build_pre_hook`` if it has one."""
         if config is None:
             raise ValueError(f"{self.qualname()}.build(None)")
-        cfg = {**config, **extra}
+        cfg = Config.from_obj(dict(config))
+        cfg.merge(extra)
         cfg.pop("_delete_", None)
         type_path = cfg.pop("type", None)
         if type_path is None:
@@ -110,4 +116,7 @@ class Registry:
                 f"{self.qualname()}.build: config missing 'type': {cfg}"
             )
         cls = self.get(type_path) if isinstance(type_path, str) else type_path
+        pre_hook = getattr(cls, "build_pre_hook", None)
+        if pre_hook is not None:
+            cfg = pre_hook(cfg, self)
         return cls(**cfg)
