@@ -60,14 +60,44 @@ printing one JSON line; any failure exits non-zero:
    the same batch), and the convolutions' and Linears' FLOPs per image.
 8. ``class_to_image``: the code grids of the requests that phase 5 served
    -> decode_from_quant -> pixel_decode -> uint8 (requests, 256, 256, 3).
-9. ``decode_profile``: the decode step of phase 4 on the host clock and,
+9. ``flash_attention``: K4-fwd, K4-dkv and K4-dq against their plain
+   versions (both backward versions fed the kernel's o and lse), bf16, at
+   the path shape (B, T, H, Dh) = (64, 257, 16, 64), ragged T in {1, 63,
+   129, 300}, B x H = 1, Dh 32 and 128; o within 2e-3 of max(1, max|ref|)
+   beyond one bf16 step of each element (each version rounds its f32 result
+   to bf16 once), lse within 1e-4, dq/dk/dv within 1e-2 of max(1, max|ref|) (at T = 1
+   dq and dk are 0 up to rounding); an f32
+   input must be refused. Device times at the path shape (CUDA graph
+   replay): kernels, plain versions, and as ``library_ms``
+   ``F.scaled_dot_product_attention(is_causal=True)`` forward and its
+   backward (CUDA events around eager calls).
+10. ``ar_train``: ``ARAlgorithm`` from configs/llamagen/c2i_medium_imagenet_ddp.py
+   with ``transformer.flash=True`` through the port's config loader and
+   registry (Llama-medium, bf16 over f32 params, full per-block remat, fused
+   CE, AdamW with the config's warm-up schedule, weight decay 0.05, grad
+   clip 1.0), weights made from ``--seed`` (non-zero lm head), the tokenizer
+   of phase 7: 3 steps on 64 random 256 px images (K1 -> pack -> K4 -> fused
+   CE -> AdamW), then 5 on a batch of 128 code grids (median step time,
+   tokens/s, model FLOPs from the config over 989 TFLOP/s). Losses finite,
+   every transformer parameter changed and no tokenizer parameter, launches
+   per step K4-fwd 48 (24 + 24 remat re-runs), dkv 24, dq 24, K1 once per
+   image step, no plain version on the card.
+11. ``ar_flash_vs_einsum``: one step's loss and gradients on 64 rows of the
+   codes batch with the same weights through flash and through the einsum
+   attention (``flash=False``): loss within 1e-2 relative, every
+   parameter's gradient within 5e-2 relative L2 (bf16 attention rounds P at
+   other places in the two: before and after normalising).
+12. ``decode_profile``: the decode step of phase 4 on the host clock and,
    under torch.profiler, its device time; their ratio gives the device's
    idle share (run last: the profiler slows later host dispatch).
-10. ``tokenizer_profile``: one encode + decode of the 64 images of phase 7
+13. ``tokenizer_profile``: one encode + decode of the 64 images of phase 7
    under torch.profiler: device time by kernel and the idle share.
-11. ``kernels``: per kernel, launches in its path's run (phase 5 for the
-   server's two, phase 7 for the lookup), device time per call, the bound,
-   the plain version's and the yardstick's time.
+14. ``ar_train_profile``: one codes train step under torch.profiler:
+   device time by kernel and the idle share.
+15. ``kernels``: per kernel, launches in its path's run (phase 5 for the
+   server's two, phase 7 for the lookup, phase 10 for the three flash
+   kernels), device time per call, the bound, the plain version's and the
+   yardstick's time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
@@ -105,16 +135,19 @@ def emit(obj: dict) -> None:
 
 def zero_launches() -> None:
     """Set every kernel wrapper's launch count to 0 (before a path's run)."""
+    from vector_quantization_tpu_torch.ops import flash_attention as fa
     from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul
     from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention
     from vector_quantization_tpu_torch.ops.vq_lookup import nearest_codes
 
     int8_matmul.launches = paged_decode_attention.launches = nearest_codes.launches = 0
+    fa.flash_attention_fwd.launches = fa.flash_bwd_dkv.launches = fa.flash_bwd_dq.launches = 0
 
 
 def read_launches() -> tuple[dict, int]:
     """Every kernel wrapper's launch count, and the number of times any
     plain version ran on a CUDA tensor so far."""
+    from vector_quantization_tpu_torch.ops import flash_attention as fa
     from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
     from vector_quantization_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_reference,
@@ -123,9 +156,13 @@ def read_launches() -> tuple[dict, int]:
 
     launches = {"int8_matmul": int8_matmul.launches,
                 "paged_decode_attention": paged_decode_attention.launches,
-                "nearest_codes": nearest_codes.launches}
+                "nearest_codes": nearest_codes.launches,
+                "flash_attention_fwd": fa.flash_attention_fwd.launches,
+                "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
+                "flash_bwd_dq": fa.flash_bwd_dq.launches}
     plain = (int8_matmul_reference.cuda_calls + paged_decode_attention_reference.cuda_calls
-             + nearest_codes_reference.cuda_calls)
+             + nearest_codes_reference.cuda_calls + fa.flash_attention_reference.cuda_calls
+             + fa.flash_attention_bwd_reference.cuda_calls)
     return launches, plain
 
 
@@ -332,14 +369,10 @@ def phase_paged_attention(dev, gen) -> dict:
     }
 
 
-def make_medium(seed: int, dev):
-    """Llama-medium with INT8 weights and fused projections, weights made
-    from ``seed`` with numpy in the flax layout and loaded via the bridge."""
-    from vector_quantization_tpu_torch.models.transformers.llama import (
-        LlamaTransformer, fuse_llama_params, quantize_params_int8,
-    )
-    from vector_quantization_tpu_torch.utils.bridge import llama_params_from_flax
-
+def medium_flax_params(seed: int) -> dict:
+    """Float Llama-medium params in the flax layout, made from ``seed`` with
+    numpy: N(0, 0.02) embedding, projections and (non-zero) lm head; norm
+    scales 1."""
     rng = np.random.default_rng(seed)
     d, f = MEDIUM["hidden_size"], MEDIUM["ffn_dim"]
 
@@ -356,7 +389,18 @@ def make_medium(seed: int, dev):
             "gate_proj": {"kernel": normal(d, f)}, "up_proj": {"kernel": normal(d, f)},
             "down_proj": {"kernel": normal(f, d)},
         }
-    params = fuse_llama_params(quantize_params_int8(params))
+    return params
+
+
+def make_medium(seed: int, dev):
+    """Llama-medium with INT8 weights and fused projections, weights made
+    from ``seed`` with numpy in the flax layout and loaded via the bridge."""
+    from vector_quantization_tpu_torch.models.transformers.llama import (
+        LlamaTransformer, fuse_llama_params, quantize_params_int8,
+    )
+    from vector_quantization_tpu_torch.utils.bridge import llama_params_from_flax
+
+    params = fuse_llama_params(quantize_params_int8(medium_flax_params(seed)))
     model = LlamaTransformer(vocabulary_size=VOCAB, max_length=1 + IMAGE_TOKENS + STEPS_PER_SYNC,
                              dtype="bfloat16", quantize=True, fused_qkv=True, **MEDIUM)
     model.load_state_dict(llama_params_from_flax(params))
@@ -739,6 +783,292 @@ def phase_class_to_image(model, done: dict, dev) -> None:
         raise SystemExit("class_to_image: the served codes did not become uint8 images")
 
 
+# AR training (configs/llamagen/c2i_medium_imagenet_ddp.py with flash on)
+AR_CONFIG = "configs/llamagen/c2i_medium_imagenet_ddp.py"
+SEQ = 1 + IMAGE_TOKENS  # [class | 256 codes]
+AR_IMAGE_BATCH, AR_CODES_BATCH, AR_IMAGE_STEPS, AR_CODES_STEPS = 64, 128, 3, 5
+FLASH_O_LIMIT, FLASH_GRAD_LIMIT, FLASH_LSE_LIMIT = 2e-3, 1e-2, 1e-4
+EINSUM_LOSS_LIMIT, EINSUM_GRAD_LIMIT = 1e-2, 5e-2
+
+
+def event_ms(fn, reps: int = 10) -> float:
+    """Device milliseconds per eager call between CUDA events, after a
+    warm-up call (for work a CUDA graph cannot capture, such as autograd)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def flash_cost(b: int, t: int, h: int, dh: int) -> dict:
+    """Bytes (each input read once, each output written once) and tensor-core
+    operations of the three kernels at (B, T, H, Dh), causal."""
+    pairs = b * h * t * (t + 1) // 2  # (query, key) pairs at or below the diagonal
+    x, row = b * t * h * dh * 2, b * h * t * 4  # one bf16 (B, T, H, Dh); one f32 (B, H, T)
+    return {"fwd": (3 * x + x + row, 4 * dh * pairs),       # q, k, v -> o, lse
+            "dkv": (4 * x + 2 * row + 2 * x, 8 * dh * pairs),  # q, k, v, dO, lse, di -> dk, dv
+            "dq": (4 * x + 2 * row + x, 6 * dh * pairs)}      # ... -> dq
+
+
+def phase_flash_attention(dev, gen) -> list[dict]:
+    import torch.nn.functional as F
+
+    from vector_quantization_tpu_torch.ops import flash_attention as fa
+
+    path = (AR_IMAGE_BATCH, SEQ, MEDIUM["num_heads"], 64)
+    cases = [("path", path), ("t1", (4, 1, 8, 64)), ("t63", (4, 63, 8, 64)),
+             ("t129", (4, 129, 8, 64)), ("t300", (4, 300, 8, 64)), ("bh1", (1, SEQ, 1, 64)),
+             ("dh32", (4, 200, 8, 32)), ("dh128", (4, 200, 8, 128))]
+    timing = None
+    for name, shape in cases:
+        q, k, v, do = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4)]
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        ro, rl = fa.flash_attention_reference(q, k, v)
+        # both backward versions take the same residuals (the kernel's o, lse)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        rq, rk, rv = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        # over max(1, max|ref|): at T = 1 dq and dk are 0 up to rounding
+        grad_err = {n: float((g.float() - r.float()).abs().max())
+                    / max(1.0, float(r.float().abs().max()))
+                    for n, g, r in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv))}
+        row = {"phase": "flash_attention", "case": name, "B": shape[0], "T": shape[1],
+               "H": shape[2], "Dh": shape[3], "dtype": "bfloat16",
+               "o_max_abs_err": float((o.float() - ro.float()).abs().max()),
+               "o_err_beyond_one_bf16_step": fa.excess_over_bf16_step(o, ro), "o_limit": FLASH_O_LIMIT,
+               "lse_max_abs_err": float((lse - rl).abs().max()), "lse_limit": FLASH_LSE_LIMIT,
+               "grad_max_err_over_max_ref": grad_err, "grad_limit": FLASH_GRAD_LIMIT}
+        finite = all(bool(torch.isfinite(x).all()) for x in (o, lse, dq, dk, dv))
+        if (not finite or row["o_err_beyond_one_bf16_step"] > FLASH_O_LIMIT
+                or row["lse_max_abs_err"] > FLASH_LSE_LIMIT
+                or max(grad_err.values()) > FLASH_GRAD_LIMIT):
+            emit(row)
+            raise SystemExit(f"flash_attention {name}: kernels and plain versions disagree")
+        if name == "path":
+            di = fa._di(o, do)
+            qt, kt, vt = [x.transpose(1, 2) for x in (q, k, v)]  # SDPA's (B, H, T, Dh) views
+            qg, kg, vg = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+            sdpa_fwd = event_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+            dot = do.transpose(1, 2)
+
+            def sdpa_fwd_bwd():
+                out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+                torch.autograd.grad(out, (qg, kg, vg), dot)
+
+            sdpa_both = event_ms(sdpa_fwd_bwd)
+            plain_bwd = graph_ms([lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do)],
+                                 replays=3)
+            timing = {
+                "fwd": (graph_ms([lambda: fa.flash_attention_fwd(q, k, v)]),
+                        graph_ms([lambda: fa.flash_attention_reference(q, k, v)], replays=3),
+                        sdpa_fwd),
+                "dkv": (graph_ms([lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di)]), plain_bwd,
+                        sdpa_both - sdpa_fwd),
+                "dq": (graph_ms([lambda: fa.flash_bwd_dq(q, k, v, do, lse, di)]), plain_bwd,
+                       sdpa_both - sdpa_fwd),
+            }
+            cost = flash_cost(*shape)
+            row.update({f"{k}_{m}": val for k, (ms, plain, lib) in timing.items()
+                        for m, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib))})
+            row["sdpa_fwd_bwd_ms"] = sdpa_both
+            errs = (row["o_err_beyond_one_bf16_step"], grad_err)
+        emit(row)
+        del q, k, v, do, o, lse, ro, rl, dq, dk, dv, rq, rk, rv
+    # f32 is refused on the card, never cast
+    x = torch.zeros((1, 4, 2, 64), device=dev)
+    try:
+        fa.flash_attention_fwd(x, x, x)
+    except ValueError as e:
+        if "float32" not in str(e):
+            raise
+    else:
+        raise SystemExit("flash_attention: an f32 CUDA input was not refused")
+    cost = flash_cost(*path)
+    entries = []
+    for key, name, line, err in (
+        ("fwd", "flash_attention_fwd", "flash_attention.py:758 (kernel :331)", errs[0]),
+        ("dkv", "flash_bwd_dkv", "flash_attention.py:1121 (kernel :796)",
+         max(errs[1]["dk"], errs[1]["dv"])),
+        ("dq", "flash_bwd_dq", "flash_attention.py:1456 (kernel :1146)", errs[1]["dq"]),
+    ):
+        byts, ops = cost[key]
+        ms, plain, lib = timing[key]
+        bound_bytes, bound_ops = byts / HBM_BYTES_PER_S, ops / BF16_FLOPS
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "vector_quantization_tpu_torch/csrc/flash_attention.cu",
+            "replaces": ("vector_quantization_tpu/models/transformers/llama.py:232 -> "
+                         "jax/experimental/pallas/ops/tpu/" + line),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": 1e3 * max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "library_ms": lib, "bytes": byts, "ops": ops,
+            "note": (f"(B, T, H, Dh) = {path} bf16; max_abs_err: "
+                     + ("o beyond one bf16 step over max(1, max|ref|)" if key == "fwd"
+                        else "max|diff| over max(1, max|ref|)")
+                     + ("; library_ms = SDPA(is_causal) forward" if key == "fwd" else
+                        "; plain_ms = the whole plain backward (dq, dk, dv); library_ms = "
+                        "SDPA's backward (forward + backward minus forward)")),
+        })
+    return entries
+
+
+def make_ar_algorithm(seed: int, dev, vqgan):
+    """ARAlgorithm from the LlamaGen C2I medium config with flash on,
+    through the port's config loader and registry; Llama-medium weights
+    made from ``seed`` (non-zero lm head) and loaded through the bridge;
+    the tokenizer is phase ``tokenizer``'s VQGAN."""
+    from vector_quantization_tpu_torch.registries import AlgorithmRegistry
+    from vector_quantization_tpu_torch.utils.bridge import load_ar_from_flax
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    cfg = Config.load(str(Path(__file__).resolve().parent / AR_CONFIG))["trainer"]["algorithm"]
+    cfg["transformer"]["flash"] = True
+    cfg["ir"] = vqgan
+    algo = AlgorithmRegistry.build(cfg, device=dev)
+    load_ar_from_flax(algo, medium_flax_params(seed + 2))
+    return algo, cfg
+
+
+def ar_model_flops(cfg: dict, batch: int) -> tuple[float, float]:
+    """(model FLOPs of one train step, FLOPs with the full-remat re-run of
+    the blocks' forward), from the config's widths: the projections
+    (6 x tokens x weights), causal attention (4 x Dh per (query, key) pair
+    and head, x3 for forward and backward) and the head over B x (T-1)
+    positions (6 x D x V)."""
+    t = cfg["transformer"]
+    d, f, n_layers, h = t["hidden_size"], t["ffn_dim"], t["num_layers"], t["num_heads"]
+    tokens, pairs = batch * SEQ, batch * h * SEQ * (SEQ + 1) // 2
+    proj = 2 * tokens * n_layers * (4 * d * d + 3 * d * f)
+    attn = 4 * (d // h) * pairs * n_layers
+    head = 2 * batch * (SEQ - 1) * d * VOCAB
+    return 3 * (proj + attn + head), 3 * (proj + attn + head) + proj + attn
+
+
+def phase_ar_train(algo, cfg, dev, seed: int):
+    from vector_quantization_tpu_torch.data.base import pixel_encode
+
+    model = algo.model
+    n_layers = cfg["transformer"]["num_layers"]
+    rng = np.random.default_rng(seed + 3)
+    u8 = rng.integers(0, 256, (AR_IMAGE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)
+    image_batch = {"image": pixel_encode(torch.from_numpy(u8).to(dev)),
+                   "category": torch.from_numpy(rng.integers(0, NUM_CATEGORIES, AR_IMAGE_BATCH)).to(dev)}
+    codes_batch = {"codes": torch.from_numpy(rng.integers(0, CODEBOOK, (AR_CODES_BATCH, GRID, GRID))).to(dev),
+                   "category": torch.from_numpy(rng.integers(0, NUM_CATEGORIES, AR_CODES_BATCH)).to(dev)}
+    n_params = sum(p.numel() for p in model.parameters())
+    before = [p.detach().clone() for p in model.parameters()]
+    ir_before = [p.detach().clone() for p in algo.ir_model.parameters()]
+    state = algo.init_state(seed)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    _, plain0 = read_launches()
+    losses, times, lrs = [], [], []
+    for i in range(AR_IMAGE_STEPS + AR_CODES_STEPS):
+        batch = image_batch if i < AR_IMAGE_STEPS else codes_batch
+        lrs.append(algo.tx().schedule(state.opt_state["count"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = algo.train_step(state, batch)
+        losses.append(float(metrics["loss"]))  # synchronises
+        times.append(time.perf_counter() - t0)
+    launches, plain = read_launches()
+    plain_runs = plain - plain0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    changed = [not torch.equal(p, b) for p, b in zip(model.parameters(), before)]
+    ir_same = all(torch.equal(p, b) for p, b in zip(algo.ir_model.parameters(), ir_before))
+    del before, ir_before
+    steps = AR_IMAGE_STEPS + AR_CODES_STEPS
+    step_s = float(np.median(times[AR_IMAGE_STEPS:]))
+    model_flops, remat_flops = ar_model_flops(cfg, AR_CODES_BATCH)
+    want = {"flash_attention_fwd": 2 * n_layers * steps, "flash_bwd_dkv": n_layers * steps,
+            "flash_bwd_dq": n_layers * steps, "nearest_codes": AR_IMAGE_STEPS}
+    row = {"phase": "ar_train", "config": AR_CONFIG, "flash": True, "params": n_params,
+           "dtype": str(model.dtype).removeprefix("torch."), "remat": model.remat,
+           "image_batch": AR_IMAGE_BATCH, "image_steps": AR_IMAGE_STEPS,
+           "codes_batch": AR_CODES_BATCH, "codes_steps": AR_CODES_STEPS, "seq": SEQ,
+           "losses": losses, "lr_per_step": lrs, "step_s_host_clock": times,
+           "codes_step_ms_median": 1e3 * step_s,
+           "codes_tokens_per_s": AR_CODES_BATCH * SEQ / step_s,
+           "model_tflop_per_step": model_flops / 1e12,
+           "with_remat_tflop_per_step": remat_flops / 1e12,
+           "mfu_vs_989_tflops": model_flops / step_s / BF16_FLOPS,
+           "peak_memory_gib": peak_gb, "launches": launches, "expected_launches": want,
+           "plain_runs_on_cuda": plain_runs,
+           "params_changed": int(sum(changed)), "param_tensors": len(changed),
+           "tokenizer_unchanged": ir_same}
+    emit(row)
+    ok = (all(np.isfinite(losses)) and all(changed) and ir_same and plain_runs == 0
+          and all(launches[k] == v for k, v in want.items()))
+    if not ok:
+        raise SystemExit("ar_train: a check failed (see the ar_train line)")
+    return launches, state, codes_batch
+
+
+def phase_ar_flash_vs_einsum(algo, batch) -> None:
+    """One step's loss and gradients, same weights and tokens (the first
+    64 rows of the codes batch), through the flash kernels and through the
+    einsum attention (flash=False)."""
+    from vector_quantization_tpu_torch.tasks.sequence_modeling import pack_c2i_tokens
+
+    model = algo.model
+    tokens = pack_c2i_tokens(batch["category"][:AR_IMAGE_BATCH], batch["codes"][:AR_IMAGE_BATCH],
+                             algo.image_codebook)
+    params = list(model.parameters())
+    out = {}
+    for flash in (True, False):
+        for blk in model.blocks():
+            blk.flash = flash
+        loss = model(tokens, fused_ce_targets=tokens)
+        out[flash] = (float(loss.detach()), torch.autograd.grad(loss, params))
+    for blk in model.blocks():
+        blk.flash = True
+    (lf, gf), (le, ge) = out[True], out[False]
+    loss_rel = abs(lf - le) / abs(le)
+    grad_rel = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp(min=1e-30))
+                for a, b in zip(gf, ge)]
+    names = [n for n, _ in model.named_parameters()]
+    worst = int(np.argmax(grad_rel))
+    row = {"phase": "ar_flash_vs_einsum", "batch": AR_IMAGE_BATCH, "loss_flash": lf,
+           "loss_einsum": le, "loss_rel_diff": loss_rel, "loss_limit": EINSUM_LOSS_LIMIT,
+           "grad_rel_l2_max": grad_rel[worst], "grad_rel_l2_max_param": names[worst],
+           "grad_rel_l2_median": float(np.median(grad_rel)), "grad_limit": EINSUM_GRAD_LIMIT}
+    emit(row)
+    if loss_rel > EINSUM_LOSS_LIMIT or grad_rel[worst] > EINSUM_GRAD_LIMIT:
+        raise SystemExit("ar_flash_vs_einsum: the flash and einsum steps disagree")
+
+
+def profile_ar_step(algo, state, batch) -> None:
+    """One codes step under torch.profiler: device time by kernel and the
+    device's idle share against the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed(lambda: algo.train_step(state, batch))
+    events = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
+    device_us = sum(e.self_device_time_total for e in events)
+    if device_us <= 0:
+        raise SystemExit("ar_train_profile: the profiler recorded no device time")
+    groups = {"flash_attention_kernels": ("flash_",), "matmul_library": ("nvjet", "gemm", "cutlass")}
+    by_group = {g: sum(e.self_device_time_total for e in events
+                       if any(m in e.key for m in marks)) / 1e3 for g, marks in groups.items()}
+    by_group["other"] = device_us / 1e3 - sum(by_group.values())
+    emit({"phase": "ar_train_profile", "batch": AR_CODES_BATCH, "host_ms": 1e3 * wall,
+          "device_ms": device_us / 1e3, "device_idle_frac": 1.0 - device_us / 1e6 / wall,
+          "device_ms_by_group": by_group,
+          "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                           "ms": e.self_device_time_total / 1e3,
+                           "share": e.self_device_time_total / device_us}
+                          for e in events[:12]]})
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -765,12 +1095,20 @@ def main() -> int:
     vqgan, vqgan_cfg = make_vqgan(args.seed, dev)
     tok_launches, profile_tokenizer = phase_tokenizer(vqgan, vqgan_cfg, dev, args.seed)
     phase_class_to_image(vqgan, done, dev)
+    k_flash = phase_flash_attention(dev, gen)
+    torch.cuda.empty_cache()
+    algo, ar_cfg = make_ar_algorithm(args.seed, dev, vqgan)
+    ar_launches, ar_state, codes_batch = phase_ar_train(algo, ar_cfg, dev, args.seed)
+    phase_ar_flash_vs_einsum(algo, codes_batch)
     profile_step()
     profile_tokenizer()
+    profile_ar_step(algo, ar_state, codes_batch)
     for k in (k_int8, k_attn):
         k["launches"] = launches[k["name"]]
     k_vq["launches"] = tok_launches["nearest_codes"]
-    emit({"kernels": [k_int8, k_attn, k_vq]})
+    for k in k_flash:
+        k["launches"] = ar_launches[k["name"]]
+    emit({"kernels": [k_int8, k_attn, k_vq, *k_flash]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})
     return 0

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from vector_quantization_tpu_torch.models.transformers.llama import LlamaTransformer
+from vector_quantization_tpu_torch.ops import flash_attention as fa
 from vector_quantization_tpu_torch.ops.int8_matmul import (
     int8_matmul,
     int8_matmul_reference,
@@ -149,3 +151,55 @@ def test_nearest_codes_kernel_matches_plain(dev, n, k, d, dtype, metric, ties):
         planted = torch.arange(0, n, 3, device=dev)
         assert torch.equal(got[planted], want[planted])
         assert bool((got[planted] % 2 == 0).all())
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [(64, 257, 16, 64), (4, 1, 8, 64), (4, 63, 8, 64), (4, 129, 8, 64), (4, 300, 8, 64),
+     (1, 257, 1, 64), (4, 200, 8, 32), (4, 200, 8, 128)],
+)
+def test_flash_attention_kernels_match_plain(dev, shape):
+    # o: within 2e-3 of max(1, max|ref|) beyond one bf16 step per element
+    # (each version rounds its f32 result once); lse within 1e-4; dq/dk/dv
+    # within 1e-2 of max(1, max|ref|), both versions fed the kernel's o, lse
+    rng = np.random.default_rng(sum(shape))
+    q, k, v, do = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, torch.bfloat16)
+                   for _ in range(4)]
+    counts = (fa.flash_attention_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dq.launches) == tuple(c + 1 for c in counts)
+    ro, rl = fa.flash_attention_reference(q, k, v)
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape and lse.shape == (shape[0], shape[2], shape[1])
+    assert fa.excess_over_bf16_step(o, ro) <= 2e-3
+    assert float((lse - rl).abs().max()) <= 1e-4
+    for g, r in zip(grads, fa.flash_attention_bwd_reference(q, k, v, o, lse, do)):
+        assert g.dtype == torch.bfloat16
+        assert float((g.float() - r.float()).abs().max()) <= 1e-2 * max(1.0, float(r.float().abs().max()))
+
+
+def test_flash_attention_refuses_f32_on_cuda(dev):
+    x = torch.zeros((1, 4, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        fa.flash_attention_fwd(x, x, x)
+
+
+def test_llama_flash_remat_launches_kernels_only(dev):
+    # per train step: the forward kernel once per block and once more per
+    # block in the remat re-run; each backward kernel once per block
+    model = LlamaTransformer(vocabulary_size=300, hidden_size=128, num_layers=3, num_heads=2,
+                             ffn_dim=256, dtype="bfloat16", remat=True, flash=True).to(dev)
+    with torch.no_grad():
+        model.lm_head.normal_(0.0, 0.02)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 300, (4, 257))).to(dev)
+    before = (fa.flash_attention_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches,
+              fa.flash_attention_reference.cuda_calls, fa.flash_attention_bwd_reference.cuda_calls)
+    loss = model(tokens, fused_ce_targets=tokens)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    after = (fa.flash_attention_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches,
+             fa.flash_attention_reference.cuda_calls, fa.flash_attention_bwd_reference.cuda_calls)
+    assert tuple(a - b for a, b in zip(after, before)) == (6, 3, 3, 0, 0)
+    assert torch.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads)

@@ -108,25 +108,27 @@ def test_registry_builds_config_dict():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(),  # no cache: the training forward
+        dict(quantize=True),  # no cache on an INT8 model: the INT8 prefill forward
         dict(cache="dense"),
         dict(row_starts=True),
-        dict(fused_ce_targets=True),
+        dict(remat_policy="dots"),  # no cache: selective checkpointing
     ],
 )
 def test_paths_of_later_slices_raise(kwargs):
-    tt = LlamaTransformer(**TINY)
+    model_kw = {k: v for k, v in kwargs.items() if k in ("quantize", "remat_policy")}
+    if "remat_policy" in model_kw:
+        model_kw["remat"] = True
+    tt = LlamaTransformer(**TINY, **model_kw)
     tokens = torch.zeros((1, 1), dtype=torch.int32)
     cache = tt.init_paged_cache(1, 3, 4, 2, dtype=torch.float32, device="cpu")
     call = {}
     if kwargs.get("cache") == "dense":
         call["cache"] = (torch.zeros(1),)
-    elif kwargs:
+    elif kwargs.get("row_starts"):
         call["cache"] = cache
         call["slot_positions"] = torch.zeros(1, dtype=torch.int32)
-    if kwargs.get("row_starts"):
         call["row_starts"] = torch.zeros(1, dtype=torch.int32)
-    if kwargs.get("fused_ce_targets"):
+    elif "remat_policy" in kwargs:
         call["fused_ce_targets"] = tokens
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt(tokens, **call)

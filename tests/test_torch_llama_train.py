@@ -1,0 +1,108 @@
+"""The port's Llama training forward against the JAX model: the same flax
+weights (through utils/bridge.py, with a non-zero lm head so gradients
+reach the blocks), the same tokens; logits, the fused-CE loss and every
+parameter's gradient, with the einsum attention and with the flash
+attention (JAX's Pallas kernel in interpret mode), f32.
+
+Tolerances: logits within 1e-5 of max|ref| (f32 in another order); the
+fused loss within 1e-5 relative; gradients within 1e-4 of each leaf's
+max|ref| (measured: under 8e-6): the fused CE rounds the hidden states
+and the logits' cotangent to bf16 in both packages, from f32 values that
+differ in the last bits, so single elements may sit one bf16 step apart.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from vector_quantization_tpu.models.transformers.llama import LlamaTransformer as JaxLlama
+from vector_quantization_tpu_torch.models.transformers.llama import LlamaTransformer
+from vector_quantization_tpu_torch.utils.bridge import llama_params_from_flax, llama_params_to_flax
+
+TINY = dict(vocabulary_size=75, hidden_size=64, num_layers=2, num_heads=2, ffn_dim=128,
+            max_length=17)
+
+
+def _params():
+    params = JaxLlama(**TINY).init(jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32))["params"]
+    params = jax.tree_util.tree_map(np.asarray, dict(params))
+    rng = np.random.default_rng(5)
+    params["lm_head"] = (rng.standard_normal(params["lm_head"].shape) * 0.1).astype(np.float32)
+    return params
+
+
+def _tokens(b=3, t=17, seed=2):
+    return np.random.default_rng(seed).integers(0, TINY["vocabulary_size"], (b, t)).astype(np.int32)
+
+
+def _port(params, **kw):
+    model = LlamaTransformer(**TINY, **kw)
+    model.load_state_dict(llama_params_from_flax(params))
+    return model
+
+
+def _port_loss_and_grads(model, tokens):
+    loss = model(torch.from_numpy(tokens), fused_ce_targets=torch.from_numpy(tokens))
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    named = {n: g for (n, _), g in zip(model.named_parameters(), grads)}
+    return float(loss.detach()), named
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}.") if isinstance(v, dict) else {f"{prefix}{k}": v})
+    return out
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max()) / float(np.abs(want).max())
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_training_forward_matches_jax(flash):
+    params, tokens = _params(), _tokens()
+    jt = JaxLlama(**TINY, flash=flash)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    with pltpu.force_tpu_interpret_mode():
+        jlogits = jt.apply({"params": jparams}, jnp.asarray(tokens))
+        jloss, jgrads = jax.value_and_grad(
+            lambda p: jt.apply({"params": p}, jnp.asarray(tokens), fused_ce_targets=jnp.asarray(tokens))
+        )(jparams)
+    model = _port(params, flash=flash)
+    with torch.no_grad():
+        logits = model(torch.from_numpy(tokens))
+    assert logits.dtype == torch.float32 and logits.shape == (3, 17, TINY["vocabulary_size"])
+    assert _rel(logits, jlogits) <= 1e-5
+    loss, grads = _port_loss_and_grads(model, tokens)
+    assert abs(loss - float(jloss)) <= 1e-5 * float(jloss)
+    want = _flat(jax.tree_util.tree_map(np.asarray, dict(jgrads)))
+    assert set(grads) == set(want)
+    for name, g in grads.items():
+        assert float(g.abs().max()) > 0, name  # the non-zero head reaches every block
+        assert _rel(g, want[name]) <= 1e-4, name
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_remat_changes_nothing(flash):
+    params, tokens = _params(), _tokens(seed=4)
+    loss0, g0 = _port_loss_and_grads(_port(params, flash=flash), tokens)
+    loss1, g1 = _port_loss_and_grads(_port(params, flash=flash, remat=True), tokens)
+    assert loss0 == loss1
+    for name in g0:
+        assert torch.equal(g0[name], g1[name]), name
+
+
+def test_bridge_round_trip_and_unported_options():
+    params = _params()
+    back = _flat(llama_params_to_flax(_port(params)))
+    for name, value in _flat(params).items():
+        np.testing.assert_array_equal(back[name], value)
+    tokens = torch.from_numpy(_tokens())
+    with pytest.raises(NotImplementedError, match="dots"):
+        _port(params, remat=True, remat_policy="dots")(tokens, fused_ce_targets=tokens)

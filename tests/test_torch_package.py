@@ -13,12 +13,14 @@ import torch
 
 import vector_quantization_tpu_torch
 from vector_quantization_tpu_torch.models.transformers.llama import LlamaTransformer
+from vector_quantization_tpu_torch.ops import flash_attention as fa
 from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul
 from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention
 from vector_quantization_tpu_torch.ops.vq_lookup import nearest_codes, vq_quantize
-from vector_quantization_tpu_torch.registries import ModelRegistry
+from vector_quantization_tpu_torch.registries import AlgorithmRegistry, ModelRegistry
 from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook, pack_c2i_tokens
 from vector_quantization_tpu_torch.tasks.serving import ARServer
+from vector_quantization_tpu_torch.utils.config import Config
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -69,6 +71,12 @@ def test_all_submodules_listed():
         "vector_quantization_tpu_torch.tasks.image_reconstruction",
         "vector_quantization_tpu_torch.data.base",
         "vector_quantization_tpu_torch.utils.config",
+        "vector_quantization_tpu_torch.ops.flash_attention",
+        "vector_quantization_tpu_torch.ops.fused_ce",
+        "vector_quantization_tpu_torch.training.optim",
+        "vector_quantization_tpu_torch.training.state",
+        "vector_quantization_tpu_torch.algorithms.base",
+        "vector_quantization_tpu_torch.algorithms.ar",
     } <= names
 
 
@@ -93,7 +101,21 @@ def test_tokenizer_defaults_to_cuda(monkeypatch):
     assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
+def test_ar_algorithm_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config.load(str(REPO / "configs/regression/ar_anchor.py"))["trainer"]["algorithm"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AlgorithmRegistry.build(cfg)
+    algo = AlgorithmRegistry.build(cfg, device="cpu")
+    devices = {p.device.type for p in [*algo.model.parameters(), *algo.ir_model.parameters()]}
+    assert devices == {"cpu"}
+
+
 def test_cpu_calls_never_count_launches():
+    k4 = (fa.flash_attention_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+    x = torch.ones(1, 5, 2, 32, requires_grad=True)
+    fa.flash_attention(x, x, x).sum().backward()
+    assert (fa.flash_attention_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == k4
     i0, a0, v0 = int8_matmul.launches, paged_decode_attention.launches, nearest_codes.launches
     x = torch.ones(2, 8)
     int8_matmul(x, torch.ones(8, 4, dtype=torch.int8), torch.full((4,), 0.5))

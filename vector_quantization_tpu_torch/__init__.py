@@ -14,13 +14,18 @@ Covered so far:
 - the VQGAN tokenizer's inference path (``tasks.image_reconstruction
   .AutoencoderModel``: encode, nearest-code lookup, decode), built from the
   files under ``configs/`` (``utils.config``, the registries), with the
-  nearest-code kernel (``ops.vq_lookup``).
+  nearest-code kernel (``ops.vq_lookup``);
+- AR training of the class-conditional prior (``algorithms.ar.ARAlgorithm``:
+  tokenize, the Llama training forward with per-block remat, the
+  logits-free fused CE, optax-equivalent AdamW), with the flash attention
+  kernels, forward and backward (``ops.flash_attention``).
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 from . import registries  # noqa: F401
 # importing these registers their classes under the configs' type names
+from .algorithms import ar as _ar  # noqa: F401
 from .models import connectors as _connectors  # noqa: F401
 from .models.autoencoders import vqgan as _vqgan  # noqa: F401
 from .models.quantizers import vq as _vq  # noqa: F401

@@ -1,17 +1,28 @@
-"""Llama-style AR decoder: the paged decode path of the serving engine.
+"""Llama-style AR decoder: the training forward and the paged decode path.
 
-Port of ``vector_quantization_tpu/models/transformers/llama.py`` for the
-continuous-batching server: RMSNorm, rotate-half RoPE, SwiGLU FFN, no
-biases; float or INT8 weight-only projections (``Int8Dense``), optional
-fused qkv / gate+up projections, INT8 lm head; single-token decode with
-per-row ``slot_positions`` over a paged KV pool (``ops/paged_kv.py``) read
-by the paged decode attention kernel (``ops/paged_attention.py``).
+Port of ``vector_quantization_tpu/models/transformers/llama.py``: RMSNorm,
+rotate-half RoPE, SwiGLU FFN, no biases; float or INT8 weight-only
+projections (``Int8Dense``), optional fused qkv / gate+up projections,
+INT8 lm head.
+
+- The cache-free training forward: causal attention over the whole
+  sequence, either the einsum attention (f32 scores of the operands as
+  given, softmax in f32, probabilities cast to ``dtype`` before the product
+  with v) or, with ``flash=True`` and T > 1, the flash attention kernels
+  (``ops/flash_attention.py``); per-block rematerialisation with
+  ``torch.utils.checkpoint`` (``remat=True``); logits from the f32 (or
+  ``head_dtype``) head, or with ``fused_ce_targets`` the scalar
+  teacher-forced CE of the logits-free head (``ops/fused_ce.py``).
+- Single-token decode with per-row ``slot_positions`` over a paged KV pool
+  (``ops/paged_kv.py``) read by the paged decode attention kernel
+  (``ops/paged_attention.py``).
 
 Parameter names and layouts follow the flax module: projection weights are
 ``(in, out)`` (``kernel`` or ``w_int8`` + ``scale``), the embedding and
 norms are f32, so ``utils/bridge.py`` maps a flax param tree one to one.
-The training forward, the dense KV cache and the shared-column decode are
-later slices: calls that need them raise ``NotImplementedError``.
+The dense KV cache, the shared-column decode, the INT8 cache-free forward
+and ``remat_policy="dots"`` are later slices: calls that need them raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,7 +32,10 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ...ops.flash_attention import flash_attention
+from ...ops.fused_ce import fused_next_token_ce
 from ...ops.int8_matmul import int8_matmul
 from ...ops.paged_attention import paged_decode_attention
 from ...ops.paged_kv import PagedKVCache, init_paged_cache, paged_update
@@ -38,9 +52,10 @@ __all__ = [
     "resolve_dtype",
 ]
 
-_TRAINING_SLICE = "ROADMAP.md queue A: AR training (training forward, remat, flash, fused CE)"
+_REMAT_DOTS = "ROADMAP.md queue A: remat_policy='dots' (selective checkpointing)"
 _DENSE_SLICE = "ROADMAP.md queue A: the dense shared-column engine and generate()"
 _W8A8_SLICE = "ROADMAP.md queue A: int8_matmul_w8a8"
+_NEG_MASK = -1e9  # the reference's additive causal mask
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -109,6 +124,29 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> t
     return out.to(x.dtype)
 
 
+def _flash_train_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dtype: torch.dtype
+) -> torch.Tensor:
+    """Training-path causal attention through the flash attention kernels
+    (q/k/v (B, T, H, Dh) post-RoPE, cast to ``dtype``). The kernels read
+    the (B, T, H, Dh) layout and mask a ragged T themselves: no padding to a
+    tile multiple and no transposes, unlike the TPU library call."""
+    return flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
+
+
+def _einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dtype: torch.dtype):
+    """The reference's einsum attention: f32 scores of the operands as
+    given (exact products of bf16 values, f32 sums), divided by sqrt(Dh),
+    the additive causal mask, an f32 softmax, probabilities cast to
+    ``dtype`` before the product with v."""
+    t, dh = q.shape[1], q.shape[-1]
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) / float(np.sqrt(dh))
+    i = torch.arange(t, device=q.device)
+    mask = torch.where(i[None, :] <= i[:, None], 0.0, _NEG_MASK)
+    probs = torch.softmax(scores + mask, dim=-1).to(dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
 class LlamaBlock(nn.Module):
     def __init__(
         self,
@@ -118,9 +156,11 @@ class LlamaBlock(nn.Module):
         dtype: torch.dtype,
         quantize: bool,
         fused_qkv: bool,
+        flash: bool = False,
     ) -> None:
         super().__init__()
         self.num_heads = num_heads
+        self.flash = flash
         self.ffn_dim = ffn_dim
         self.dtype = dtype
         self.fused_qkv = fused_qkv
@@ -145,16 +185,8 @@ class LlamaBlock(nn.Module):
             self.up_proj = dense(d, ffn_dim)
         self.down_proj = dense(ffn_dim, d)
 
-    def forward(
-        self,
-        x: torch.Tensor,
-        positions: torch.Tensor,
-        cache: PagedKVCache,
-        layer_idx: int,
-        offset: torch.Tensor,
-    ) -> torch.Tensor:
-        """x: (B, 1, D); positions (B, 1); writes this token's k/v into the
-        pool at (layer_idx, offset) in place, then attends over the pool."""
+    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """input norm, q/k/v projections, RoPE: three (B, T, H, Dh)."""
         b, t, d = x.shape
         h = self.num_heads
         dh = d // h
@@ -165,7 +197,29 @@ class LlamaBlock(nn.Module):
             q, k, v = self.q_proj(y), self.k_proj(y), self.v_proj(y)
         q = _rope(q.reshape(b, t, h, dh), positions)
         k = _rope(k.reshape(b, t, h, dh), positions)
-        v = v.reshape(b, t, h, dh)
+        return q, k, v.reshape(b, t, h, dh)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        positions: torch.Tensor,
+        cache: PagedKVCache | None = None,
+        layer_idx: int = 0,
+        offset: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        """Without a cache: the training block, x (B, T, D), positions
+        (B, T), causal attention over the sequence. With a paged cache:
+        x (B, 1, D), positions (B, 1); writes this token's k/v into the
+        pool at (layer_idx, offset) in place, then attends over the pool."""
+        b, t, d = x.shape
+        q, k, v = self._qkv(x, positions)
+        if cache is None:
+            if self.flash and t > 1:
+                attn = _flash_train_attention(q, k, v, self.dtype)
+            else:
+                attn = _einsum_attention(q, k, v, self.dtype)
+            x = x + self.o_proj(attn.reshape(b, t, d))
+            return self._ffn(x)
         paged_update(cache, layer_idx, offset, k[:, 0], v[:, 0])
         attn = paged_decode_attention(
             q[:, 0],
@@ -194,6 +248,9 @@ class LlamaBlock(nn.Module):
 class LlamaTransformer(nn.Module):
     """Llama decoder (medium = 24L/16H/1024d/2816ffn, the defaults).
 
+    ``forward(tokens (B, T))`` is the training forward: logits (B, T, V)
+    float32, or with ``fused_ce_targets`` (B, T) the scalar teacher-forced
+    CE (position t predicts targets[:, t+1]) without the logits.
     ``forward(tokens (B, 1), cache=PagedKVCache, slot_positions=(B,))``
     returns ``(logits (B, 1, V) float32, cache)``; the pool is updated in
     place. The INT8 lm head (``quantize=True``) returns f32 logits; the
@@ -207,6 +264,9 @@ class LlamaTransformer(nn.Module):
     projections and embedding, zero lm head) from ``seed``; serving loads
     converted weights over them (``utils/bridge.py``).
     """
+
+    # the fused_ce_targets loss is wired into forward (ARAlgorithm checks)
+    supports_fused_ce = True
 
     def __init__(
         self,
@@ -253,7 +313,6 @@ class LlamaTransformer(nn.Module):
         self.quantize_mode = quantize_mode
         self.fused_qkv = fused_qkv
         self.paged_kernel = paged_kernel
-        # training-forward settings: stored for the training slice
         self.remat = remat
         self.remat_policy = remat_policy
         self.flash = flash
@@ -264,7 +323,7 @@ class LlamaTransformer(nn.Module):
         for i in range(num_layers):
             self.add_module(
                 f"layer{i}",
-                LlamaBlock(hidden_size, num_heads, ffn_dim, self.dtype, quantize, fused_qkv),
+                LlamaBlock(hidden_size, num_heads, ffn_dim, self.dtype, quantize, fused_qkv, flash),
             )
         self.final_norm = RMSNorm(hidden_size, self.dtype)
         if quantize:
@@ -297,10 +356,12 @@ class LlamaTransformer(nn.Module):
         row_starts: torch.Tensor | None = None,
         fused_ce_targets: torch.Tensor | None = None,
     ):
-        if fused_ce_targets is not None:
-            raise NotImplementedError(f"fused_ce_targets: {_TRAINING_SLICE}")
         if cache is None:
-            raise NotImplementedError(f"the cache-free training forward: {_TRAINING_SLICE}")
+            if slot_positions is not None or row_starts is not None:
+                raise ValueError("slot_positions and row_starts need a cache")
+            return self._train_forward(tokens, fused_ce_targets)
+        if fused_ce_targets is not None:
+            raise ValueError("fused_ce_targets is a training-path loss (no cache)")
         if not isinstance(cache, PagedKVCache):
             raise NotImplementedError(f"the dense KV cache: {_DENSE_SLICE}")
         if row_starts is not None:
@@ -323,6 +384,33 @@ class LlamaTransformer(nn.Module):
             hd = self.head_dtype or torch.float32
             logits = torch.matmul(x.to(hd).float(), self.lm_head.to(hd).float())
         return logits, cache
+
+    def _train_forward(
+        self, tokens: torch.Tensor, fused_ce_targets: torch.Tensor | None
+    ) -> torch.Tensor:
+        if self.quantize:
+            raise NotImplementedError(f"the INT8 cache-free (prefill) forward: {_DENSE_SLICE}")
+        b, t = tokens.shape
+        x = self.embedding[tokens.long()].to(self.dtype)
+        positions = torch.arange(t, device=tokens.device).expand(b, t)
+        remat = self.remat and torch.is_grad_enabled()
+        if remat and self.remat_policy == "dots":
+            raise NotImplementedError(_REMAT_DOTS)
+        for block in self.blocks():
+            if remat:
+                # full per-block remat: only block inputs are kept; the
+                # backward re-runs the block (and its attention kernel)
+                x = checkpoint(block, x, positions, use_reentrant=False)
+            else:
+                x = block(x, positions)
+        x = self.final_norm(x)
+        if fused_ce_targets is not None:
+            # the chunk is clamped to the vocabulary's 128-multiple, as in
+            # the reference (a tiny vocabulary gets one narrow chunk)
+            chunk = min(self.fused_ce_chunk, -(-self.vocabulary_size // 128) * 128)
+            return fused_next_token_ce(x, self.lm_head, fused_ce_targets, chunk)
+        hd = self.head_dtype or torch.float32
+        return torch.matmul(x.to(hd).float(), self.lm_head.to(hd).float())
 
     def init_paged_cache(
         self,

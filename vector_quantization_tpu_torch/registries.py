@@ -9,6 +9,7 @@ from .utils.registry import Registry
 VQRegistry = Registry("VQ")
 
 ModelRegistry = VQRegistry.child("models")
+AlgorithmRegistry = VQRegistry.child("algorithms")
 EncoderRegistry = ModelRegistry.child("encoders")
 DecoderRegistry = ModelRegistry.child("decoders")
 QuantizerRegistry = ModelRegistry.child("quantizers")

@@ -1,0 +1,164 @@
+"""Optimizer and learning-rate schedule builders (port of
+``vector_quantization_tpu/training/optim.py``, which builds optax chains).
+
+The same declarative configs::
+
+    optimizer = dict(type="adamw", lr=1e-4, weight_decay=0.05, grad_clip=1.0,
+                     schedule=dict(type="cosine", warmup=10_000, total=250_000))
+
+build an :class:`Optimizer` that applies optax's arithmetic to a list of
+parameters in place, so a train step of the port and one of the JAX package
+move the same weights alike:
+
+- ``grad_clip``: ``clip_by_global_norm`` (no ε: gradients are scaled by
+  ``max_norm / ‖g‖`` only when ``‖g‖ >= max_norm``);
+- ``adam``/``adamw``: ``scale_by_adam`` with bias correction at the step
+  count, ``u = m̂ / (sqrt(v̂) + eps)``; ``adamw`` adds
+  ``weight_decay · p`` to ``u`` before the learning rate, so the decay is
+  scaled by the schedule's value (0 at the first warm-up step);
+- ``sgd``: optax ``trace`` momentum;
+- the schedule is read at the count of updates already applied (0 first),
+  as ``scale_by_learning_rate`` reads it.
+
+``lars`` and the ``exclude`` parameter mask are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Mapping, Sequence
+
+import torch
+
+__all__ = ["Optimizer", "build_optimizer", "build_schedule"]
+
+_LARS = "ROADMAP.md queue A: the LARS optimizer (linear probe)"
+_EXCLUDE = "ROADMAP.md queue A: the optimizer's exclude mask (frozen parameters)"
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    def sched(count: int) -> float:
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+
+    return sched
+
+
+def _cosine(init: float, steps: int, alpha: float) -> Callable[[int], float]:
+    def sched(count: int) -> float:
+        cos = 0.5 * (1.0 + math.cos(math.pi * min(count, steps) / steps))
+        return init * ((1.0 - alpha) * cos + alpha)
+
+    return sched
+
+
+def build_schedule(cfg: Mapping[str, Any] | float | None, lr: float) -> Callable[[int], float]:
+    """A function of the update count -> learning rate, with optax's
+    ``constant``, ``cosine_decay``, ``linear`` and ``join_schedules``
+    semantics (warm-up: linear from 0 to ``lr`` over ``warmup`` counts)."""
+    if cfg is None:
+        return lambda count: lr
+    if isinstance(cfg, (int, float)):
+        return lambda count: float(cfg)
+    kind = cfg.get("type", "constant")
+    warmup = int(cfg.get("warmup", 0))
+    total = int(cfg.get("total", 0))
+    end = float(cfg.get("end", 0.0))
+    if kind == "constant":
+        sched = lambda count: lr  # noqa: E731
+    elif kind == "cosine":
+        sched = _cosine(lr, max(total - warmup, 1), end / lr if lr else 0.0)
+    elif kind == "linear":
+        sched = _linear(lr, end, max(total - warmup, 1))
+    else:
+        raise ValueError(f"unknown schedule {kind!r}")
+    if not warmup:
+        return sched
+    warm = _linear(0.0, lr, warmup)
+    return lambda count: warm(count) if count < warmup else sched(count - warmup)
+
+
+class Optimizer:
+    """An optax-style update applied in place to a list of tensors.
+
+    ``init(params)`` returns the state (moments and the update count);
+    ``step(params, grads, state)`` clips, updates the moments and moves the
+    parameters, all in place (grads are clipped in place too)."""
+
+    def __init__(
+        self,
+        kind: str,
+        schedule: Callable[[int], float],
+        grad_clip: float | None = None,
+        b1: float = 0.9,
+        b2: float = 0.999,
+        eps: float = 1e-8,
+        weight_decay: float | None = None,
+        momentum: float | None = None,
+    ) -> None:
+        if kind not in ("adam", "adamw", "sgd"):
+            raise ValueError(f"unknown optimizer {kind!r}")
+        self.kind = kind
+        self.schedule = schedule
+        self.grad_clip = grad_clip
+        self.b1, self.b2, self.eps = b1, b2, eps
+        # optax.adamw's default decay; adam and sgd have none
+        self.weight_decay = (1e-4 if weight_decay is None else weight_decay) if kind == "adamw" else 0.0
+        self.momentum = momentum
+
+    def init(self, params: Sequence[torch.Tensor]) -> dict[str, Any]:
+        zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
+        if self.kind == "sgd":
+            return {"count": 0, "trace": zeros() if self.momentum else None}
+        return {"count": 0, "mu": zeros(), "nu": zeros()}
+
+    @torch.no_grad()
+    def step(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: dict) -> None:
+        if self.grad_clip:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            factor = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
+            torch._foreach_mul_(grads, factor)
+        lr = self.schedule(state["count"])
+        state["count"] += 1
+        if self.kind == "sgd":
+            updates = grads
+            if self.momentum:
+                trace = state["trace"]
+                torch._foreach_mul_(trace, self.momentum)
+                torch._foreach_add_(trace, grads)
+                updates = trace
+            torch._foreach_add_(params, updates, alpha=-lr)
+            return
+        count = state["count"]
+        mu, nu = state["mu"], state["nu"]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
+        mu_hat = torch._foreach_div(mu, 1.0 - self.b1**count)
+        nu_hat = torch._foreach_div(nu, 1.0 - self.b2**count)
+        torch._foreach_sqrt_(nu_hat)
+        torch._foreach_add_(nu_hat, self.eps)
+        updates = torch._foreach_div(mu_hat, nu_hat)
+        if self.weight_decay:
+            torch._foreach_add_(updates, params, alpha=self.weight_decay)
+        torch._foreach_add_(params, updates, alpha=-lr)
+
+
+def build_optimizer(cfg: Mapping[str, Any]) -> Optimizer:
+    """The optimizer a config names (``type`` adam | adamw | sgd, ``lr``,
+    ``schedule``, ``grad_clip``, ``betas`` or ``b1``/``b2``, and the kind's
+    own keywords)."""
+    cfg = dict(cfg)
+    kind = cfg.pop("type", "adam")
+    lr = float(cfg.pop("lr", 1e-4))
+    schedule = build_schedule(cfg.pop("schedule", None), lr)
+    grad_clip = cfg.pop("grad_clip", None)
+    if cfg.pop("exclude", None):
+        raise NotImplementedError(_EXCLUDE)
+    betas = cfg.pop("betas", None)
+    if betas is not None:
+        cfg["b1"], cfg["b2"] = betas
+    if kind == "lars":
+        raise NotImplementedError(_LARS)
+    return Optimizer(kind, schedule, float(grad_clip) if grad_clip else None, **cfg)

@@ -17,7 +17,13 @@ from ..models.autoencoders.vqgan import _VQGANBackbone
 from ..models.connectors import ConvConnector
 from ..models.layers import AttnBlock, Downsample, ResBlock, Upsample
 
-__all__ = ["flax_param_shapes", "llama_params_from_flax", "state_dict_from_flax"]
+__all__ = [
+    "flax_param_shapes",
+    "llama_params_from_flax",
+    "llama_params_to_flax",
+    "load_ar_from_flax",
+    "state_dict_from_flax",
+]
 
 # the port's child name -> flax's, where flax named the child itself
 # (``GroupNorm32_0``, ``Conv_0``); every other child keeps its flax name
@@ -55,6 +61,33 @@ def llama_params_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]
         name: torch.from_numpy(np.array(value, copy=True))
         for name, value in _flatten(params).items()
     }
+
+
+def llama_params_to_flax(module: nn.Module) -> dict[str, Any]:
+    """The reverse of :func:`llama_params_from_flax`: the port's
+    ``LlamaTransformer`` -> nested flax-layout numpy params (f32 stays
+    f32), for holding updated weights against the JAX package's."""
+    tree: dict[str, Any] = {}
+    for name, value in module.state_dict().items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value.detach().cpu().numpy().copy()
+    return tree
+
+
+def load_ar_from_flax(
+    algorithm: Any, params: Mapping[str, Any], ir_params: Mapping[str, Any] | None = None
+) -> None:
+    """Carry a JAX ``ARAlgorithm``'s weights into the port's: the
+    transformer's flax ``params`` and, if given, the tokenizer's
+    (``state.extra["ir_params"]``), copied into ``algorithm.model`` and
+    ``algorithm.ir_model`` in place."""
+    algorithm.model.load_state_dict(llama_params_from_flax(params))
+    if ir_params is not None:
+        ir = algorithm.ir_model
+        ir.load_state_dict(state_dict_from_flax(ir, ir_params))
 
 
 def _flax_leaves(module: nn.Module) -> Iterator[tuple[str, tuple[str, ...], str]]:
@@ -108,7 +141,7 @@ def state_dict_from_flax(module: nn.Module, params: Mapping[str, Any]) -> dict[s
                 raise KeyError(f"flax params have no {'/'.join(path)}")
             node = node[part]
         used.add(".".join(path))
-        value = np.asarray(node, dtype=np.float32)
+        value = np.array(node, dtype=np.float32)
         if layout != "same":
             value = value.transpose(_TO_PORT[layout])
         if tuple(want[name].shape) != value.shape:
