@@ -4,8 +4,11 @@
 Usage: python3 chip_smoke.py [--seed 0] [--requests 48]
 
 Builds the port's CUDA kernels from ``vector_quantization_tpu_torch/csrc``
-(one ``nvcc`` per source, all at once), then runs these phases, each
-printing one JSON line; any failure exits non-zero:
+(one ``nvcc`` per source, all at once; the ``build`` line gives each
+source's ptxas register counts and, for the flash forward at each head dim,
+its registers, spill bytes, shared memory and resident blocks per SM at
+T = 257), then runs these phases, each printing one JSON line; any failure
+exits non-zero:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions; TF32 is switched off for matmuls and cuDNN convolutions
@@ -63,7 +66,8 @@ printing one JSON line; any failure exits non-zero:
 9. ``flash_attention``: K4-fwd, K4-dkv and K4-dq against their plain
    versions (both backward versions fed the kernel's o and lse), bf16, at
    the path shape (B, T, H, Dh) = (64, 257, 16, 64), ragged T in {1, 63,
-   129, 300}, B x H = 1, Dh 32 and 128; o within 2e-3 of max(1, max|ref|)
+   64, 65, 129, 256, 300} (the forward's partial first tile at each
+   length), B x H = 1, Dh 32 and 128; o within 2e-3 of max(1, max|ref|)
    beyond one bf16 step of each element (each version rounds its f32 result
    to bf16 once), lse within 1e-4, dq/dk/dv within 1e-2 of max(1, max|ref|) (at T = 1
    dq and dk are 0 up to rounding); an f32
@@ -107,6 +111,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -207,8 +212,33 @@ def phase_device() -> tuple[str, dict]:
                  "count": torch.cuda.device_count()}
 
 
+def ptxas_entries(log: str, kernel: str) -> dict:
+    """Registers, static shared memory and spill bytes that ``nvcc -Xptxas -v``
+    reports for each instantiation of ``kernel`` (keyed by its first template
+    argument, the head dim for the flash kernels)."""
+    out, key = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(kernel + r"ILi(\d+)E", m.group(1))
+            key = f"dh{k.group(1)}" if k else None
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(key, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.setdefault(key, {}).update(registers=int(m.group(1)),
+                                           static_smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
 def phase_build() -> None:
     from vector_quantization_tpu_torch.ops import _build
+    from vector_quantization_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -216,8 +246,13 @@ def phase_build() -> None:
         name: sorted({ln.split(":", 1)[1].strip() for ln in log.splitlines() if "Used" in ln})
         for name, log in logs.items()
     }
+    fwd = ptxas_entries(logs["flash_attention"], "flash_fwd_kernel")
+    for dh, entry in fwd.items():
+        entry.update(fa.flash_fwd_plan(SEQ, int(dh[2:])))
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "sources": sorted(logs), "ptxas": regs})
+          "sources": sorted(logs), "ptxas": regs, "flash_fwd_at_t257": fwd})
+    if not fwd:
+        raise SystemExit("build: no flash_fwd_kernel entry in the ptxas log")
 
 
 def phase_int8_matmul(dev, gen) -> dict:
@@ -823,7 +858,8 @@ def phase_flash_attention(dev, gen) -> list[dict]:
 
     path = (AR_IMAGE_BATCH, SEQ, MEDIUM["num_heads"], 64)
     cases = [("path", path), ("t1", (4, 1, 8, 64)), ("t63", (4, 63, 8, 64)),
-             ("t129", (4, 129, 8, 64)), ("t300", (4, 300, 8, 64)), ("bh1", (1, SEQ, 1, 64)),
+             ("t64", (4, 64, 8, 64)), ("t65", (4, 65, 8, 64)), ("t129", (4, 129, 8, 64)),
+             ("t256", (4, 256, 8, 64)), ("t300", (4, 300, 8, 64)), ("bh1", (1, SEQ, 1, 64)),
              ("dh32", (4, 200, 8, 32)), ("dh128", (4, 200, 8, 128))]
     timing = None
     for name, shape in cases:

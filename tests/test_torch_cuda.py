@@ -156,7 +156,13 @@ def test_nearest_codes_kernel_matches_plain(dev, n, k, d, dtype, metric, ties):
 @pytest.mark.parametrize(
     "shape",
     [(64, 257, 16, 64), (4, 1, 8, 64), (4, 63, 8, 64), (4, 129, 8, 64), (4, 300, 8, 64),
-     (1, 257, 1, 64), (4, 200, 8, 32), (4, 200, 8, 128)],
+     (1, 257, 1, 64), (4, 200, 8, 32), (4, 200, 8, 128),
+     # end-aligned tiles: tile 0 holds 2, 64, 1, 64 and 64 live rows (64:
+     # no partial tile); T = 257 at Dh 32 and 128
+     (4, 2, 8, 64), (4, 64, 8, 64), (4, 65, 8, 64), (4, 128, 8, 64), (4, 256, 8, 64),
+     (4, 257, 8, 32), (4, 257, 8, 128),
+     # heads longer than the forward keeps in shared memory: k/v tiles stream
+     (2, 1000, 4, 64), (2, 700, 2, 128), (1, 2000, 2, 32)],
 )
 def test_flash_attention_kernels_match_plain(dev, shape):
     # o: within 2e-3 of max(1, max|ref|) beyond one bf16 step per element
@@ -184,6 +190,26 @@ def test_flash_attention_refuses_f32_on_cuda(dev):
     x = torch.zeros((1, 4, 2, 64), device=dev)
     with pytest.raises(ValueError, match="float32"):
         fa.flash_attention_fwd(x, x, x)
+
+
+def test_flash_attention_refuses_misaligned_inputs(dev):
+    # a bf16 view one element into its buffer is contiguous but not 16-byte
+    # aligned: the forward refuses it (tensor-map loads need 16-byte
+    # alignment) and launches nothing
+    shape = (1, 64, 2, 64)
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16, device=dev)
+    x = buf[1:n + 1].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    y = buf[8:].view(shape)
+    before = fa.flash_attention_fwd.launches
+    for args in ((x, y, y), (y, x, y), (y, y, x)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fa.flash_attention_fwd(*args)
+    assert fa.flash_attention_fwd.launches == before
+    o, _ = fa.flash_attention_fwd(y, y, y)  # the aligned view runs
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o.float()).all())
 
 
 def test_llama_flash_remat_launches_kernels_only(dev):

@@ -87,13 +87,14 @@ def _finish(name: str, job: tuple[subprocess.Popen, Path, Path]) -> str:
 
 def build_all() -> dict[str, str]:
     """Compile every ``csrc/*.cu`` in parallel; returns {name: nvcc log}
-    (empty for sources already built). Raises if any build fails."""
+    (the saved log for sources already built). Raises if any build fails."""
     with _lock:
         jobs = {name: _start(name) for name in sources()}
         logs, errors = {}, []
         for name, job in jobs.items():
             if job is None:
-                logs[name] = ""
+                saved = _target(name).parent / f"{name}.log"
+                logs[name] = saved.read_text() if saved.exists() else ""
                 continue
             try:
                 logs[name] = _finish(name, job)
