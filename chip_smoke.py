@@ -5,10 +5,10 @@ Usage: python3 chip_smoke.py [--seed 0] [--requests 48]
 
 Builds the port's CUDA kernels from ``vector_quantization_tpu_torch/csrc``
 (one ``nvcc`` per source, all at once; the ``build`` line gives each
-source's ptxas register counts and, for the flash forward at each head dim,
-its registers, spill bytes, shared memory and resident blocks per SM at
-T = 257), then runs these phases, each printing one JSON line; any failure
-exits non-zero:
+source's ptxas register counts and, for the flash forward and the flash
+dK/dV kernel at each head dim, their registers, spill bytes, shared memory
+and resident blocks per SM at T = 257), then runs these phases, each
+printing one JSON line; any failure exits non-zero:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions; TF32 is switched off for matmuls and cuDNN convolutions
@@ -66,15 +66,18 @@ exits non-zero:
 9. ``flash_attention``: K4-fwd, K4-dkv and K4-dq against their plain
    versions (both backward versions fed the kernel's o and lse), bf16, at
    the path shape (B, T, H, Dh) = (64, 257, 16, 64), ragged T in {1, 63,
-   64, 65, 129, 256, 300} (the forward's partial first tile at each
-   length), B x H = 1, Dh 32 and 128; o within 2e-3 of max(1, max|ref|)
+   64, 65, 129, 256, 300} (the partial first tile at each length), 705
+   (the dK/dV kernel's q/dO tiles stream through its ring), B x H = 1, Dh
+   32 and 128; o within 2e-3 of max(1, max|ref|)
    beyond one bf16 step of each element (each version rounds its f32 result
    to bf16 once), lse within 1e-4, dq/dk/dv within 1e-2 of max(1, max|ref|) (at T = 1
    dq and dk are 0 up to rounding); an f32
-   input must be refused. Device times at the path shape (CUDA graph
-   replay): kernels, plain versions, and as ``library_ms``
-   ``F.scaled_dot_product_attention(is_causal=True)`` forward and its
-   backward (CUDA events around eager calls).
+   input must be refused. Device times at the path shape, all by CUDA-graph
+   replay: the kernels, K4's whole backward (the ``di`` pass, dkv and dq),
+   the plain versions, and as ``library_ms`` PyTorch's causal flash
+   attention (SDPA pinned to its FLASH_ATTENTION backend): its forward, and
+   its backward alone (the aten flash backward on residuals made outside
+   the graph); ``sdpa_fwd_bwd_ms`` both together.
 10. ``ar_train``: ``ARAlgorithm`` from configs/llamagen/c2i_medium_imagenet_ddp.py
    with ``transformer.flash=True`` through the port's config loader and
    registry (Llama-medium, bf16 over f32 params, full per-block remat, fused
@@ -90,7 +93,10 @@ exits non-zero:
    codes batch with the same weights through flash and through the einsum
    attention (``flash=False``): loss within 1e-2 relative, every
    parameter's gradient within 5e-2 relative L2 (bf16 attention rounds P at
-   other places in the two: before and after normalising).
+   other places in the two: before and after normalising). Then the train
+   step on those 64 rows with each attention (einsum is what the shipped
+   configs/ar/transformers/llama.py runs), median of 3 steps on the host
+   clock after a warm-up.
 12. ``decode_profile``: the decode step of phase 4 on the host clock and,
    under torch.profiler, its device time; their ratio gives the device's
    idle share (run last: the profiler slows later host dispatch).
@@ -249,10 +255,14 @@ def phase_build() -> None:
     fwd = ptxas_entries(logs["flash_attention"], "flash_fwd_kernel")
     for dh, entry in fwd.items():
         entry.update(fa.flash_fwd_plan(SEQ, int(dh[2:])))
+    dkv = ptxas_entries(logs["flash_attention"], "flash_bwd_dkv_kernel")
+    for dh, entry in dkv.items():
+        entry.update(fa.flash_bwd_dkv_plan(SEQ, int(dh[2:])))
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "sources": sorted(logs), "ptxas": regs, "flash_fwd_at_t257": fwd})
-    if not fwd:
-        raise SystemExit("build: no flash_fwd_kernel entry in the ptxas log")
+          "sources": sorted(logs), "ptxas": regs, "flash_fwd_at_t257": fwd,
+          "flash_bwd_dkv_at_t257": dkv})
+    if not fwd or not dkv:
+        raise SystemExit("build: no flash_fwd_kernel or flash_bwd_dkv_kernel entry in the ptxas log")
 
 
 def phase_int8_matmul(dev, gen) -> dict:
@@ -826,19 +836,32 @@ FLASH_O_LIMIT, FLASH_GRAD_LIMIT, FLASH_LSE_LIMIT = 2e-3, 1e-2, 1e-4
 EINSUM_LOSS_LIMIT, EINSUM_GRAD_LIMIT = 1e-2, 5e-2
 
 
-def event_ms(fn, reps: int = 10) -> float:
-    """Device milliseconds per eager call between CUDA events, after a
-    warm-up call (for work a CUDA graph cannot capture, such as autograd)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / reps
+def sdpa_flash_ms(q, k, v, do) -> dict:
+    """The yardstick of K4: PyTorch's causal flash attention (SDPA pinned to
+    its FLASH_ATTENTION backend) on K4's inputs, (B, T, H, Dh) viewed as
+    SDPA's (B, H, T, Dh), each part timed by CUDA-graph replay as the
+    kernels are: the forward; the backward alone (the aten flash backward
+    on residuals that one forward call made outside the graph); forward and
+    backward together."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt, dot = [x.transpose(1, 2) for x in (q, k, v, do)]
+    fwd_op = torch.ops.aten._scaled_dot_product_flash_attention
+    bwd_op = torch.ops.aten._scaled_dot_product_flash_attention_backward
+
+    def backward(res):
+        # res: (out, logsumexp, cum_seq_q, cum_seq_k, max_q, max_k, rng_state, unused, ...)
+        return bwd_op(dot, qt, kt, vt, res[0], res[1], res[2], res[3], res[4], res[5],
+                      0.0, True, res[6], res[7])
+
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        fwd_ms = graph_ms([lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)])
+    res = fwd_op(qt, kt, vt, 0.0, True)
+    return {"backend": "FLASH_ATTENTION", "fwd_ms": fwd_ms,
+            "bwd_ms": graph_ms([lambda: backward(res)]),
+            "fwd_bwd_ms": graph_ms([lambda: backward(fwd_op(qt, kt, vt, 0.0, True))]),
+            "bwd_schema": str(bwd_op.default._schema)}
 
 
 def flash_cost(b: int, t: int, h: int, dh: int) -> dict:
@@ -852,14 +875,13 @@ def flash_cost(b: int, t: int, h: int, dh: int) -> dict:
 
 
 def phase_flash_attention(dev, gen) -> list[dict]:
-    import torch.nn.functional as F
-
     from vector_quantization_tpu_torch.ops import flash_attention as fa
 
     path = (AR_IMAGE_BATCH, SEQ, MEDIUM["num_heads"], 64)
     cases = [("path", path), ("t1", (4, 1, 8, 64)), ("t63", (4, 63, 8, 64)),
              ("t64", (4, 64, 8, 64)), ("t65", (4, 65, 8, 64)), ("t129", (4, 129, 8, 64)),
-             ("t256", (4, 256, 8, 64)), ("t300", (4, 300, 8, 64)), ("bh1", (1, SEQ, 1, 64)),
+             ("t256", (4, 256, 8, 64)), ("t300", (4, 300, 8, 64)), ("t705", (2, 705, 4, 64)),
+             ("bh1", (1, SEQ, 1, 64)),
              ("dh32", (4, 200, 8, 32)), ("dh128", (4, 200, 8, 128))]
     timing = None
     for name, shape in cases:
@@ -889,31 +911,26 @@ def phase_flash_attention(dev, gen) -> list[dict]:
             raise SystemExit(f"flash_attention {name}: kernels and plain versions disagree")
         if name == "path":
             di = fa._di(o, do)
-            qt, kt, vt = [x.transpose(1, 2) for x in (q, k, v)]  # SDPA's (B, H, T, Dh) views
-            qg, kg, vg = [x.detach().requires_grad_() for x in (qt, kt, vt)]
-            sdpa_fwd = event_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-            dot = do.transpose(1, 2)
-
-            def sdpa_fwd_bwd():
-                out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-                torch.autograd.grad(out, (qg, kg, vg), dot)
-
-            sdpa_both = event_ms(sdpa_fwd_bwd)
+            sdpa = sdpa_flash_ms(q, k, v, do)
             plain_bwd = graph_ms([lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do)],
                                  replays=3)
             timing = {
                 "fwd": (graph_ms([lambda: fa.flash_attention_fwd(q, k, v)]),
                         graph_ms([lambda: fa.flash_attention_reference(q, k, v)], replays=3),
-                        sdpa_fwd),
+                        sdpa["fwd_ms"]),
                 "dkv": (graph_ms([lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di)]), plain_bwd,
-                        sdpa_both - sdpa_fwd),
+                        sdpa["bwd_ms"]),
                 "dq": (graph_ms([lambda: fa.flash_bwd_dq(q, k, v, do, lse, di)]), plain_bwd,
-                       sdpa_both - sdpa_fwd),
+                       sdpa["bwd_ms"]),
+                # K4's whole backward: the di pass, dkv and dq
+                "bwd": (graph_ms([lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)]), plain_bwd,
+                        sdpa["bwd_ms"]),
             }
-            cost = flash_cost(*shape)
             row.update({f"{k}_{m}": val for k, (ms, plain, lib) in timing.items()
                         for m, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib))})
-            row["sdpa_fwd_bwd_ms"] = sdpa_both
+            row.update({"sdpa_backend": sdpa["backend"], "sdpa_fwd_bwd_ms": sdpa["fwd_bwd_ms"],
+                        "sdpa_bwd_schema": sdpa["bwd_schema"],
+                        "bwd_faster": "K4" if timing["bwd"][0] < sdpa["bwd_ms"] else "SDPA"})
             errs = (row["o_err_beyond_one_bf16_step"], grad_err)
         emit(row)
         del q, k, v, do, o, lse, ro, rl, dq, dk, dv, rq, rk, rv
@@ -949,9 +966,10 @@ def phase_flash_attention(dev, gen) -> list[dict]:
             "note": (f"(B, T, H, Dh) = {path} bf16; max_abs_err: "
                      + ("o beyond one bf16 step over max(1, max|ref|)" if key == "fwd"
                         else "max|diff| over max(1, max|ref|)")
-                     + ("; library_ms = SDPA(is_causal) forward" if key == "fwd" else
+                     + ("; library_ms = SDPA(is_causal) forward, FLASH_ATTENTION backend"
+                        if key == "fwd" else
                         "; plain_ms = the whole plain backward (dq, dk, dv); library_ms = "
-                        "SDPA's backward (forward + backward minus forward)")),
+                        "the whole SDPA flash backward (dq, dk, dv), graph-timed")),
         })
     return entries
 
@@ -1048,10 +1066,17 @@ def phase_ar_train(algo, cfg, dev, seed: int):
     return launches, state, codes_batch
 
 
-def phase_ar_flash_vs_einsum(algo, batch) -> None:
+def set_flash(model, flash: bool) -> None:
+    for blk in model.blocks():
+        blk.flash = flash
+
+
+def phase_ar_flash_vs_einsum(algo, state, batch) -> None:
     """One step's loss and gradients, same weights and tokens (the first
     64 rows of the codes batch), through the flash kernels and through the
-    einsum attention (flash=False)."""
+    einsum attention (flash=False, what the shipped config runs); then the
+    train step on those 64 rows with each, timed on the host clock (median
+    of 3 after one warm-up)."""
     from vector_quantization_tpu_torch.tasks.sequence_modeling import pack_c2i_tokens
 
     model = algo.model
@@ -1060,12 +1085,20 @@ def phase_ar_flash_vs_einsum(algo, batch) -> None:
     params = list(model.parameters())
     out = {}
     for flash in (True, False):
-        for blk in model.blocks():
-            blk.flash = flash
+        set_flash(model, flash)
         loss = model(tokens, fused_ce_targets=tokens)
         out[flash] = (float(loss.detach()), torch.autograd.grad(loss, params))
-    for blk in model.blocks():
-        blk.flash = True
+    del loss
+    sub = {k: x[:AR_IMAGE_BATCH] for k, x in batch.items()}
+    step_ms = {}
+    for flash in (True, False):
+        set_flash(model, flash)
+        times = []
+        for _ in range(4):  # a warm-up, then 3 timed steps (train_step updates state in place)
+            _, seconds = _timed(lambda: algo.train_step(state, sub))
+            times.append(1e3 * seconds)
+        step_ms["flash" if flash else "einsum"] = float(np.median(times[1:]))
+    set_flash(model, True)
     (lf, gf), (le, ge) = out[True], out[False]
     loss_rel = abs(lf - le) / abs(le)
     grad_rel = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp(min=1e-30))
@@ -1075,7 +1108,9 @@ def phase_ar_flash_vs_einsum(algo, batch) -> None:
     row = {"phase": "ar_flash_vs_einsum", "batch": AR_IMAGE_BATCH, "loss_flash": lf,
            "loss_einsum": le, "loss_rel_diff": loss_rel, "loss_limit": EINSUM_LOSS_LIMIT,
            "grad_rel_l2_max": grad_rel[worst], "grad_rel_l2_max_param": names[worst],
-           "grad_rel_l2_median": float(np.median(grad_rel)), "grad_limit": EINSUM_GRAD_LIMIT}
+           "grad_rel_l2_median": float(np.median(grad_rel)), "grad_limit": EINSUM_GRAD_LIMIT,
+           "train_step_ms_host_clock_median_of_3": step_ms,
+           "einsum_over_flash_step": step_ms["einsum"] / step_ms["flash"]}
     emit(row)
     if loss_rel > EINSUM_LOSS_LIMIT or grad_rel[worst] > EINSUM_GRAD_LIMIT:
         raise SystemExit("ar_flash_vs_einsum: the flash and einsum steps disagree")
@@ -1135,7 +1170,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     algo, ar_cfg = make_ar_algorithm(args.seed, dev, vqgan)
     ar_launches, ar_state, codes_batch = phase_ar_train(algo, ar_cfg, dev, args.seed)
-    phase_ar_flash_vs_einsum(algo, codes_batch)
+    phase_ar_flash_vs_einsum(algo, ar_state, codes_batch)
     profile_step()
     profile_tokenizer()
     profile_ar_step(algo, ar_state, codes_batch)

@@ -53,32 +53,62 @@ VARIANTS = {"kernel": [], "no_products": NO_PRODUCTS, "no_loads": NO_LOADS,
 def cut(src: str, pairs) -> str:
     for old, new in pairs:
         if old not in src:
-            raise SystemExit(f"flash_fwd_probe: {old!r} is no longer in the source")
+            raise SystemExit(f"probe: {old!r} is no longer in the source")
         src = src.replace(old, new)
     return src
 
 
-def build(src: str) -> dict:
+def build(src: str, variants: dict, out: Path) -> dict:
+    """Every variant of ``src`` (name -> text substitutions) compiled with the
+    flags of ``ops/_build.py``, all at once: {name: (library, nvcc log)}."""
     from vector_quantization_tpu_torch.ops import _build
 
-    OUT.mkdir(parents=True, exist_ok=True)
+    out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, pairs in VARIANTS.items():
-        cu = OUT / f"{name}.cu"
+    for name, pairs in variants.items():
+        cu = out / f"{name}.cu"
         cu.write_text(cut(src, pairs))
         procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build._FLAGS, "-o", str(OUT / f"lib{name}.so"), str(cu)],
+            [_build._nvcc(), *_build._FLAGS, "-o", str(out / f"lib{name}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    fns = {}
+    libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"flash_fwd_probe: nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(OUT / f"lib{name}.so")).vqt_flash_fwd
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.restype, fn.argtypes = i, [p] * 5 + [i] * 4 + [ctypes.c_float, p]
-        fns[name] = fn
-    return fns
+            raise SystemExit(f"probe: nvcc failed for {name}:\n{log}")
+        libs[name] = (ctypes.CDLL(str(out / f"lib{name}.so")), log)
+    return libs
+
+
+def entry(lib, name: str, n_ptr: int):
+    """A flash C entry: ``n_ptr`` pointers, B, T, H, Dh, scale, stream."""
+    fn = getattr(lib, name)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.restype, fn.argtypes = i, [p] * n_ptr + [i] * 4 + [ctypes.c_float, p]
+    return fn
+
+
+def time_rounds(fns: dict, launch, reps: int) -> dict:
+    """Microseconds per launch of each of ``fns``: CUDA events around
+    ``reps`` back-to-back ``launch(fn)`` after a warm-up, in three rounds
+    of alternating order."""
+    def timed(fn) -> float:
+        for _ in range(3):
+            launch(fn)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            launch(fn)
+        e1.record()
+        e1.synchronize()
+        return 1e3 * e0.elapsed_time(e1) / reps
+
+    times = {name: [] for name in fns}
+    for rnd in range(3):
+        for name in (list(fns) if rnd % 2 == 0 else list(fns)[::-1]):
+            times[name].append(timed(fns[name]))
+    return times
 
 
 def main() -> int:
@@ -92,7 +122,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from vector_quantization_tpu_torch.ops import flash_attention as fa
 
-    fns = build(SOURCE.read_text())
+    fns = {name: entry(lib, "vqt_flash_fwd", 5)
+           for name, (lib, _) in build(SOURCE.read_text(), VARIANTS, OUT).items()}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     b, t, h, dh = SHAPE
@@ -107,18 +138,6 @@ def main() -> int:
         if err != 0:
             raise SystemExit(f"flash_fwd_probe: launch failed, CUDA error {err}")
 
-    def timed(fn) -> float:
-        for _ in range(3):
-            launch(fn)
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(args.reps):
-            launch(fn)
-        e1.record()
-        e1.synchronize()
-        return 1e3 * e0.elapsed_time(e1) / args.reps
-
     launch(fns["kernel"])
     ro, rl = fa.flash_attention_reference(q, k, v)
     torch.cuda.synchronize()
@@ -127,11 +146,7 @@ def main() -> int:
     if err > 2e-3 or lse_err > 1e-4:
         raise SystemExit(f"flash_fwd_probe: the kernel disagrees with the plain version "
                          f"(o {err}, lse {lse_err})")
-    times = {name: [] for name in fns}
-    for rnd in range(3):
-        for name in (list(fns) if rnd % 2 == 0 else list(fns)[::-1]):
-            times[name].append(timed(fns[name]))
-    for name, us in times.items():
+    for name, us in time_rounds(fns, launch, args.reps).items():
         print(json.dumps({"variant": name, "shape": list(SHAPE), "us_per_launch": us,
                           "reps": args.reps}), flush=True)
     print(json.dumps({"kernel_o_err_beyond_one_bf16_step": err, "kernel_lse_max_abs_err": lse_err}))

@@ -162,7 +162,10 @@ def test_nearest_codes_kernel_matches_plain(dev, n, k, d, dtype, metric, ties):
      (4, 2, 8, 64), (4, 64, 8, 64), (4, 65, 8, 64), (4, 128, 8, 64), (4, 256, 8, 64),
      (4, 257, 8, 32), (4, 257, 8, 128),
      # heads longer than the forward keeps in shared memory: k/v tiles stream
-     (2, 1000, 4, 64), (2, 700, 2, 128), (1, 2000, 2, 32)],
+     (2, 1000, 4, 64), (2, 700, 2, 128), (1, 2000, 2, 32),
+     # the longest heads whose q/dO tiles the dK/dV kernel keeps resident,
+     # and one row more (its q/dO tiles stream through a ring)
+     (2, 640, 4, 64), (2, 641, 4, 64), (2, 256, 4, 128), (2, 1472, 2, 32), (2, 1473, 2, 32)],
 )
 def test_flash_attention_kernels_match_plain(dev, shape):
     # o: within 2e-3 of max(1, max|ref|) beyond one bf16 step per element
@@ -184,6 +187,15 @@ def test_flash_attention_kernels_match_plain(dev, shape):
     for g, r in zip(grads, fa.flash_attention_bwd_reference(q, k, v, o, lse, do)):
         assert g.dtype == torch.bfloat16
         assert float((g.float() - r.float()).abs().max()) <= 1e-2 * max(1.0, float(r.float().abs().max()))
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_flash_bwd_dkv_plan_fits_at_t257(dev, dh):
+    # the training length: the dK/dV kernel's shared memory fits a block
+    # (227 KB on Hopper) and at least one block is resident per SM
+    plan = fa.flash_bwd_dkv_plan(257, dh)
+    assert 0 < plan["dynamic_smem"] <= 227 * 1024
+    assert plan["blocks_per_sm"] >= 1
 
 
 def test_flash_attention_refuses_f32_on_cuda(dev):
@@ -210,6 +222,30 @@ def test_flash_attention_refuses_misaligned_inputs(dev):
     o, _ = fa.flash_attention_fwd(y, y, y)  # the aligned view runs
     torch.cuda.synchronize()
     assert bool(torch.isfinite(o.float()).all())
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_dkv", "flash_bwd_dq"])
+def test_flash_backward_refuses_misaligned_inputs(dev, kernel):
+    # the backward kernels refuse a q, k, v or dO base that is not 16-byte
+    # aligned (dkv reads them by TMA, dq 16 bytes at a time), and launch
+    # nothing
+    fn = getattr(fa, kernel)
+    shape = (1, 64, 2, 64)
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16, device=dev)
+    x, y = buf[1:n + 1].view(shape), buf[8:].view(shape)
+    lse = torch.zeros((1, 2, 64), device=dev)
+    cases = [(x, y, y, y, lse, lse), (y, x, y, y, lse, lse), (y, y, x, y, lse, lse),
+             (y, y, y, x, lse, lse)]
+    before = fn.launches
+    for args in cases:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fn(*args)
+    assert fn.launches == before
+    out = fn(y, y, y, y, lse, lse)  # the aligned views run
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert all(bool(torch.isfinite(t.float()).all()) for t in (out if isinstance(out, tuple) else (out,)))
 
 
 def test_llama_flash_remat_launches_kernels_only(dev):

@@ -44,13 +44,27 @@
 //   contraction slice at a time into 8 independent accumulators; S and P
 //   stay in registers, P repacked as the A operand of P V; the online
 //   softmax runs in base 2 (ex2 of scores scaled by scale * log2(e)).
-// What the backward does: one block per (64-row tile, batch * head), 4 warps
-// of 16 rows; the block stages its tile and then each 64-row tile of the
-// other side in shared memory (16-byte loads, ragged rows zero-filled); the
-// causal walk stops at the diagonal tile (dq walks the k/v tiles up to it,
-// dkv the q tiles from it), the longest walks first; no atomics: dkv owns
-// its k/v rows, dq its q rows, as in the TPU kernels.
-// Left for later: wgmma; TMA and ldmatrix in the backward.
+// What dkv does: one block per (batch, head), three warpgroups at Dh <= 64
+// (two at Dh 128); each head's q and dO tiles are read from device memory
+// once, by TMA, with their lse and di rows (plain loads), into stages behind
+// mbarriers: all at the start while they fit (T <= 640 at Dh 64), else
+// through a ring of 4 stages. Warpgroups take the k/v tiles longest walk
+// first, snaking as the forward's q tiles do; a warp keeps its 16 k/v rows'
+// K and V A fragments in registers, so its k/v buffer refills with the next
+// round's tile while it walks. Tiles are end-aligned, a warp with no live
+// k/v row issues nothing, and on the diagonal a warp takes only the 16-row
+// q slices from its first live row. Fragments come from ldmatrix (.trans
+// for the B operands of dV += P^T dO and dK += dS^T Q); P is 2^x of scores
+// scaled by scale * log2(e) against lse * log2(e); dk and dv leave in
+// 16-byte stores (a shuffle transpose within each quad). No atomics: dkv
+// owns its k/v rows. What bounds it at the training shape on an H100: the
+// warps' product chains and the stores (without its loads it runs about as
+// long; its loads alone take under half its time).
+// What dq does: one block per (64-row tile, batch * head), 4 warps of 16
+// rows; the block stages its q tile and then each k/v tile up to the
+// diagonal in shared memory (16-byte loads, ragged rows zero-filled), the
+// longest walks first; no atomics: dq owns its q rows, as in the TPU kernel.
+// Left for later: wgmma; TMA and ldmatrix in dq.
 // Dh = 32, 64 and 128 are compiled; any T >= 1.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
@@ -632,78 +646,317 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// grid (B*H, ceil(T/BM)); the k/v tile j0 = blockIdx.y * BM walks the q
-// tiles from the diagonal on (the first tiles have the longest walks)
+// ---- K4-dkv ---------------------------------------------------------------
+// Tiles are end-aligned as in the forward. A warp owns 16 k/v rows of one
+// k/v tile, keeps their K and V A fragments in registers, and walks the q
+// tiles from the diagonal on, 16 q rows (a slice) at a time: S^T = K Q^T and
+// dP^T = V dO^T for the slice's columns, P^T = 2^(S^T scale log2 e - lse
+// log2 e), dS^T = P^T (dP^T - di) scale, then dV += P^T dO and dK += dS^T Q
+// with ldmatrix .trans B fragments (dO and q are read along their rows).
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// dK and dV of the warp's 16 k/v rows (A fragments ka, va) over q slice kk
+// of the q tile qs and dO tile ds (layout L); lse (natural log) and di are
+// the tile's 64 rows in shared memory. On the diagonal tile q rows before
+// the k/v row are masked.
+template <int DH, class L>
+__device__ __forceinline__ void dkv_slice(float (*dk)[4], float (*dv)[4],
+                                          const uint32_t (*ka)[4],
+                                          const uint32_t (*va)[4], uint32_t qs,
+                                          uint32_t ds, const float* lse,
+                                          const float* dis, int kk, bool diag,
+                                          int r0, float scale2, float scale,
+                                          int lane) {
+  constexpr int KC = DH / 16, DT = DH / 8;
+  const int mi = lane >> 3, rr = lane & 7, g = lane >> 2, t = lane & 3;
+  float s[2][4], dp[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[h][c] = dp[h][c] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    // q / dO rows [16 kk, 16 kk + 8): b[0..1]; the next 8: b[2..3]
+    uint32_t bq[4], bd[4];
+    const uint32_t o = L::off(kk * 16 + (mi >> 1) * 8, rr, kc * 16 + (mi & 1) * 8);
+    ldsm_x4(bq, qs + o);
+    ldsm_x4(bd, ds + o);
+    mma_bf16(s[0], ka[kc], bq[0], bq[1]);
+    mma_bf16(s[1], ka[kc], bq[2], bq[3]);
+    mma_bf16(dp[0], va[kc], bd[0], bd[1]);
+    mma_bf16(dp[1], va[kc], bd[2], bd[3]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int col = kk * 16 + h * 8 + 2 * t;
+    const float2 l = *reinterpret_cast<const float2*>(lse + col);
+    const float2 d = *reinterpret_cast<const float2*>(dis + col);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float nl = (c & 1 ? l.y : l.x) * -LOG2E;
+      float p = exp2_approx(fmaf(s[h][c], scale2, nl));
+      if (diag && col + (c & 1) < r0 + g + (c < 2 ? 0 : 8)) p = 0.f;
+      s[h][c] = p;                                            // P^T
+      dp[h][c] = p * (dp[h][c] - (c & 1 ? d.y : d.x)) * scale;  // dS^T
+    }
+  }
+  uint32_t ap[4], as[4];
+  frag_a_regs(ap, s, 0);
+  frag_a_regs(as, dp, 0);
+#pragma unroll
+  for (int dq = 0; dq < DT / 2; ++dq) {
+    // columns [16 dq, 16 dq + 8) of the slice's rows: b[0..1]; the next 8: b[2..3]
+    uint32_t bo[4], bq[4];
+    const uint32_t o = L::off(kk * 16 + (mi & 1) * 8, rr, dq * 16 + (mi >> 1) * 8);
+    ldsm_x4_t(bo, ds + o);
+    ldsm_x4_t(bq, qs + o);
+    mma_bf16(dv[2 * dq], ap, bo[0], bo[1]);
+    mma_bf16(dv[2 * dq + 1], ap, bo[2], bo[3]);
+    mma_bf16(dk[2 * dq], as, bq[0], bq[1]);
+    mma_bf16(dk[2 * dq + 1], as, bq[2], bq[3]);
+  }
+}
+
+// One q tile: every slice of a full tile, straight-line; on the diagonal
+// only the slices from the warp's first live q row `lo` on
+template <int DH, class L>
+__device__ __forceinline__ void dkv_tile(float (*dk)[4], float (*dv)[4],
+                                         const uint32_t (*ka)[4],
+                                         const uint32_t (*va)[4], uint32_t qs,
+                                         uint32_t ds, const float* lse,
+                                         const float* dis, bool diag, int r0,
+                                         int lo, float scale2, float scale,
+                                         int lane) {
+  if (!diag) {
+#pragma unroll
+    for (int kk = 0; kk < BM / 16; ++kk)
+      dkv_slice<DH, L>(dk, dv, ka, va, qs, ds, lse, dis, kk, false, r0, scale2,
+                       scale, lane);
+    return;
+  }
+#pragma unroll
+  for (int kk = 0; kk < BM / 16; ++kk)
+    if (kk >= (lo >> 4))
+      dkv_slice<DH, L>(dk, dv, ka, va, qs, ds, lse, dis, kk, true, r0, scale2,
+                       scale, lane);
+}
+
+// Within each quad (lanes 4k .. 4k + 3), lane t's x[u] becomes lane u's
+// x[t]: two butterfly exchanges (lanes t ^ 1, then t ^ 2)
+__device__ __forceinline__ void quad_transpose(uint32_t (&x)[4], int t) {
+#pragma unroll
+  for (int bit = 1; bit <= 2; bit <<= 1) {
+    const bool hi = t & bit;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (u & bit) continue;  // the pair (u, u | bit)
+      const uint32_t recv =
+          __shfl_xor_sync(0xffffffffu, hi ? x[u] : x[u | bit], bit);
+      if (hi) x[u] = recv;
+      else x[u | bit] = recv;
+    }
+  }
+}
+
+// dk, dv rows row_a = k0 + r0 + g and row_a + 8 (those >= 0) as bf16, 16
+// bytes a store: a quad's 4 x 4 transpose of its packed words gives lane t
+// the 8 columns of step 4m + t of its row
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__device__ __forceinline__ void dkv_store(bf16* dk, bf16* dv,
+                                          const float (*dka)[4],
+                                          const float (*dva)[4], int row_a,
+                                          size_t rs, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_a + 8 * half;
+#pragma unroll
+    for (int m = 0; m < DH / 32; ++m) {
+      uint32_t xk[4], xv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        xk[u] = pack2(dka[4 * m + u][2 * half], dka[4 * m + u][2 * half + 1]);
+        xv[u] = pack2(dva[4 * m + u][2 * half], dva[4 * m + u][2 * half + 1]);
+      }
+      quad_transpose(xk, t);
+      quad_transpose(xv, t);
+      if (row >= 0) {
+        const size_t off = (size_t)row * rs + (4 * m + t) * 8;
+        *reinterpret_cast<uint4*>(dk + off) = make_uint4(xk[0], xk[1], xk[2], xk[3]);
+        *reinterpret_cast<uint4*>(dv + off) = make_uint4(xv[0], xv[1], xv[2], xv[3]);
+      }
+    }
+  }
+}
+
+// Warpgroups (4 warps of 16 k/v rows each) of the dK/dV kernel: three at
+// Dh <= 64 (12 warps per SM; at T = 257 the five k/v tiles' walks split
+// 5 / 5 / 5), two at Dh 128, whose 16 rows' dK and dV sums alone take 128
+// registers of a thread
+template <int DH>
+struct Dkv {
+  static constexpr int WG = DH <= 64 ? 3 : 2, THREADS = 128 * WG;
+};
+constexpr int DKV_STREAM_STAGES = 4;  // q/dO ring when a head does not fit
+constexpr int DKV_BAR_BYTES = 1024;   // mbarriers and counters, then the tiles
+constexpr int ROW_BYTES = BM * 4;     // one tile's lse (or di) rows, f32
+
+// K/V tile of warpgroup g (of WG) in round r: the longest walks (the first
+// tiles) first, snaking over the warpgroups so that their walks even out;
+// negative when none is left
+template <int WG>
+__device__ __forceinline__ int dkv_kv_tile(int n, int r, int g) {
+  const int j = WG * r + ((r & 1) ? WG - 1 - g : g);
+  return j < n ? j : -1;
+}
+
+// q tile of the c-th streamed q/dO load: round r walks tiles WG r .. n - 1
+template <int WG>
+__device__ __forceinline__ int dkv_seq_tile(int n, int c) {
+  int first = 0;
+  for (int len = n; c >= len; len -= WG) {
+    c -= len;
+    first += WG;
+  }
+  return first + c;
+}
+
+// One block per (batch, head), WG warpgroups; warpgroup g holds k/v tile
+// dkv_kv_tile(n, r, g) in round r. `stages` q/dO stages (each a q
+// tile and a dO tile by TMA, their lse and di rows by plain loads) follow
+// the warpgroups' k/v buffers in shared memory. When stages >= n the head
+// stays resident: q tile i is loaded once, into stage i, all at the start,
+// and each warpgroup walks its tiles j .. n - 1. Otherwise round r's walk
+// (tiles WG r .. n - 1, shared by the round's k/v tiles) streams
+// through the ring, and every warp releases each stage. The first thread
+// issues the first tile loads and the block the first rows; after that,
+// the warp that frees a k/v buffer or a stage last issues its next load
+// (the rows before the barrier's arrival).
+template <int DH>
+__global__ void __launch_bounds__(Dkv<DH>::THREADS, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
                      const float* __restrict__ lse,
                      const float* __restrict__ di, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int T, int H, float scale) {
-  constexpr int P = DH + 8, NT = BM / 8, DT = DH / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BM * P;
-  bf16* Qs = Vs + BM * P;
-  bf16* Ds = Qs + BM * P;  // dO tile
-  float* Ls = reinterpret_cast<float*>(Ds + BM * P);
-  float* Is = Ls + BM;     // di tile
+                     bf16* __restrict__ dv, int T, int H, int stages,
+                     float scale2, float scale) {
+  using L = SwizzledRows<DH>;
+  constexpr int KC = DH / 16, DT = DH / 8, WG = Dkv<DH>::WG;
+  constexpr uint32_t TILE = BM * DH * 2;
+  extern __shared__ unsigned char smem_dkv[];
+  // the swizzle repeats every 1024 bytes: tiles start on such a boundary
+  unsigned char* base =
+      smem_dkv + (((smem_u32(smem_dkv) + 1023u) & ~1023u) - smem_u32(smem_dkv));
+  const uint32_t kvfull = smem_u32(base), qfull = kvfull + 8 * WG;
+  unsigned* kv_count = reinterpret_cast<unsigned*>(base + 8 * (WG + stages));
+  unsigned* q_count = kv_count + WG;
+  const uint32_t kvbuf = kvfull + DKV_BAR_BYTES, qbuf = kvbuf + 2 * WG * TILE;
+  const uint32_t rowbuf = qbuf + 2 * stages * TILE;  // lse, di of each stage
+  float* rows = reinterpret_cast<float*>(base + (rowbuf - kvfull));
 
+  const int n = (T + BM - 1) / BM, dead = n * BM - T;
+  const int rounds = (n + WG - 1) / WG;
+  const bool resident = stages >= n;
+  int total = n;  // q/dO loads of the block
+  if (!resident)
+    for (int r = 1; r < rounds; ++r) total += n - WG * r;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int j0 = blockIdx.y * BM;
-  const size_t rs = (size_t)H * DH;
-  const size_t base = (size_t)b * T * rs + (size_t)h * DH;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ka = j0 + warp * 16 + g, kb = ka + 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  load_tile<DH>(Ks, k + base, j0, T, rs);
-  load_tile<DH>(Vs, v + base, j0, T, rs);
-  float dk_acc[DT][4], dv_acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk_acc[dt][c] = dv_acc[dt][c] = 0.f;
-
-  for (int i0 = j0; i0 < T; i0 += BM) {
-    __syncthreads();
-    load_tile<DH>(Qs, q + base, i0, T, rs);
-    load_tile<DH>(Ds, dout + base, i0, T, rs);
-    for (int r = tid; r < BM; r += THREADS) {
-      const int i = i0 + r;
-      Ls[r] = i < T ? lse[(size_t)bh * T + i] : INFINITY;
-      Is[r] = i < T ? di[(size_t)bh * T + i] : 0.f;
+  const CUtensorMap *mq = &tq, *mk = &tk, *mv = &tv, *mdo = &tdo;
+  auto load_kv = [&](int r, int g) {
+    const int row0 = T - (n - dkv_kv_tile<WG>(n, r, g)) * BM;
+    mbar_expect_tx(kvfull + 8 * g, 2 * TILE);
+    tma_tile<DH>(kvbuf + 2 * g * TILE, mk, kvfull + 8 * g, row0, h, b);
+    tma_tile<DH>(kvbuf + (2 * g + 1) * TILE, mv, kvfull + 8 * g, row0, h, b);
+  };
+  auto load_q = [&](int c) {  // the c-th q/dO load, into stage c % stages
+    const int s = c % stages, i = resident ? c : dkv_seq_tile<WG>(n, c);
+    const int row0 = T - (n - i) * BM;
+    const uint32_t bar = qfull + 8 * s;
+    mbar_expect_tx(bar, 2 * TILE);
+    tma_tile<DH>(qbuf + 2 * s * TILE, mq, bar, row0, h, b);
+    tma_tile<DH>(qbuf + (2 * s + 1) * TILE, mdo, bar, row0, h, b);
+  };
+  auto load_row = [&](int c, int rr) {  // row rr of the c-th load's lse, di
+    const int s = c % stages, i = resident ? c : dkv_seq_tile<WG>(n, c);
+    const int row = T - (n - i) * BM + rr;
+    rows[2 * s * BM + rr] = row >= 0 ? lse[(size_t)bh * T + row] : 0.f;
+    rows[(2 * s + 1) * BM + rr] = row >= 0 ? di[(size_t)bh * T + row] : 0.f;
+  };
+  if (threadIdx.x == 0) {
+    for (int g = 0; g < WG; ++g) {
+      mbar_init(kvfull + 8 * g, 1);
+      kv_count[g] = 0;
     }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 k/v rows x BM q rows
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[nt][c] = dp[nt][c] = 0.f;
-    rows_dot_rows<DH>(s, Ks, Qs, warp * 16, g, t);
-    rows_dot_rows<DH>(dp, Vs, Ds, warp * 16, g, t);
-
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int il = nt * 8 + 2 * t + (c & 1);
-        const int i = i0 + il;
-        const int kv = c < 2 ? ka : kb;
-        const bool live = kv <= i && i < T && kv < T;
-        const float p = live ? expf(s[nt][c] * scale - Ls[il]) : 0.f;
-        s[nt][c] = p;                                   // P^T
-        dp[nt][c] = p * (dp[nt][c] - Is[il]) * scale;   // dS^T, scaled
-      }
-    regs_dot_tile<DH>(dv_acc, s, Ds, g, t);   // dV += P^T dO
-    regs_dot_tile<DH>(dk_acc, dp, Qs, g, t);  // dK += dS^T Q
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(qfull + 8 * s, 1);
+      q_count[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int g = 0; g < WG; ++g)
+      if (dkv_kv_tile<WG>(n, 0, g) >= 0) load_kv(0, g);
+    for (int c = 0; c < min(total, stages); ++c) load_q(c);
   }
+  for (int e = threadIdx.x; e < min(total, stages) * BM; e += Dkv<DH>::THREADS)
+    load_row(e / BM, e % BM);
+  __syncthreads();
 
-  store_rows<DH>(dk + base, dk_acc, ka, T, rs, t, 1.f, 1.f);
-  store_rows<DH>(dv + base, dv_acc, ka, T, rs, t, 1.f, 1.f);
+  // warpgroup g; the warp's k/v rows [r0, r0 + 16) of the tile
+  const int g = warp >> 2, r0 = (warp & 3) * 16;
+  const uint32_t ks = kvbuf + 2 * g * TILE, vs = ks + TILE;
+  const size_t rs = (size_t)H * DH, head = (size_t)b * T * rs + (size_t)h * DH;
+  int c = 0;  // q/dO loads consumed so far
+  for (int r = 0; r < rounds; ++r) {
+    const int j = dkv_kv_tile<WG>(n, r, g);
+    // a warp whose 16 k/v rows all lie before row 0 issues no products
+    const bool live = j > 0 || (j == 0 && r0 + 15 >= dead);
+    uint32_t ka[KC][4], va[KC][4];
+    if (j >= 0) {
+      mbar_wait(kvfull + 8 * g, r & 1);
+      if (live) {
+        fwd_load_q<DH, L>(ka, ks, r0, lane);
+        fwd_load_q<DH, L>(va, vs, r0, lane);
+      }
+      // the k/v buffer is no longer read: its last reader loads the next tile
+      if (warp_release(kv_count + g, 4, lane) && r + 1 < rounds &&
+          dkv_kv_tile<WG>(n, r + 1, g) >= 0)
+        load_kv(r + 1, g);
+    }
+    float dka[DT][4], dva[DT][4];
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
+    const int first = resident ? j : WG * r;
+    const int walk = resident ? (j >= 0 ? n - j : 0) : n - WG * r;
+    for (int w = 0; w < walk; ++w, ++c) {
+      const int i = first + w, s = resident ? i : c % stages;
+      mbar_wait(qfull + 8 * s, resident ? 0 : (c / stages) & 1);
+      if (live && i >= j) {
+        const float* ls = rows + 2 * s * BM;
+        dkv_tile<DH, L>(dka, dva, ka, va, qbuf + 2 * s * TILE,
+                        qbuf + (2 * s + 1) * TILE, ls, ls + BM, i == j, r0,
+                        max(r0, i == 0 ? dead : 0), scale2, scale, lane);
+      }
+      // the stage is no longer read: its last reader's warp loads the next
+      // rows into it, then lane 0 the next tiles (the barrier's arrival
+      // orders the rows before the readers')
+      if (!resident &&
+          __shfl_sync(0xffffffffu, warp_release(q_count + s, 4 * WG, lane), 0) &&
+          c + stages < total) {
+        for (int rr = lane; rr < BM; rr += 32) load_row(c + stages, rr);
+        __syncwarp();
+        if (lane == 0) load_q(c + stages);
+      }
+    }
+    if (live)
+      dkv_store<DH>(dk + head, dv + head, dka, dva,
+                    T - (n - j) * BM + r0 + (lane >> 2), rs, lane);
+  }
 }
 
 // grid (B*H, ceil(T/BM)); the q tile walks the k/v tiles up to the diagonal
@@ -869,17 +1122,52 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
+// q/dO stages of the dK/dV kernel at length T: the whole head when its
+// tiles and rows fit in a block's shared memory beside the k/v buffers,
+// else a ring
+template <int DH>
+int dkv_stages(int T) {
+  constexpr int TILE = BM * DH * 2, MAX_SMEM = 227 * 1024;
+  const int n = (T + BM - 1) / BM;
+  constexpr int WG = Dkv<DH>::WG;
+  const bool fits = 1024 + DKV_BAR_BYTES + (2 * WG + 2 * n) * TILE +
+                            2 * n * ROW_BYTES <= MAX_SMEM &&
+                    12 * (n + WG) <= DKV_BAR_BYTES;
+  return fits ? n : DKV_STREAM_STAGES;
+}
+
+// 1024 bytes of slack to align the tiles, the barriers, k/v buffers,
+// q/dO stages, their lse/di rows
+template <int DH>
+int dkv_smem(int T) {
+  const int stages = dkv_stages<DH>(T);
+  return 1024 + DKV_BAR_BYTES + (2 * Dkv<DH>::WG + 2 * stages) * BM * DH * 2 +
+         2 * stages * ROW_BYTES;
+}
+
+template <int DH>
+int dkv_plan(int T, int* smem, int* blocks_per_sm) {
+  *smem = dkv_smem<DH>(T);
+  if (int err = launch_prep(flash_bwd_dkv_kernel<DH>, *smem)) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_bwd_dkv_kernel<DH>, Dkv<DH>::THREADS, *smem);
+}
+
 template <int DH>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* di, void* dk, void* dv, int B, int T,
             int H, float scale, cudaStream_t stream) {
-  const int smem =
-      4 * BM * (DH + 8) * (int)sizeof(bf16) + 2 * BM * (int)sizeof(float);
+  CUtensorMap mq, mk, mv, mdo;
+  if (int err = tile_map<DH>(&mq, q, B, T, H)) return err;
+  if (int err = tile_map<DH>(&mk, k, B, T, H)) return err;
+  if (int err = tile_map<DH>(&mv, v, B, T, H)) return err;
+  if (int err = tile_map<DH>(&mdo, dout, B, T, H)) return err;
+  const int smem = dkv_smem<DH>(T);
   if (int err = launch_prep(flash_bwd_dkv_kernel<DH>, smem)) return err;
-  const dim3 grid(B * H, (T + BM - 1) / BM);
-  flash_bwd_dkv_kernel<DH><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)di, (bf16*)dk, (bf16*)dv, T, H, scale);
+  flash_bwd_dkv_kernel<DH><<<B * H, Dkv<DH>::THREADS, smem, stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)di, (bf16*)dk,
+      (bf16*)dv, T, H, dkv_stages<DH>(T),
+      scale * LOG2E, scale);
   return (int)cudaGetLastError();
 }
 
@@ -939,6 +1227,10 @@ extern "C" int vqt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int T, int H, int Dh, float scale,
                                  void* stream) {
   if (bad_shape(B, T, H)) return (int)cudaErrorInvalidValue;
+  // TMA takes 16-byte aligned bases; dk and dv are held to the same
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
+       (uintptr_t)lse | (uintptr_t)di | (uintptr_t)dk | (uintptr_t)dv) & 15)
+    return (int)cudaErrorMisalignedAddress;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (Dh) {
     case 32: return bwd_dkv<32>(q, k, v, dout, lse, di, dk, dv, B, T, H, scale, s);
@@ -948,11 +1240,27 @@ extern "C" int vqt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   }
 }
 
+// the dK/dV kernel's launch at length T, as vqt_flash_fwd_plan
+extern "C" int vqt_flash_bwd_dkv_plan(int T, int Dh, int* smem,
+                                      int* blocks_per_sm) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  switch (Dh) {
+    case 32: return dkv_plan<32>(T, smem, blocks_per_sm);
+    case 64: return dkv_plan<64>(T, smem, blocks_per_sm);
+    case 128: return dkv_plan<128>(T, smem, blocks_per_sm);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 extern "C" int vqt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* di, void* dq, int B, int T, int H,
                                 int Dh, float scale, void* stream) {
   if (bad_shape(B, T, H)) return (int)cudaErrorInvalidValue;
+  // the kernel reads its operands 16 bytes at a time; dq is held to the same
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
+       (uintptr_t)dq) & 15)
+    return (int)cudaErrorMisalignedAddress;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (Dh) {
     case 32: return bwd_dq<32>(q, k, v, dout, lse, di, dq, B, T, H, scale, s);

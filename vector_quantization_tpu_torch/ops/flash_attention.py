@@ -16,9 +16,10 @@ A CUDA tensor goes through the hand-written Hopper kernels
 the plain versions :func:`flash_attention_reference` and
 :func:`flash_attention_bwd_reference`. The choice is made by the tensor's
 device alone. The kernels take bfloat16 at Dh 32, 64 or 128 and raise on
-anything else: an f32 CUDA input is refused, never cast. The forward reads
-q, k and v through TMA tensor maps and refuses (``RuntimeError``) a tensor
-whose data does not start on a 16-byte boundary.
+anything else: an f32 CUDA input is refused, never cast. Every kernel
+refuses (``RuntimeError``) a q, k, v or dO whose data does not start on a
+16-byte boundary: the forward and K4-dkv read them through TMA tensor maps,
+K4-dq 16 bytes at a time.
 
 The arithmetic, in both versions: scores in f32 from the operands as given,
 times the scale; the probabilities ``exp(s − m)`` summed in f32 and rounded
@@ -43,6 +44,7 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_reference",
     "flash_bwd_dkv",
+    "flash_bwd_dkv_plan",
     "flash_bwd_dq",
     "flash_fwd_plan",
 ]
@@ -170,17 +172,27 @@ def flash_attention_fwd(q, k, v) -> tuple[torch.Tensor, torch.Tensor]:
 flash_attention_fwd.launches = 0
 
 
-def flash_fwd_plan(t: int, dh: int) -> dict:
-    """K4-fwd's launch at length ``t`` and head dim ``dh`` on the current
-    card: dynamic shared memory per block and resident blocks per SM."""
-    fn = _build.load("flash_attention").vqt_flash_fwd_plan
+def _plan(entry: str, t: int, dh: int) -> dict:
+    fn = getattr(_build.load("flash_attention"), entry)
     i = ctypes.c_int
     fn.restype, fn.argtypes = i, [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     smem, blocks = i(), i()
     err = fn(t, dh, ctypes.byref(smem), ctypes.byref(blocks))
     if err != 0:
-        raise RuntimeError(f"flash attention forward plan failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
     return {"dynamic_smem": smem.value, "blocks_per_sm": blocks.value}
+
+
+def flash_fwd_plan(t: int, dh: int) -> dict:
+    """K4-fwd's launch at length ``t`` and head dim ``dh`` on the current
+    card: dynamic shared memory per block and resident blocks per SM."""
+    return _plan("vqt_flash_fwd_plan", t, dh)
+
+
+def flash_bwd_dkv_plan(t: int, dh: int) -> dict:
+    """K4-dkv's launch at length ``t`` and head dim ``dh``, as
+    :func:`flash_fwd_plan`."""
+    return _plan("vqt_flash_bwd_dkv_plan", t, dh)
 
 
 def _bwd_inputs(q, k, v, do, lse, di):
