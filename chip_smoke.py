@@ -5,10 +5,13 @@ Usage: python3 chip_smoke.py [--seed 0] [--requests 48]
 
 Builds the port's CUDA kernels from ``vector_quantization_tpu_torch/csrc``
 (one ``nvcc`` per source, all at once; the ``build`` line gives each
-source's ptxas register counts and, for the flash forward and the flash
-dK/dV kernel at each head dim, their registers, spill bytes, shared memory
-and resident blocks per SM at T = 257), then runs these phases, each
-printing one JSON line; any failure exits non-zero:
+source's ptxas register counts; for the flash forward and the flash dK/dV
+kernel at each head dim, their registers, spill bytes, shared memory and
+resident blocks per SM at T = 257; for the paged attention's split kernel
+per (query, pool, head dim) type, its registers and spills, and at the
+serving shape its plan and resident blocks per SM; for the INT8 matmul,
+its registers, spills, shared memory and blocks per SM), then runs these
+phases, each printing one JSON line; any failure exits non-zero:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions; TF32 is switched off for matmuls and cuDNN convolutions
@@ -25,7 +28,8 @@ printing one JSON line; any failure exits non-zero:
    H = 16, Dh = 64, ps = 64, L = 24 with random page tables and ragged
    lengths (0 and 1 included), int8 pools (limit 1e-4) and bf16 pools
    (limit 2e-3), abs error over max(1, max|ref|). Device times with the
-   layer rotated over all 24; ``library_ms`` =
+   layer rotated over all 24, at those lengths and at the decode step's own
+   (phase 4's positions + 1), each with its bound; ``library_ms`` =
    ``F.scaled_dot_product_attention`` over an already gathered, dequantised
    bf16 dense cache.
 4. ``decode_step``: one full-width Llama-medium decode step (24 layers, 16
@@ -135,6 +139,7 @@ NUM_CATEGORIES, CODEBOOK = 1000, 16384
 MEDIUM = dict(hidden_size=1024, num_layers=24, num_heads=16, ffn_dim=2816)
 VOCAB = NUM_CATEGORIES + 1 + CODEBOOK
 SLOTS, IMAGE_TOKENS, STEPS_PER_SYNC, PAGE_SIZE = 64, 256, 64, 64
+P_SLOT = -(-(IMAGE_TOKENS + STEPS_PER_SYNC) // PAGE_SIZE)  # 5 pages per row
 # the LlamaGen VQGAN tokenizer: f16 at 256 px, 16384 x 8 codebook
 VQGAN_CONFIG = "configs/llamagen/vqgan_imagenet_ddp.py"
 VQGAN_PARAMS, IMAGE_SIZE, GRID, TOKENIZER_BATCH = 69_593_227, 256, 16, 64
@@ -218,16 +223,28 @@ def phase_device() -> tuple[str, dict]:
                  "count": torch.cuda.device_count()}
 
 
-def ptxas_entries(log: str, kernel: str) -> dict:
+_MANGLED_TYPES = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16"}
+
+
+def ptxas_entries(log: str, kernel: str, params: tuple[str, ...] = ("dh",)) -> dict:
     """Registers, static shared memory and spill bytes that ``nvcc -Xptxas -v``
-    reports for each instantiation of ``kernel`` (keyed by its first template
-    argument, the head dim for the flash kernels)."""
+    reports for each instantiation of ``kernel``, keyed by its template
+    arguments named by ``params`` ("dh64" for the flash kernels' head dim;
+    "qbf16_kvint8_dh64" for the paged attention's query type, pool type and
+    head dim; the kernel's own name when ``params`` is empty, for a kernel
+    that is not a template)."""
     out, key = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(kernel + r"ILi(\d+)E", m.group(1))
-            key = f"dh{k.group(1)}" if k else None
+            k = re.search(kernel + r"I(.*?)EEv", m.group(1))
+            key = kernel if kernel in m.group(1) and not params else None
+            if k and params:
+                vals = []  # a repeated type is a back-reference (S_, S0_, ...) to the last one
+                for n, t, _ in re.findall(r"L[ib](\d+)E|(13__nv_bfloat16|[fa])(?=L|13|S|[fa])|(S\d*_)",
+                                            k.group(1) + "E"):
+                    vals.append(n or (_MANGLED_TYPES[t] if t else vals[-1]))
+                key = "_".join(f"{p}{v}" for p, v in zip(params, vals))
             continue
         if key is None:
             continue
@@ -242,9 +259,20 @@ def ptxas_entries(log: str, kernel: str) -> dict:
     return out
 
 
+def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
+    """Resident blocks per SM of an H100 for a kernel's registers per thread,
+    threads per block and shared memory per block (65,536 registers
+    allocated 256 to a warp, 2,048 threads, 32 blocks, 233,472 bytes of
+    shared memory with 1,024 reserved per block)."""
+    warp_regs = -(-registers * 32 // 256) * 256
+    by_regs = 65536 // warp_regs // (threads // 32)
+    return min(32, 2048 // threads, by_regs, 233472 // (smem + 1024))
+
+
 def phase_build() -> None:
     from vector_quantization_tpu_torch.ops import _build
     from vector_quantization_tpu_torch.ops import flash_attention as fa
+    from vector_quantization_tpu_torch.ops import paged_attention as pa
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -258,11 +286,20 @@ def phase_build() -> None:
     dkv = ptxas_entries(logs["flash_attention"], "flash_bwd_dkv_kernel")
     for dh, entry in dkv.items():
         entry.update(fa.flash_bwd_dkv_plan(SEQ, int(dh[2:])))
+    paged = ptxas_entries(logs["paged_attention"], "paged_split_kernel", ("q", "kv", "dh"))
+    plan = pa.decode_plan(SLOTS, MEDIUM["num_heads"], 64, P_SLOT, PAGE_SIZE, torch.int8,
+                          torch.cuda.get_device_properties(0).multi_processor_count)
+    paged_path = {**paged.get("qbf16_kvint8_dh64", {}), **plan._asdict(),
+                  "blocks_per_sm": pa.decode_occupancy(plan, torch.bfloat16, torch.int8, 64)}
+    mm = ptxas_entries(logs["int8_matmul"], "w8a16_kernel", ()).get("w8a16_kernel", {})
+    if mm:
+        mm["blocks_per_sm"] = blocks_per_sm(mm["registers"], 256, mm["static_smem"])
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "sources": sorted(logs), "ptxas": regs, "flash_fwd_at_t257": fwd,
-          "flash_bwd_dkv_at_t257": dkv})
-    if not fwd or not dkv:
-        raise SystemExit("build: no flash_fwd_kernel or flash_bwd_dkv_kernel entry in the ptxas log")
+          "flash_bwd_dkv_at_t257": dkv, "paged_attention": paged,
+          "paged_attention_at_path": paged_path, "int8_matmul": mm})
+    if not fwd or not dkv or "registers" not in paged_path or not mm:
+        raise SystemExit("build: a kernel's entry is missing from the ptxas log")
 
 
 def phase_int8_matmul(dev, gen) -> dict:
@@ -335,7 +372,7 @@ def phase_paged_attention(dev, gen) -> dict:
     from vector_quantization_tpu_torch.ops.paged_kv import PagedKVCache, paged_gather
 
     b, h, dh, ps, n_layers = SLOTS, MEDIUM["num_heads"], 64, PAGE_SIZE, MEDIUM["num_layers"]
-    p_slot = -(-(IMAGE_TOKENS + STEPS_PER_SYNC) // ps)  # 5 pages per row
+    p_slot = P_SLOT
     num_pages = 1 + b * p_slot
     rng = np.random.default_rng(0)
     table_np = np.resize(rng.permutation(np.arange(1, num_pages)), (b, p_slot + 1)).astype(np.int32)
@@ -389,9 +426,18 @@ def phase_paged_attention(dev, gen) -> dict:
                           vg.to(torch.bfloat16).transpose(1, 2).contiguous()))
         mask = (torch.arange(p_slot * ps, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         q4 = q[:, :, None, :]
+        # the decode step's own lengths (phase decode_step: positions + 1)
+        step_len = torch.from_numpy(decode_positions()[1] + 1).to(dev)
+        step_live = int(step_len.sum())
+        step_bytes = byts + (step_live - live) * h * (2 * dh * elt + (8 if pool == "int8" else 0))
         row.update({
             "ms": graph_ms([lambda i=i: paged_decode_attention(q, k, v, table, lengths, i, **kw)
                             for i in layers]),
+            "decode_lengths_mean": step_live / b,
+            "decode_lengths_ms": graph_ms([lambda i=i: paged_decode_attention(
+                q, k, v, table, step_len, i, **kw) for i in layers]),
+            "decode_lengths_bound_ms": 1e3 * max(step_bytes / HBM_BYTES_PER_S,
+                                                 step_live * h * 4 * dh / F32_FLOPS),
             "plain_ms": graph_ms([lambda i=i: paged_decode_attention_reference(
                 q, k, v, table, lengths, i, **kw) for i in layers], replays=3),
             "library_ms": graph_ms([lambda kv=kv: F.scaled_dot_product_attention(
@@ -479,18 +525,24 @@ def step_device(model, tokens, cache, positions, steps: int = 3) -> float:
     return device_us / steps / 1e6
 
 
+def decode_positions() -> tuple[np.random.Generator, np.ndarray]:
+    """The decode step's slot positions (rows 0 and 1 at position 0), and
+    the generator that goes on to make its page table and tokens."""
+    rng = np.random.default_rng(1)
+    pos = rng.integers(0, IMAGE_TOKENS, SLOTS).astype(np.int32)
+    pos[:2] = 0
+    return rng, pos
+
+
 def phase_decode_step(model, dev, gen):
     from vector_quantization_tpu_torch.models.transformers import llama as llama_mod
     from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul_reference
     from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention_reference
 
-    b, ps = SLOTS, PAGE_SIZE
-    p_slot = -(-(IMAGE_TOKENS + STEPS_PER_SYNC) // ps)
+    b, ps, p_slot = SLOTS, PAGE_SIZE, P_SLOT
     num_pages = 1 + b * p_slot
     cache = model.init_paged_cache(b, num_pages, ps, p_slot, dtype=torch.int8, device=dev)
-    rng = np.random.default_rng(1)
-    pos_np = rng.integers(0, IMAGE_TOKENS, b).astype(np.int32)
-    pos_np[:2] = 0
+    rng, pos_np = decode_positions()
     table = np.zeros((b, p_slot), np.int32)
     free = list(rng.permutation(np.arange(1, num_pages)))
     for r in range(b):

@@ -17,6 +17,7 @@ from vector_quantization_tpu_torch.ops.int8_matmul import (
     int8_matmul_reference,
 )
 from vector_quantization_tpu_torch.ops.paged_attention import (
+    decode_plan,
     paged_decode_attention,
     paged_decode_attention_reference,
 )
@@ -48,6 +49,9 @@ def _rel_err(got, want):
         (64, 1024, 3072), (64, 1024, 1024), (64, 1024, 5632),
         (64, 2816, 1024), (64, 1024, 17385),
         (1, 1024, 3072), (7, 2816, 1024), (3, 100, 37), (130, 96, 200),
+        # D not a multiple of the 128-row stage; B over one 64-row tile;
+        # ragged F (rows not 16-byte aligned); D deeper than the x window
+        (64, 1000, 777), (130, 1000, 17385), (5, 100, 37), (64, 20000, 256),
     ],
 )
 def test_int8_matmul_kernel_matches_plain(dev, b, d, f):
@@ -64,8 +68,28 @@ def test_int8_matmul_kernel_matches_plain(dev, b, d, f):
     assert _rel_err(got, int8_matmul_reference(x, w, s)) <= 1e-3
 
 
+def test_int8_matmul_graph_replays_match_plain(dev):
+    # one call (split-K over a cluster) captured in a CUDA graph; x changed
+    # in place between replays: each replay matches the plain version on the
+    # new x (nothing carries over between launches)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((64, 1024), dtype=np.float32)).to(dev, torch.bfloat16)
+    w = torch.from_numpy(rng.integers(-127, 128, (1024, 3072), dtype=np.int8)).to(dev)
+    s = torch.from_numpy(rng.uniform(1e-3, 2e-2, 3072).astype(np.float32)).to(dev)
+    int8_matmul(x, w, s)  # warm-up: build
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = int8_matmul(x, w, s)
+    for _ in range(2):
+        x.copy_(torch.from_numpy(rng.standard_normal((64, 1024), dtype=np.float32)))
+        g.replay()
+        torch.cuda.synchronize()
+        assert _rel_err(out, int8_matmul_reference(x, w, s)) <= 1e-3
+
+
 def _paged_inputs(dev, *, pool_dtype, q_dtype, b=64, h=16, dh=64, ps=64,
-                  n_layers=3, p_cap=5, seed=0):
+                  n_layers=3, p_cap=5, seed=0, lengths=None):
     rng = np.random.default_rng(seed)
     num_pages = 1 + b * p_cap
     shape = (n_layers, num_pages, ps, h, dh)
@@ -82,8 +106,10 @@ def _paged_inputs(dev, *, pool_dtype, q_dtype, b=64, h=16, dh=64, ps=64,
     # non-contiguous page ids, a table wider than the slice passed in
     perm = rng.permutation(np.arange(1, num_pages)).astype(np.int32)
     table = torch.from_numpy(np.resize(perm, b * (p_cap + 2)).reshape(b, p_cap + 2))
-    lengths = rng.integers(0, p_cap * ps + 1, b).astype(np.int32)
-    lengths[:6] = [0, 1, ps, ps + 1, p_cap * ps, 2]
+    if lengths is None:
+        lengths = rng.integers(0, p_cap * ps + 1, b).astype(np.int32)
+        lengths[:6] = [0, 1, ps, ps + 1, p_cap * ps, 2]
+    lengths = np.asarray(lengths, np.int32)
     q = torch.from_numpy(rng.standard_normal((b, h, dh), dtype=np.float32)).to(q_dtype)
     return dict(
         q=q.to(dev), k=k.to(dev), v=v.to(dev), ksc=ksc, vsc=vsc,
@@ -114,6 +140,71 @@ def test_paged_attention_kernel_matches_plain(dev, pool_dtype, q_dtype, dh, ps, 
     assert float((got - want).abs().max()) <= tol * max(1.0, float(want.abs().max()))
     # length-0 rows give exactly 0
     assert torch.all(got[0] == 0)
+
+
+def _paged_close(t, tol, layer=1):
+    kw = dict(k_scale_pool=t["ksc"], v_scale_pool=t["vsc"])
+    args = (t["q"], t["k"], t["v"], t["table"], t["lengths"], layer)
+    got = paged_decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    want = paged_decode_attention_reference(*args, **kw)
+    assert float((got - want).abs().max()) <= tol * max(1.0, float(want.abs().max()))
+    return got
+
+
+@pytest.mark.parametrize(
+    "pool_dtype,b,h,dh,ps,p_cap",
+    [
+        (torch.int8, 64, 16, 64, 16, 40),  # several pages per split
+        (torch.int8, 64, 16, 64, 64, 5),  # the path shape: one page per split
+        (torch.int8, 8, 16, 64, 64, 1),  # p_cap 1: one split
+        (torch.int8, 1, 2, 64, 16, 64),  # one row owns every block
+        (torch.int8, 64, 16, 32, 64, 5),
+        (torch.bfloat16, 16, 16, 128, 16, 9),
+        (torch.float32, 16, 20, 64, 4, 12),  # two head groups, ps 4
+    ],
+)
+def test_paged_attention_split_edges_match_plain(dev, pool_dtype, b, h, dh, ps, p_cap):
+    # lengths at and one past split boundaries, a split of exactly one page,
+    # the whole table and past it; the row's splits combined by the second
+    # launch (or written directly with one split)
+    plan = decode_plan(b, h, dh, p_cap, ps, pool_dtype,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    span = plan.pages_per_split * ps
+    edge = [0, 1, ps, ps + 1, span - 1, span, span + 1, 2 * span + 1, p_cap * ps, p_cap * ps + 3]
+    rng = np.random.default_rng(b + p_cap)
+    lengths = np.resize(np.array(edge), b) if b > 1 else np.array([p_cap * ps - 1])
+    lengths = np.minimum(lengths, p_cap * ps + 3)
+    lengths[len(edge):] = rng.integers(0, p_cap * ps + 1, max(0, b - len(edge)))
+    t = _paged_inputs(dev, pool_dtype=pool_dtype, q_dtype=torch.bfloat16, b=b, h=h, dh=dh,
+                      ps=ps, p_cap=p_cap, lengths=lengths, n_layers=2)
+    got = _paged_close(t, 1e-4 if pool_dtype != torch.bfloat16 else 2e-3)
+    if b > 1:
+        assert torch.all(got[0] == 0)
+
+
+def test_paged_attention_graph_replays_match_plain(dev):
+    # one call captured in a CUDA graph; lengths and page table changed in
+    # place between replays: each replay matches the plain version on the
+    # new inputs (nothing carries over between launches)
+    t = _paged_inputs(dev, pool_dtype=torch.int8, q_dtype=torch.bfloat16)
+    kw = dict(k_scale_pool=t["ksc"], v_scale_pool=t["vsc"])
+    args = (t["q"], t["k"], t["v"], t["table"], t["lengths"], 2)
+    paged_decode_attention(*args, **kw)  # warm-up: build, workspace
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = paged_decode_attention(*args, **kw)
+    rng = np.random.default_rng(7)
+    for _ in range(2):
+        n_pages = t["k"].shape[1]
+        t["lengths"].copy_(torch.from_numpy(rng.integers(0, 5 * 64 + 1, 64).astype(np.int32)))
+        t["table"].copy_(torch.from_numpy(
+            rng.integers(1, n_pages, t["table"].shape).astype(np.int32)))
+        g.replay()
+        torch.cuda.synchronize()
+        want = paged_decode_attention_reference(*args, **kw)
+        assert float((out - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
 
 
 @pytest.mark.parametrize(

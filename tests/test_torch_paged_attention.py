@@ -9,7 +9,7 @@ import torch
 from vector_quantization_tpu.ops.paged_attention import (
     paged_decode_attention as jax_paged_decode_attention,
 )
-from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention
+from vector_quantization_tpu_torch.ops.paged_attention import decode_plan, paged_decode_attention
 
 
 def _inputs(int8, *, b=6, h=2, dh=8, ps=4, n_layers=2, p_cap=3, seed=0):
@@ -65,3 +65,44 @@ def test_sliced_table_view():
     a = paged_decode_attention(*args, wide[:, : table.shape[1]], torch.from_numpy(lengths), 1, **kw)
     b = paged_decode_attention(*args, torch.from_numpy(table), torch.from_numpy(lengths), 1, **kw)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "b,h,dh,p_cap,ps,dtype",
+    [
+        (64, 16, 64, 5, 64, torch.int8),  # the serving decode step
+        (64, 16, 64, 40, 16, torch.int8),
+        (8, 16, 64, 1, 64, torch.int8),
+        (1, 2, 64, 64, 16, torch.int8),
+        (64, 16, 32, 5, 64, torch.int8),
+        (16, 16, 128, 9, 16, torch.bfloat16),
+        (16, 20, 64, 12, 4, torch.float32),
+        (6, 2, 32, 3, 4, torch.float32),
+        (3, 40, 128, 1000, 1, torch.float32),
+    ],
+)
+def test_decode_plan_covers_pages(b, h, dh, p_cap, ps, dtype):
+    # the CUDA kernel's plan (shapes only): every page of a row lies in
+    # exactly one split, no split starts at or past p_cap, head groups cover
+    # the heads, the chunk fits the kernel's score registers and the stages
+    # fit shared memory, and the workspace is what the kernel indexes
+    plan = decode_plan(b, h, dh, p_cap, ps, dtype, 132)
+    pages = [p for s in range(plan.splits)
+             for p in range(s * plan.pages_per_split, min((s + 1) * plan.pages_per_split, p_cap))]
+    assert pages == list(range(p_cap))
+    assert all(s * plan.pages_per_split < p_cap for s in range(plan.splits))
+    assert plan.groups * plan.heads_per_group >= h > (plan.groups - 1) * plan.heads_per_group
+    assert plan.heads_per_group <= 16
+    row = dh * torch.empty((), dtype=dtype).element_size()
+    lanes_per_pos = row // 16
+    assert 1 <= plan.chunk <= min(ps, 4 * 32 // lanes_per_pos)
+    assert plan.pitch % 16 == 0 and plan.pitch >= plan.heads_per_group * row
+    scales = 8 * plan.heads_per_group if dtype == torch.int8 else 0
+    assert plan.stage_bytes % 16 == 0 and plan.stage_bytes >= plan.chunk * (2 * plan.pitch + scales)
+    assert 1 <= plan.stages <= 4
+    assert plan.smem_bytes == plan.stages * plan.stage_bytes <= 232_448
+    # kernel indexes: o sums (B, S, H, Dh), then (m, l) per (B, S, H)
+    if plan.splits > 1:
+        assert plan.workspace == b * plan.splits * h * dh + 2 * b * plan.splits * h
+    else:
+        assert plan.workspace == 0
