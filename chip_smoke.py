@@ -5,8 +5,8 @@ Usage: python3 chip_smoke.py [--seed 0] [--requests 48]
 
 Builds the port's CUDA kernels from ``vector_quantization_tpu_torch/csrc``
 (one ``nvcc`` per source, all at once; the ``build`` line gives each
-source's ptxas register counts; for the flash forward and the flash dK/dV
-kernel at each head dim, their registers, spill bytes, shared memory and
+source's ptxas register counts; for the flash forward, dK/dV and dQ
+kernels at each head dim, their registers, spill bytes, shared memory and
 resident blocks per SM at T = 257; for the paged attention's split kernel
 per (query, pool, head dim) type, its registers and spills, and at the
 serving shape its plan and resident blocks per SM; for the INT8 matmul,
@@ -75,9 +75,11 @@ phases, each printing one JSON line; any failure exits non-zero:
    32 and 128; o within 2e-3 of max(1, max|ref|)
    beyond one bf16 step of each element (each version rounds its f32 result
    to bf16 once), lse within 1e-4, dq/dk/dv within 1e-2 of max(1, max|ref|) (at T = 1
-   dq and dk are 0 up to rounding); an f32
+   dq and dk are 0 up to rounding), the dQ kernel's di = sum(o dO) within
+   1e-5 of max(1, max|ref|) of the plain ``_di`` (f32 sums in another
+   order); an f32
    input must be refused. Device times at the path shape, all by CUDA-graph
-   replay: the kernels, K4's whole backward (the ``di`` pass, dkv and dq),
+   replay: the kernels, K4's whole backward (dq, which writes di, then dkv),
    the plain versions, and as ``library_ms`` PyTorch's causal flash
    attention (SDPA pinned to its FLASH_ATTENTION backend): its forward, and
    its backward alone (the aten flash backward on residuals made outside
@@ -286,6 +288,9 @@ def phase_build() -> None:
     dkv = ptxas_entries(logs["flash_attention"], "flash_bwd_dkv_kernel")
     for dh, entry in dkv.items():
         entry.update(fa.flash_bwd_dkv_plan(SEQ, int(dh[2:])))
+    dq = ptxas_entries(logs["flash_attention"], "flash_bwd_dq_kernel")
+    for dh, entry in dq.items():
+        entry.update(fa.flash_bwd_dq_plan(SEQ, int(dh[2:])))
     paged = ptxas_entries(logs["paged_attention"], "paged_split_kernel", ("q", "kv", "dh"))
     plan = pa.decode_plan(SLOTS, MEDIUM["num_heads"], 64, P_SLOT, PAGE_SIZE, torch.int8,
                           torch.cuda.get_device_properties(0).multi_processor_count)
@@ -296,9 +301,9 @@ def phase_build() -> None:
         mm["blocks_per_sm"] = blocks_per_sm(mm["registers"], 256, mm["static_smem"])
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "sources": sorted(logs), "ptxas": regs, "flash_fwd_at_t257": fwd,
-          "flash_bwd_dkv_at_t257": dkv, "paged_attention": paged,
+          "flash_bwd_dkv_at_t257": dkv, "flash_bwd_dq_at_t257": dq, "paged_attention": paged,
           "paged_attention_at_path": paged_path, "int8_matmul": mm})
-    if not fwd or not dkv or "registers" not in paged_path or not mm:
+    if not fwd or not dkv or not dq or "registers" not in paged_path or not mm:
         raise SystemExit("build: a kernel's entry is missing from the ptxas log")
 
 
@@ -884,7 +889,7 @@ def phase_class_to_image(model, done: dict, dev) -> None:
 AR_CONFIG = "configs/llamagen/c2i_medium_imagenet_ddp.py"
 SEQ = 1 + IMAGE_TOKENS  # [class | 256 codes]
 AR_IMAGE_BATCH, AR_CODES_BATCH, AR_IMAGE_STEPS, AR_CODES_STEPS = 64, 128, 3, 5
-FLASH_O_LIMIT, FLASH_GRAD_LIMIT, FLASH_LSE_LIMIT = 2e-3, 1e-2, 1e-4
+FLASH_O_LIMIT, FLASH_GRAD_LIMIT, FLASH_LSE_LIMIT, FLASH_DI_LIMIT = 2e-3, 1e-2, 1e-4, 1e-5
 EINSUM_LOSS_LIMIT, EINSUM_GRAD_LIMIT = 1e-2, 5e-2
 
 
@@ -923,7 +928,7 @@ def flash_cost(b: int, t: int, h: int, dh: int) -> dict:
     x, row = b * t * h * dh * 2, b * h * t * 4  # one bf16 (B, T, H, Dh); one f32 (B, H, T)
     return {"fwd": (3 * x + x + row, 4 * dh * pairs),       # q, k, v -> o, lse
             "dkv": (4 * x + 2 * row + 2 * x, 8 * dh * pairs),  # q, k, v, dO, lse, di -> dk, dv
-            "dq": (4 * x + 2 * row + x, 6 * dh * pairs)}      # ... -> dq
+            "dq": (5 * x + row + x + row, 6 * dh * pairs)}    # q, k, v, o, dO, lse -> dq, di
 
 
 def phase_flash_attention(dev, gen) -> list[dict]:
@@ -944,6 +949,8 @@ def phase_flash_attention(dev, gen) -> list[dict]:
         # both backward versions take the same residuals (the kernel's o, lse)
         dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do)
         rq, rk, rv = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+        _, di = fa.flash_bwd_dq(q, k, v, o, do, lse)  # the di the backward's dkv took
+        rdi = fa._di(o, do)
         torch.cuda.synchronize()
         # over max(1, max|ref|): at T = 1 dq and dk are 0 up to rounding
         grad_err = {n: float((g.float() - r.float()).abs().max())
@@ -954,15 +961,17 @@ def phase_flash_attention(dev, gen) -> list[dict]:
                "o_max_abs_err": float((o.float() - ro.float()).abs().max()),
                "o_err_beyond_one_bf16_step": fa.excess_over_bf16_step(o, ro), "o_limit": FLASH_O_LIMIT,
                "lse_max_abs_err": float((lse - rl).abs().max()), "lse_limit": FLASH_LSE_LIMIT,
-               "grad_max_err_over_max_ref": grad_err, "grad_limit": FLASH_GRAD_LIMIT}
-        finite = all(bool(torch.isfinite(x).all()) for x in (o, lse, dq, dk, dv))
+               "grad_max_err_over_max_ref": grad_err, "grad_limit": FLASH_GRAD_LIMIT,
+               "di_max_err_over_max_ref": float((di - rdi).abs().max())
+               / max(1.0, float(rdi.abs().max())), "di_limit": FLASH_DI_LIMIT}
+        finite = all(bool(torch.isfinite(x).all()) for x in (o, lse, dq, dk, dv, di))
         if (not finite or row["o_err_beyond_one_bf16_step"] > FLASH_O_LIMIT
                 or row["lse_max_abs_err"] > FLASH_LSE_LIMIT
-                or max(grad_err.values()) > FLASH_GRAD_LIMIT):
+                or max(grad_err.values()) > FLASH_GRAD_LIMIT
+                or row["di_max_err_over_max_ref"] > FLASH_DI_LIMIT):
             emit(row)
             raise SystemExit(f"flash_attention {name}: kernels and plain versions disagree")
         if name == "path":
-            di = fa._di(o, do)
             sdpa = sdpa_flash_ms(q, k, v, do)
             plain_bwd = graph_ms([lambda: fa.flash_attention_bwd_reference(q, k, v, o, lse, do)],
                                  replays=3)
@@ -972,9 +981,9 @@ def phase_flash_attention(dev, gen) -> list[dict]:
                         sdpa["fwd_ms"]),
                 "dkv": (graph_ms([lambda: fa.flash_bwd_dkv(q, k, v, do, lse, di)]), plain_bwd,
                         sdpa["bwd_ms"]),
-                "dq": (graph_ms([lambda: fa.flash_bwd_dq(q, k, v, do, lse, di)]), plain_bwd,
+                "dq": (graph_ms([lambda: fa.flash_bwd_dq(q, k, v, o, do, lse)]), plain_bwd,
                        sdpa["bwd_ms"]),
-                # K4's whole backward: the di pass, dkv and dq
+                # K4's whole backward: dq (which writes di), then dkv
                 "bwd": (graph_ms([lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)]), plain_bwd,
                         sdpa["bwd_ms"]),
             }
@@ -985,7 +994,7 @@ def phase_flash_attention(dev, gen) -> list[dict]:
                         "bwd_faster": "K4" if timing["bwd"][0] < sdpa["bwd_ms"] else "SDPA"})
             errs = (row["o_err_beyond_one_bf16_step"], grad_err)
         emit(row)
-        del q, k, v, do, o, lse, ro, rl, dq, dk, dv, rq, rk, rv
+        del q, k, v, do, o, lse, ro, rl, dq, dk, dv, rq, rk, rv, di, rdi
     # f32 is refused on the card, never cast
     x = torch.zeros((1, 4, 2, 64), device=dev)
     try:
@@ -1021,7 +1030,9 @@ def phase_flash_attention(dev, gen) -> list[dict]:
                      + ("; library_ms = SDPA(is_causal) forward, FLASH_ATTENTION backend"
                         if key == "fwd" else
                         "; plain_ms = the whole plain backward (dq, dk, dv); library_ms = "
-                        "the whole SDPA flash backward (dq, dk, dv), graph-timed")),
+                        "the whole SDPA flash backward (dq, dk, dv), graph-timed")
+                     + ("; the dq kernel also writes di = sum(o dO) for dkv" if key == "dq"
+                        else "")),
         })
     return entries
 

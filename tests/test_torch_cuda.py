@@ -256,7 +256,9 @@ def test_nearest_codes_kernel_matches_plain(dev, n, k, d, dtype, metric, ties):
      (2, 1000, 4, 64), (2, 700, 2, 128), (1, 2000, 2, 32),
      # the longest heads whose q/dO tiles the dK/dV kernel keeps resident,
      # and one row more (its q/dO tiles stream through a ring)
-     (2, 640, 4, 64), (2, 641, 4, 64), (2, 256, 4, 128), (2, 1472, 2, 32), (2, 1473, 2, 32)],
+     (2, 640, 4, 64), (2, 641, 4, 64), (2, 256, 4, 128), (2, 1472, 2, 32), (2, 1473, 2, 32),
+     # the longest head whose k/v tiles the dQ kernel keeps resident, and one row more
+     (2, 704, 4, 64), (2, 705, 4, 64)],
 )
 def test_flash_attention_kernels_match_plain(dev, shape):
     # o: within 2e-3 of max(1, max|ref|) beyond one bf16 step per element
@@ -289,6 +291,35 @@ def test_flash_bwd_dkv_plan_fits_at_t257(dev, dh):
     assert plan["blocks_per_sm"] >= 1
 
 
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_flash_bwd_dq_plan_fits_at_t257(dev, dh):
+    # the dQ kernel likewise
+    plan = fa.flash_bwd_dq_plan(257, dh)
+    assert 0 < plan["dynamic_smem"] <= 227 * 1024
+    assert plan["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("shape", [(64, 257, 16, 64), (4, 1, 8, 64), (4, 65, 8, 64),
+                                   (2, 705, 4, 64), (4, 200, 8, 32), (2, 300, 2, 128)])
+def test_flash_dq_di_matches_plain(dev, shape):
+    # the dQ kernel's di = sum(o dO) against the plain _di: f32 sums of the
+    # same exact bf16 products in another order, within 1e-5 of
+    # max(1, max|ref|); at T 705 the k/v tiles stream through the ring
+    rng = np.random.default_rng(sum(shape) + 1)
+    q, k, v, do = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, torch.bfloat16)
+                   for _ in range(4)]
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    before = fa.flash_bwd_dq.launches
+    dq, di = fa.flash_bwd_dq(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_dq.launches == before + 1
+    ref = fa._di(o, do)
+    assert di.dtype == torch.float32 and di.shape == ref.shape == (shape[0], shape[2], shape[1])
+    assert float((di - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+    rq, _, _ = fa.flash_attention_bwd_reference(q, k, v, o, lse, do)
+    assert float((dq.float() - rq.float()).abs().max()) <= 1e-2 * max(1.0, float(rq.float().abs().max()))
+
+
 def test_flash_attention_refuses_f32_on_cuda(dev):
     x = torch.zeros((1, 4, 2, 64), device=dev)
     with pytest.raises(ValueError, match="float32"):
@@ -318,25 +349,31 @@ def test_flash_attention_refuses_misaligned_inputs(dev):
 @pytest.mark.parametrize("kernel", ["flash_bwd_dkv", "flash_bwd_dq"])
 def test_flash_backward_refuses_misaligned_inputs(dev, kernel):
     # the backward kernels refuse a q, k, v or dO base that is not 16-byte
-    # aligned (dkv reads them by TMA, dq 16 bytes at a time), and launch
-    # nothing
+    # aligned (they read them by TMA), and the dQ kernel an o that is not (it
+    # reads o 16 bytes at a time), and launch nothing
     fn = getattr(fa, kernel)
     shape = (1, 64, 2, 64)
     n = int(np.prod(shape))
     buf = torch.zeros(n + 8, dtype=torch.bfloat16, device=dev)
     x, y = buf[1:n + 1].view(shape), buf[8:].view(shape)
     lse = torch.zeros((1, 2, 64), device=dev)
-    cases = [(x, y, y, y, lse, lse), (y, x, y, y, lse, lse), (y, y, x, y, lse, lse),
-             (y, y, y, x, lse, lse)]
+    if kernel == "flash_bwd_dkv":  # (q, k, v, dO, lse, di)
+        cases = [(x, y, y, y, lse, lse), (y, x, y, y, lse, lse), (y, y, x, y, lse, lse),
+                 (y, y, y, x, lse, lse)]
+        aligned = (y, y, y, y, lse, lse)
+    else:  # (q, k, v, o, dO, lse)
+        cases = [(x, y, y, y, y, lse), (y, x, y, y, y, lse), (y, y, x, y, y, lse),
+                 (y, y, y, x, y, lse), (y, y, y, y, x, lse)]
+        aligned = (y, y, y, y, y, lse)
     before = fn.launches
     for args in cases:
         with pytest.raises(RuntimeError, match="CUDA error"):
             fn(*args)
     assert fn.launches == before
-    out = fn(y, y, y, y, lse, lse)  # the aligned views run
+    out = fn(*aligned)  # the aligned views run
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    assert all(bool(torch.isfinite(t.float()).all()) for t in (out if isinstance(out, tuple) else (out,)))
+    assert all(bool(torch.isfinite(t.float()).all()) for t in out)
 
 
 def test_llama_flash_remat_launches_kernels_only(dev):

@@ -60,11 +60,20 @@
 // owns its k/v rows. What bounds it at the training shape on an H100: the
 // warps' product chains and the stores (without its loads it runs about as
 // long; its loads alone take under half its time).
-// What dq does: one block per (64-row tile, batch * head), 4 warps of 16
-// rows; the block stages its q tile and then each k/v tile up to the
-// diagonal in shared memory (16-byte loads, ragged rows zero-filled), the
-// longest walks first; no atomics: dq owns its q rows, as in the TPU kernel.
-// Left for later: wgmma; TMA and ldmatrix in dq.
+// What dq does: it runs first in the backward and also computes
+// di = sum_d o dO (f32, from the bf16 o and dO, each read once), which it
+// writes for dkv. One block per (batch, head), three warpgroups at Dh <= 64
+// (two at 128); each warpgroup takes q tiles longest walk first, snaking as
+// the forward's do, their q and dO tiles by TMA; a warp keeps its 16 q rows'
+// Q and dO A fragments in registers, sums its rows' di from the dO tile and
+// o (16-byte loads issued before the tile's wait), and walks the head's k/v
+// tiles, resident in shared memory by TMA (a ring of 4 stages past T = 704
+// at Dh 64), the same way the forward does: end-aligned tiles, a warp with
+// no live q row issues nothing, on the diagonal only live steps. S = Q K^T
+// and dP = dO V^T from ldmatrix fragments, P = 2^(S scale log2 e - lse
+// log2 e), dS = P (dP - di) scale rounded to bf16, dQ += dS K (ldmatrix
+// .trans for K); dq leaves in 16-byte stores. No atomics: dq owns its q
+// rows, as in the TPU kernel. Left for later: wgmma.
 // Dh = 32, 64 and 128 are compiled; any T >= 1.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is found at run time
@@ -77,8 +86,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BM = 64;        // rows per tile, on both the q and the k/v side
-constexpr int THREADS = 128;  // 4 warps; warp w owns rows [16w, 16w + 16)
+constexpr int BM = 64;  // rows per tile, on both the q and the k/v side
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
@@ -95,42 +103,6 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 from different rows of a tile, `lo` in the low half
-__device__ __forceinline__ uint32_t pair(const bf16* lo, const bf16* hi) {
-  return (uint32_t)__bfloat16_as_ushort(*lo) |
-         ((uint32_t)__bfloat16_as_ushort(*hi) << 16);
-}
-
-// rows [row0, row0 + BM) of one head -> a (BM, DH + 8) shared tile; rows
-// at or past T read as 0
-template <int DH>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row0, int T, size_t rs) {
-  constexpr int P = DH + 8, CHUNKS = DH / 8;
-  for (int i = threadIdx.x; i < BM * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * rs + c);
-    *reinterpret_cast<uint4*>(dst + r * P + c) = val;
-  }
-}
-
-// A operand (16 x 16, row-major) from rows [r0, r0 + 16) of a shared tile
-template <int P>
-__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* tile, int r0,
-                                       int ks, int g, int t) {
-  const bf16* p = tile + (r0 + g) * P + ks + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * P);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * P + 8);
-}
-
 // A operand of k-step kk from the C fragments of a 16 x BM product
 __device__ __forceinline__ void frag_a_regs(uint32_t* a, const float (*c)[4],
                                             int kk) {
@@ -138,44 +110,6 @@ __device__ __forceinline__ void frag_a_regs(uint32_t* a, const float (*c)[4],
   a[1] = pack2(c[2 * kk][2], c[2 * kk][3]);
   a[2] = pack2(c[2 * kk + 1][0], c[2 * kk + 1][1]);
   a[3] = pack2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// S (16 x BM) += A-tile rows [r0, r0+16) . B-tile^T, both (BM, DH) in shared
-// memory with the contraction (DH) contiguous
-template <int DH>
-__device__ __forceinline__ void rows_dot_rows(float (*s)[4], const bf16* at,
-                                              const bf16* bt, int r0, int g,
-                                              int t) {
-  constexpr int P = DH + 8;
-#pragma unroll
-  for (int ks = 0; ks < DH; ks += 16) {
-    uint32_t a[4];
-    frag_a<P>(a, at, r0, ks, g, t);
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt) {
-      const bf16* bp = bt + (nt * 8 + g) * P + ks + 2 * t;
-      mma_bf16(s[nt], a, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-
-// acc (16 x DH) += C (16 x BM, registers, rounded to bf16) . tile (BM, DH)
-template <int DH>
-__device__ __forceinline__ void regs_dot_tile(float (*acc)[4],
-                                              const float (*c)[4],
-                                              const bf16* tile, int g, int t) {
-  constexpr int P = DH + 8;
-#pragma unroll
-  for (int kk = 0; kk < BM / 16; ++kk) {
-    uint32_t a[4];
-    frag_a_regs(a, c, kk);
-    const bf16* row = tile + (kk * 16 + 2 * t) * P + g;
-#pragma unroll
-    for (int dt = 0; dt < DH / 8; ++dt) {
-      const bf16* p = row + dt * 8;
-      mma_bf16(acc[dt], a, pair(p, p + P), pair(p + 8 * P, p + 9 * P));
-    }
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -186,23 +120,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// store a warp's 16 x DH accumulator (rows ra, ra + 8) as bf16 rows < T
-template <int DH>
-__device__ __forceinline__ void store_rows(bf16* dst, const float (*acc)[4],
-                                           int ra, int T, size_t rs, int t,
-                                           float mul_a, float mul_b) {
-#pragma unroll
-  for (int dt = 0; dt < DH / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (ra < T)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)ra * rs + col) =
-          pack2(acc[dt][0] * mul_a, acc[dt][1] * mul_a);
-    if (ra + 8 < T)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)(ra + 8) * rs + col) =
-          pack2(acc[dt][2] * mul_b, acc[dt][3] * mul_b);
-  }
 }
 
 // ---- K4-fwd ---------------------------------------------------------------
@@ -403,7 +320,7 @@ __device__ __forceinline__ void fwd_scores(float (*s)[4],
 // O += P V over the 16-row step kk of the v tile (a constant once unrolled:
 // it indexes P's registers): the step's B fragments, then its products
 template <int DH, class L>
-__device__ __forceinline__ void fwd_pv_step(FwdState<DH>& st,
+__device__ __forceinline__ void fwd_pv_step(float (*acc)[4],
                                             const float (*p)[4], uint32_t vs,
                                             int kk, int lane) {
   constexpr int DT = DH / 8;
@@ -415,8 +332,8 @@ __device__ __forceinline__ void fwd_pv_step(FwdState<DH>& st,
     ldsm_x4_t(b[dp], vs + L::off(kk * 16 + (mi & 1) * 8, rr, dp * 16 + (mi >> 1) * 8));
 #pragma unroll
   for (int dp = 0; dp < DT / 2; ++dp) {
-    mma_bf16(st.acc[2 * dp], a, b[dp][0], b[dp][1]);
-    mma_bf16(st.acc[2 * dp + 1], a, b[dp][2], b[dp][3]);
+    mma_bf16(acc[2 * dp], a, b[dp][0], b[dp][1]);
+    mma_bf16(acc[2 * dp + 1], a, b[dp][2], b[dp][3]);
   }
 }
 
@@ -475,12 +392,12 @@ __device__ __forceinline__ void fwd_softmax_pv(FwdState<DH>& st,
   }
   if (kk0 == 0 && kk1 == NT / 2) {  // a full tile: no branch between the steps
 #pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) fwd_pv_step<DH, L>(st, s, vs, kk, lane);
+    for (int kk = 0; kk < NT / 2; ++kk) fwd_pv_step<DH, L>(st.acc, s, vs, kk, lane);
     return;
   }
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk)
-    if (kk >= kk0 && kk < kk1) fwd_pv_step<DH, L>(st, s, vs, kk, lane);
+    if (kk >= kk0 && kk < kk1) fwd_pv_step<DH, L>(st.acc, s, vs, kk, lane);
 }
 
 // The live 8-column steps [nt0, nt1) and 16-row steps [kk0, kk1) of a k/v
@@ -525,15 +442,18 @@ constexpr int FWD_THREADS = 128 * FWD_WG;
 constexpr int FWD_STREAM_STAGES = 4;  // k/v ring when a head does not fit
 constexpr int FWD_BAR_BYTES = 1024;   // mbarriers and counters, then the tiles
 
-// Q tile of warpgroup g in round r: the longest walks first, snaking over
-// the warpgroups so that their walks even out; negative when none is left
-__device__ __forceinline__ int fwd_q_tile(int n, int r, int g) {
-  return n - 1 - (FWD_WG * r + ((r & 1) ? FWD_WG - 1 - g : g));
+// Q tile of warpgroup g (of WG) in round r: the longest walks first,
+// snaking over the warpgroups so that their walks even out; negative when
+// none is left (the forward and dq)
+template <int WG>
+__device__ __forceinline__ int q_round_tile(int n, int r, int g) {
+  return n - 1 - (WG * r + ((r & 1) ? WG - 1 - g : g));
 }
 
-// k/v tile of the c-th streamed load: round r walks tiles 0 .. n - 1 - FWD_WG r
-__device__ __forceinline__ int fwd_seq_tile(int n, int c) {
-  for (int len = n; c >= len; len -= FWD_WG) c -= len;
+// k/v tile of the c-th streamed load: round r walks tiles 0 .. n - 1 - WG r
+template <int WG>
+__device__ __forceinline__ int kv_seq_tile(int n, int c) {
+  for (int len = n; c >= len; len -= WG) c -= len;
   return c;
 }
 
@@ -576,10 +496,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   auto load_q = [&](int r, int g) {
     mbar_expect_tx(qfull + 8 * g, TILE);
     tma_tile<DH>(qbuf + g * TILE, mq, qfull + 8 * g,
-                 T - (n - fwd_q_tile(n, r, g)) * BM, h, b);
+                 T - (n - q_round_tile<FWD_WG>(n, r, g)) * BM, h, b);
   };
   auto load_kv = [&](int c) {  // the c-th k/v load, into stage c % stages
-    const int s = c % stages, j = resident ? c : fwd_seq_tile(n, c);
+    const int s = c % stages, j = resident ? c : kv_seq_tile<FWD_WG>(n, c);
     mbar_expect_tx(full + 8 * s, 2 * TILE);
     tma_tile<DH>(kvbuf + 2 * s * TILE, mk, full + 8 * s, T - (n - j) * BM, h,
                  b);
@@ -597,7 +517,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int g = 0; g < FWD_WG; ++g)
-      if (fwd_q_tile(n, 0, g) >= 0) load_q(0, g);
+      if (q_round_tile<FWD_WG>(n, 0, g) >= 0) load_q(0, g);
     for (int c = 0; c < min(total, stages); ++c) load_kv(c);
   }
   __syncthreads();
@@ -610,7 +530,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   float* lb = lse + (size_t)bh * T;
   int c = 0;  // k/v loads consumed so far
   for (int r = 0; r < rounds; ++r) {
-    const int i = fwd_q_tile(n, r, g);
+    const int i = q_round_tile<FWD_WG>(n, r, g);
     const int walk = resident ? i + 1 : n - FWD_WG * r;
     // a warp whose 16 rows all lie before row 0 issues no products
     const bool live = i > 0 || (i == 0 && r0 + 15 >= dead);
@@ -620,7 +540,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       if (live) fwd_load_q<DH, L>(qa, qs, r0, lane);
       // the q buffer is no longer read: its last reader loads the next tile
       if (warp_release(q_count + g, 4, lane) && r + 1 < rounds &&
-          fwd_q_tile(n, r + 1, g) >= 0)
+          q_round_tile<FWD_WG>(n, r + 1, g) >= 0)
         load_q(r + 1, g);
     }
     FwdState<DH> st;
@@ -755,6 +675,29 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&x)[4], int t) {
           __shfl_xor_sync(0xffffffffu, hi ? x[u] : x[u | bit], bit);
       if (hi) x[u] = recv;
       else x[u | bit] = recv;
+    }
+  }
+}
+
+// a warp's 16 x DH accumulator as bf16 rows row_a = g + (tile's row 0)
+// and row_a + 8 (those >= 0), 16 bytes a store, as dkv_store below
+template <int DH>
+__device__ __forceinline__ void store_rows16(bf16* dst, const float (*acc)[4],
+                                             int row_a, size_t rs, int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_a + 8 * half;
+#pragma unroll
+    for (int m = 0; m < DH / 32; ++m) {
+      uint32_t x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        x[u] = pack2(acc[4 * m + u][2 * half], acc[4 * m + u][2 * half + 1]);
+      quad_transpose(x, t);
+      if (row >= 0)
+        *reinterpret_cast<uint4*>(dst + (size_t)row * rs + (4 * m + t) * 8) =
+            make_uint4(x[0], x[1], x[2], x[3]);
     }
   }
 }
@@ -959,71 +902,205 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// grid (B*H, ceil(T/BM)); the q tile walks the k/v tiles up to the diagonal
+// ---- K4-dq ----------------------------------------------------------------
+// Tiles are end-aligned as in the forward. A warp owns 16 q rows of one q
+// tile, keeps their Q and dO A fragments in registers, and walks the k/v
+// tiles 0 .. i: S = Q K^T and dP = dO V^T (as the forward's scores), P =
+// 2^(S scale log2 e - lse log2 e) with the forward's masks, dS = P (dP - di)
+// scale, then dQ += dS K with dS rounded to bf16 (as the forward's P V).
+
+// Warpgroups (4 warps of 16 q rows each) of the dQ kernel: three at
+// Dh <= 64, two at Dh 128 (its 16 rows' Q and dO fragments and dQ sums take
+// 128 registers of a thread)
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ di, bf16* __restrict__ dq,
-                    int T, int H, float scale) {
-  constexpr int P = DH + 8, NT = BM / 8, DT = DH / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ds = Qs + BM * P;  // dO tile
-  bf16* Ks = Ds + BM * P;
-  bf16* Vs = Ks + BM * P;
+struct Dq {
+  static constexpr int WG = DH == 128 ? 2 : 3, THREADS = 128 * WG;
+};
+constexpr int DQ_STREAM_STAGES = 4;  // k/v ring when a head does not fit
+constexpr int DQ_BAR_BYTES = 1024;   // mbarriers and counters, then the tiles
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
-  const size_t rs = (size_t)H * DH;
-  const size_t base = (size_t)b * T * rs + (size_t)h * DH;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ra = q0 + warp * 16 + g, rb = ra + 8;
-  const float lse_a = ra < T ? lse[(size_t)bh * T + ra] : 0.f;
-  const float lse_b = rb < T ? lse[(size_t)bh * T + rb] : 0.f;
-  const float di_a = ra < T ? di[(size_t)bh * T + ra] : 0.f;
-  const float di_b = rb < T ? di[(size_t)bh * T + rb] : 0.f;
-
-  load_tile<DH>(Qs, q + base, q0, T, rs);
-  load_tile<DH>(Ds, dout + base, q0, T, rs);
-  float acc[DT][4];
+// di of the warp's 16 q rows: lane pair (2 d, 2 d + 1) sums row d's two
+// halves of o . dO in f32 (o from device memory, held in `ov` since before
+// the tile's wait; dO from the swizzled tile), and the pair shares the sum
+template <int DH, class L>
+__device__ __forceinline__ float dq_row_di(const uint4 (&ov)[DH / 16],
+                                           uint32_t dos, int r0, int lane) {
+  const int rr = r0 + (lane >> 1), col0 = (lane & 1) * (DH / 2);
+  float sum = 0.f;
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
+  for (int c = 0; c < DH / 16; ++c) {
+    uint4 dv;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(dv.x), "=r"(dv.y), "=r"(dv.z), "=r"(dv.w)
+                 : "r"(dos + L::off(rr & ~7, rr & 7, col0 + 8 * c)));
+    const uint32_t o4[4] = {ov[c].x, ov[c].y, ov[c].z, ov[c].w};
+    const uint32_t d4[4] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[dt][c] = 0.f;
-
-  const int kv_end = min(T, q0 + BM);
-  for (int j0 = 0; j0 < kv_end; j0 += BM) {
-    __syncthreads();
-    load_tile<DH>(Ks, k + base, j0, T, rs);
-    load_tile<DH>(Vs, v + base, j0, T, rs);
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[nt][c] = dp[nt][c] = 0.f;
-    rows_dot_rows<DH>(s, Qs, Ks, warp * 16, g, t);   // S = Q K^T
-    rows_dot_rows<DH>(dp, Ds, Vs, warp * 16, g, t);  // dP = dO V^T
-
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = j0 + nt * 8 + 2 * t + (c & 1);
-        const int row = c < 2 ? ra : rb;
-        const bool live = col <= row && col < T && row < T;
-        const float p =
-            live ? expf(s[nt][c] * scale - (c < 2 ? lse_a : lse_b)) : 0.f;
-        s[nt][c] = p * (dp[nt][c] - (c < 2 ? di_a : di_b)) * scale;  // dS
-      }
-    regs_dot_tile<DH>(acc, s, Ks, g, t);  // dQ += dS K
+    for (int u = 0; u < 4; ++u) {  // bf16 pair -> f32 by shifting into place, exactly
+      sum = fmaf(__uint_as_float(o4[u] << 16), __uint_as_float(d4[u] << 16), sum);
+      sum = fmaf(__uint_as_float(o4[u] & 0xffff0000u),
+                 __uint_as_float(d4[u] & 0xffff0000u), sum);
+    }
   }
+  return sum + __shfl_xor_sync(0xffffffffu, sum, 1);
+}
 
-  store_rows<DH>(dq + base, acc, ra, T, rs, t, 1.f, 1.f);
+// dS over the tile's live steps, in place of S: P from the scores and the
+// rows' lse (base 2), masked as in the forward, times (dP - di) and scale
+__device__ __forceinline__ void dq_ds(float (*s)[4], const float (*dp)[4],
+                                      int r0, int dead, bool diag, float nl_a,
+                                      float nl_b, float di_a, float di_b,
+                                      float scale2, float scale, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bool mask = dead > 0 || diag;
+#pragma unroll
+  for (int nt = 0; nt < BM / 8; ++nt)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = nt * 8 + 2 * t + (c & 1), row = r0 + g + (c < 2 ? 0 : 8);
+      float p = exp2_approx(fmaf(s[nt][c], scale2, c < 2 ? nl_a : nl_b));
+      if (mask && (col < dead || (diag && col > row))) p = 0.f;
+      s[nt][c] = p * (dp[nt][c] - (c < 2 ? di_a : di_b)) * scale;
+    }
+}
+
+// One block per (batch, head); warpgroup g holds q tile q_round_tile(n, r,
+// g) in round r, its q and dO tiles by TMA into the warpgroup's buffers;
+// `stages` k/v stages follow. When stages >= n the head stays resident: k/v
+// tile j is loaded once, into stage j, all at the start. Otherwise round
+// r's walk (shared by the round's q tiles) streams through the ring, and
+// every warp releases each stage. The first thread issues the first loads;
+// after that, the warp that frees a q buffer or a stage last issues its
+// next load. di (B, H, T) f32 is written for dkv.
+template <int DH>
+__global__ void __launch_bounds__(Dq<DH>::THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const bf16* __restrict__ o, const float* __restrict__ lse,
+                    float* __restrict__ di, bf16* __restrict__ dq, int T, int H,
+                    int stages, float scale2, float scale) {
+  using L = SwizzledRows<DH>;
+  constexpr int WG = Dq<DH>::WG, DT = DH / 8;
+  constexpr uint32_t TILE = BM * DH * 2;
+  extern __shared__ unsigned char smem_dq[];
+  // the swizzle repeats every 1024 bytes: tiles start on such a boundary
+  const uint32_t pad = ((smem_u32(smem_dq) + 1023u) & ~1023u) - smem_u32(smem_dq);
+  const uint32_t full = smem_u32(smem_dq) + pad, qfull = full + 8 * stages;
+  unsigned* kv_count = reinterpret_cast<unsigned*>(smem_dq + pad + 8 * (stages + WG));
+  unsigned* q_count = kv_count + stages;
+  const uint32_t qbuf = full + DQ_BAR_BYTES, kvbuf = qbuf + 2 * WG * TILE;
+
+  const int n = (T + BM - 1) / BM, dead = n * BM - T;
+  const int rounds = (n + WG - 1) / WG;
+  const bool resident = stages >= n;
+  int total = n;  // k/v loads of the block
+  if (!resident)
+    for (int r = 1; r < rounds; ++r) total += n - WG * r;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const CUtensorMap *mq = &tq, *mk = &tk, *mv = &tv, *mdo = &tdo;
+  auto load_q = [&](int r, int g) {  // the q and dO tiles of round r
+    const int row0 = T - (n - q_round_tile<WG>(n, r, g)) * BM;
+    mbar_expect_tx(qfull + 8 * g, 2 * TILE);
+    tma_tile<DH>(qbuf + 2 * g * TILE, mq, qfull + 8 * g, row0, h, b);
+    tma_tile<DH>(qbuf + (2 * g + 1) * TILE, mdo, qfull + 8 * g, row0, h, b);
+  };
+  auto load_kv = [&](int c) {  // the c-th k/v load, into stage c % stages
+    const int s = c % stages, j = resident ? c : kv_seq_tile<WG>(n, c);
+    mbar_expect_tx(full + 8 * s, 2 * TILE);
+    tma_tile<DH>(kvbuf + 2 * s * TILE, mk, full + 8 * s, T - (n - j) * BM, h, b);
+    tma_tile<DH>(kvbuf + (2 * s + 1) * TILE, mv, full + 8 * s, T - (n - j) * BM, h, b);
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      kv_count[s] = 0;
+    }
+    for (int g = 0; g < WG; ++g) {
+      mbar_init(qfull + 8 * g, 1);
+      q_count[g] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int g = 0; g < WG; ++g)
+      if (q_round_tile<WG>(n, 0, g) >= 0) load_q(0, g);
+    for (int c = 0; c < min(total, stages); ++c) load_kv(c);
+  }
+  __syncthreads();
+
+  // warpgroup g; the warp's q rows [r0, r0 + 16) of the tile
+  const int g = warp >> 2, r0 = (warp & 3) * 16;
+  const uint32_t qs = qbuf + 2 * g * TILE, dos = qs + TILE;
+  const size_t rs = (size_t)H * DH, head = (size_t)b * T * rs + (size_t)h * DH;
+  const float* lrow = lse + (size_t)bh * T;
+  float* drow = di + (size_t)bh * T;
+  int c = 0;  // k/v loads consumed so far
+  for (int r = 0; r < rounds; ++r) {
+    const int i = q_round_tile<WG>(n, r, g);
+    const int walk = resident ? i + 1 : n - WG * r;
+    // a warp whose 16 rows all lie before row 0 issues no products
+    const bool live = i > 0 || (i == 0 && r0 + 15 >= dead);
+    const int q0 = T - (n - i) * BM;  // the tile's first row (negative: dead rows)
+    const int row_a = q0 + r0 + (lane >> 2), row_b = row_a + 8;
+    uint32_t qa[DH / 16][4], da[DH / 16][4];
+    float nl_a = 0.f, nl_b = 0.f, di_a = 0.f, di_b = 0.f;
+    if (i >= 0) {
+      // this lane's half of o's row r0 + lane / 2, loaded before the wait
+      const int orow = q0 + r0 + (lane >> 1);
+      uint4 ov[DH / 16];
+#pragma unroll
+      for (int cc = 0; cc < DH / 16; ++cc)
+        ov[cc] = orow >= 0 ? *reinterpret_cast<const uint4*>(
+                                 o + head + (size_t)orow * rs + (lane & 1) * (DH / 2) + 8 * cc)
+                           : make_uint4(0u, 0u, 0u, 0u);
+      if (row_a >= 0) nl_a = lrow[row_a] * -LOG2E;
+      if (row_b >= 0) nl_b = lrow[row_b] * -LOG2E;
+      mbar_wait(qfull + 8 * g, r & 1);
+      if (live) {
+        fwd_load_q<DH, L>(qa, qs, r0, lane);
+        fwd_load_q<DH, L>(da, dos, r0, lane);
+      }
+      const float d = dq_row_di<DH, L>(ov, dos, r0, lane);
+      if ((lane & 1) == 0 && orow >= 0) drow[orow] = d;
+      di_a = __shfl_sync(0xffffffffu, d, 2 * (lane >> 2));
+      di_b = __shfl_sync(0xffffffffu, d, 2 * (lane >> 2) + 16);
+      // the q/dO buffer is no longer read: its last reader loads the next tiles
+      if (warp_release(q_count + g, 4, lane) && r + 1 < rounds &&
+          q_round_tile<WG>(n, r + 1, g) >= 0)
+        load_q(r + 1, g);
+    }
+    float acc[DT][4];
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+    for (int j = 0; j < walk; ++j, ++c) {
+      const int s = resident ? j : c % stages;
+      mbar_wait(full + 8 * s, resident ? 0 : (c / stages) & 1);
+      if (live && j <= i) {
+        const int dj = j == 0 ? dead : 0;
+        const FwdSteps sp(r0, dj, j == i);
+        const uint32_t ks = kvbuf + 2 * s * TILE;
+        float sc[BM / 8][4], dp[BM / 8][4];
+        fwd_scores<DH, L>(sc, qa, ks, sp.nt0, sp.nt1, lane);        // S = Q K^T
+        fwd_scores<DH, L>(dp, da, ks + TILE, sp.nt0, sp.nt1, lane);  // dP = dO V^T
+        dq_ds(sc, dp, r0, dj, j == i, nl_a, nl_b, di_a, di_b, scale2, scale, lane);
+        if (sp.kk0 == 0 && sp.kk1 == BM / 16) {  // a full tile: no branch between the steps
+#pragma unroll
+          for (int kk = 0; kk < BM / 16; ++kk) fwd_pv_step<DH, L>(acc, sc, ks, kk, lane);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < BM / 16; ++kk)
+            if (kk >= sp.kk0 && kk < sp.kk1) fwd_pv_step<DH, L>(acc, sc, ks, kk, lane);
+        }
+      }
+      if (!resident && warp_release(kv_count + s, 4 * WG, lane) && c + stages < total)
+        load_kv(c + stages);
+    }
+    if (live) store_rows16<DH>(dq + head, acc, row_a, rs, lane);
+  }
 }
 
 template <typename Kernel>
@@ -1171,16 +1248,45 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// k/v stages of the dQ kernel at length T: the whole head when its tiles and
+// the warpgroups' q/dO buffers fit in a block's shared memory, else a ring
 template <int DH>
-int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* di, void* dq, int B, int T, int H,
-           float scale, cudaStream_t stream) {
-  const int smem = 4 * BM * (DH + 8) * (int)sizeof(bf16);
+int dq_stages(int T) {
+  constexpr int TILE = BM * DH * 2, MAX_SMEM = 227 * 1024, WG = Dq<DH>::WG;
+  const int n = (T + BM - 1) / BM;
+  const bool fits = 1024 + DQ_BAR_BYTES + (2 * WG + 2 * n) * TILE <= MAX_SMEM &&
+                    12 * (n + WG) <= DQ_BAR_BYTES;
+  return fits ? n : DQ_STREAM_STAGES;
+}
+
+// 1024 bytes of slack to align the tiles, the barriers, q/dO buffers, stages
+template <int DH>
+int dq_smem(int T) {
+  return 1024 + DQ_BAR_BYTES + (2 * Dq<DH>::WG + 2 * dq_stages<DH>(T)) * BM * DH * 2;
+}
+
+template <int DH>
+int dq_plan(int T, int* smem, int* blocks_per_sm) {
+  *smem = dq_smem<DH>(T);
+  if (int err = launch_prep(flash_bwd_dq_kernel<DH>, *smem)) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_bwd_dq_kernel<DH>, Dq<DH>::THREADS, *smem);
+}
+
+template <int DH>
+int bwd_dq(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const void* lse, void* di, void* dq, int B, int T,
+           int H, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (int err = tile_map<DH>(&mq, q, B, T, H)) return err;
+  if (int err = tile_map<DH>(&mk, k, B, T, H)) return err;
+  if (int err = tile_map<DH>(&mv, v, B, T, H)) return err;
+  if (int err = tile_map<DH>(&mdo, dout, B, T, H)) return err;
+  const int smem = dq_smem<DH>(T);
   if (int err = launch_prep(flash_bwd_dq_kernel<DH>, smem)) return err;
-  const dim3 grid(B * H, (T + BM - 1) / BM);
-  flash_bwd_dq_kernel<DH><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)di, (bf16*)dq, T, H, scale);
+  flash_bwd_dq_kernel<DH><<<B * H, Dq<DH>::THREADS, smem, stream>>>(
+      mq, mk, mv, mdo, (const bf16*)o, (const float*)lse, (float*)di, (bf16*)dq,
+      T, H, dq_stages<DH>(T), scale * LOG2E, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1252,20 +1358,33 @@ extern "C" int vqt_flash_bwd_dkv_plan(int T, int Dh, int* smem,
   }
 }
 
+// dq and di = sum(o * dO) (B, H, T) f32 from q, k, v, o, dO and lse
 extern "C" int vqt_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* di, void* dq, int B, int T, int H,
-                                int Dh, float scale, void* stream) {
+                                const void* o, const void* dout, const void* lse,
+                                void* di, void* dq, int B, int T, int H, int Dh,
+                                float scale, void* stream) {
   if (bad_shape(B, T, H)) return (int)cudaErrorInvalidValue;
-  // the kernel reads its operands 16 bytes at a time; dq is held to the same
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
-       (uintptr_t)dq) & 15)
+  // TMA takes 16-byte aligned bases; o is read and dq written 16 bytes at a time
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
+       (uintptr_t)dout | (uintptr_t)dq) & 15)
     return (int)cudaErrorMisalignedAddress;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (Dh) {
-    case 32: return bwd_dq<32>(q, k, v, dout, lse, di, dq, B, T, H, scale, s);
-    case 64: return bwd_dq<64>(q, k, v, dout, lse, di, dq, B, T, H, scale, s);
-    case 128: return bwd_dq<128>(q, k, v, dout, lse, di, dq, B, T, H, scale, s);
+    case 32: return bwd_dq<32>(q, k, v, o, dout, lse, di, dq, B, T, H, scale, s);
+    case 64: return bwd_dq<64>(q, k, v, o, dout, lse, di, dq, B, T, H, scale, s);
+    case 128: return bwd_dq<128>(q, k, v, o, dout, lse, di, dq, B, T, H, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// the dQ kernel's launch at length T, as vqt_flash_fwd_plan
+extern "C" int vqt_flash_bwd_dq_plan(int T, int Dh, int* smem,
+                                     int* blocks_per_sm) {
+  if (T < 1) return (int)cudaErrorInvalidValue;
+  switch (Dh) {
+    case 32: return dq_plan<32>(T, smem, blocks_per_sm);
+    case 64: return dq_plan<64>(T, smem, blocks_per_sm);
+    case 128: return dq_plan<128>(T, smem, blocks_per_sm);
     default: return (int)cudaErrorInvalidValue;
   }
 }

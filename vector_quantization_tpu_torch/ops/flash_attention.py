@@ -8,8 +8,9 @@ the same shape and type, ``o = softmax(q kᵀ · Dh^-½, causal) v`` per
 (``jax.experimental.pallas.ops.tpu.flash_attention``: a forward and two
 backward kernels). ``flash_attention`` is a ``torch.autograd.Function``:
 the forward keeps (q, k, v, o, lse) and the backward computes dq, dk, dv
-from them, with ``di = Σ o·dO`` taken in PyTorch between the kernels as
-the library takes it outside its own.
+from them. ``di = Σ o·dO``, which the library takes in XLA outside its
+kernels, is computed on the card by K4-dq, which runs first and writes it
+for K4-dkv; the plain version takes it with :func:`_di`.
 
 A CUDA tensor goes through the hand-written Hopper kernels
 (``csrc/flash_attention.cu``: K4-fwd, K4-dkv, K4-dq); a CPU tensor through
@@ -18,8 +19,8 @@ the plain versions :func:`flash_attention_reference` and
 device alone. The kernels take bfloat16 at Dh 32, 64 or 128 and raise on
 anything else: an f32 CUDA input is refused, never cast. Every kernel
 refuses (``RuntimeError``) a q, k, v or dO whose data does not start on a
-16-byte boundary: the forward and K4-dkv read them through TMA tensor maps,
-K4-dq 16 bytes at a time.
+16-byte boundary (they read them through TMA tensor maps), and K4-dq an o
+that does not (it reads o 16 bytes at a time).
 
 The arithmetic, in both versions: scores in f32 from the operands as given,
 times the scale; the probabilities ``exp(s − m)`` summed in f32 and rounded
@@ -46,6 +47,7 @@ __all__ = [
     "flash_bwd_dkv",
     "flash_bwd_dkv_plan",
     "flash_bwd_dq",
+    "flash_bwd_dq_plan",
     "flash_fwd_plan",
 ]
 
@@ -195,13 +197,20 @@ def flash_bwd_dkv_plan(t: int, dh: int) -> dict:
     return _plan("vqt_flash_bwd_dkv_plan", t, dh)
 
 
-def _bwd_inputs(q, k, v, do, lse, di):
-    _check(q, k, v, do, lse, di)
+def flash_bwd_dq_plan(t: int, dh: int) -> dict:
+    """K4-dq's launch at length ``t`` and head dim ``dh``, as
+    :func:`flash_fwd_plan`."""
+    return _plan("vqt_flash_bwd_dq_plan", t, dh)
+
+
+def _bwd_inputs(q, k, v, do, *rows):
+    """q, k, v, dO (bf16 (B, T, H, Dh)) and f32 (B, H, T) rows, contiguous."""
+    _check(q, k, v, do, *rows)
     b, t, h, _ = q.shape
-    for name, x in (("lse", lse), ("di", di)):
+    for x in rows:
         if x.shape != (b, h, t) or x.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 ({b}, {h}, {t})")
-    return [x.contiguous() for x in (q, k, v, do, lse, di)]
+            raise ValueError(f"lse and di must be float32 ({b}, {h}, {t})")
+    return [x.contiguous() for x in (q, k, v, do, *rows)]
 
 
 def flash_bwd_dkv(q, k, v, do, lse, di) -> tuple[torch.Tensor, torch.Tensor]:
@@ -217,27 +226,32 @@ def flash_bwd_dkv(q, k, v, do, lse, di) -> tuple[torch.Tensor, torch.Tensor]:
 flash_bwd_dkv.launches = 0
 
 
-def flash_bwd_dq(q, k, v, do, lse, di) -> torch.Tensor:
-    """K4-dq on CUDA tensors: dq."""
-    ins = _bwd_inputs(q, k, v, do, lse, di)
-    dq = torch.empty_like(ins[0])
-    ptrs = [x.data_ptr() for x in (*ins, dq)]
-    _launch(_fn("vqt_flash_bwd_dq", 7), ptrs, ins[0], "flash attention dQ")
+def flash_bwd_dq(q, k, v, o, do, lse) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4-dq on CUDA tensors: (dq, di), di = Σ_d o·dO (B, H, T) f32, which
+    K4-dkv takes."""
+    q, k, v, do, lse = _bwd_inputs(q, k, v, do, lse)
+    _check(q, o)
+    o = o.contiguous()
+    b, t, h, _ = q.shape
+    di = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(q)
+    ptrs = [x.data_ptr() for x in (q, k, v, o, do, lse, di, dq)]
+    _launch(_fn("vqt_flash_bwd_dq", 8), ptrs, q, "flash attention dQ")
     flash_bwd_dq.launches += 1
-    return dq
+    return dq, di
 
 
 flash_bwd_dq.launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do):
-    """(dq, dk, dv): on CUDA, ``di`` in PyTorch, then K4-dkv and K4-dq; on
-    the CPU, the plain version."""
+    """(dq, dk, dv): on CUDA, K4-dq (which also computes ``di``), then
+    K4-dkv; on the CPU, the plain version."""
     if not q.is_cuda:
         return flash_attention_bwd_reference(q, k, v, o, lse, do)
-    di = _di(o, do)
+    dq, di = flash_bwd_dq(q, k, v, o, do, lse)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, di)
-    return flash_bwd_dq(q, k, v, do, lse, di), dk, dv
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
