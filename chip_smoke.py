@@ -9,21 +9,27 @@ source's ptxas register counts; for the flash forward, dK/dV and dQ
 kernels at each head dim, their registers, spill bytes, shared memory and
 resident blocks per SM at T = 257; for the paged attention's split kernel
 per (query, pool, head dim) type, its registers and spills, and at the
-serving shape its plan and resident blocks per SM; for the INT8 matmul,
-its registers, spills, shared memory and blocks per SM), then runs these
-phases, each printing one JSON line; any failure exits non-zero:
+serving shape its plan and resident blocks per SM; for the INT8 matmul's
+kernels, the split-K kernel and the stripe kernel at each tile depth,
+their registers, spills and static shared memory, and at each serving
+shape the plan with its dynamic shared memory and blocks per SM), then
+runs these phases, each printing one JSON line; any failure exits
+non-zero:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions; TF32 is switched off for matmuls and cuDNN convolutions
    for the whole run.
-2. ``int8_matmul``: kernel against its plain version at the serving shapes
-   (B = 64; qkv, o, gate+up, down, lm head of Llama-medium), B in {1, 7} and
-   a ragged F; max relative error <= 1e-3 (bf16 inputs, f32 sums in another
-   order). Device times per call (CUDA graph replay, weights rotated through
-   enough copies to exceed the 50 MB L2) for the kernel, the plain version
-   and a yardstick ``library_ms`` = ``torch.matmul(x, w_bf16) * scale`` over
-   a pre-dequantised bf16 weight (twice the weight bytes: not the same
-   work).
+2. ``int8_matmul``: the wrapper, under the plan ``ops/int8_matmul.plan``
+   picks per shape (printed with the source that ran: the stripe design
+   where F % 16 == 0, the split-K design elsewhere), against its plain
+   version at the serving shapes (B = 64; qkv, o, gate+up, down, lm head of
+   Llama-medium), B in {1, 7} and a ragged F; max relative error <= 1e-3
+   (bf16 inputs, f32 sums in another order). Device times per call (CUDA
+   graph replay, weights rotated through enough copies to exceed the 50 MB
+   L2) for the kernel, the plain version and a yardstick ``library_ms`` =
+   ``torch.matmul(x, w_bf16) * scale`` over a pre-dequantised bf16 weight
+   (twice the weight bytes: not the same work); then ``decode_step_mean``,
+   each time's mean per launch over the decode step's 97 launches.
 3. ``paged_decode_attention``: kernel against its plain version at B = 64,
    H = 16, Dh = 64, ps = 64, L = 24 with random page tables and ragged
    lengths (0 and 1 included), int8 pools (limit 1e-4) and bf16 pools
@@ -44,7 +50,7 @@ phases, each printing one JSON line; any failure exits non-zero:
    with numpy), INT8 KV, page size 64, 64 batch rows (32 CFG streams),
    ``steps_per_sync`` 64, alpha 1.75, top-k 600, top-p 0.92, 256 image
    tokens; ``--requests`` requests so slots turn over. Every request must
-   finish with 256 codes in [0, 16384), every page must be freed, both
+   finish with 256 codes in [0, 16384), every page must be freed, all three
    kernels must have launched, and no plain version may have run on a
    CUDA tensor.
 6. ``vq_lookup``: the nearest-code kernel against its plain version at
@@ -111,9 +117,9 @@ phases, each printing one JSON line; any failure exits non-zero:
 14. ``ar_train_profile``: one codes train step under torch.profiler:
    device time by kernel and the idle share.
 15. ``kernels``: per kernel, launches in its path's run (phase 5 for the
-   server's two, phase 7 for the lookup, phase 10 for the three flash
-   kernels), device time per call, the bound, the plain version's and the
-   yardstick's time.
+   server's three: K2's split-K and stripe kernels and K3; phase 7 for the
+   lookup, phase 10 for the three flash kernels), device time per call, the
+   bound, the plain version's and the yardstick's time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
@@ -159,12 +165,14 @@ def zero_launches() -> None:
     from vector_quantization_tpu_torch.ops.vq_lookup import nearest_codes
 
     int8_matmul.launches = paged_decode_attention.launches = nearest_codes.launches = 0
+    int8_matmul.design_launches = dict.fromkeys(int8_matmul.design_launches, 0)
     fa.flash_attention_fwd.launches = fa.flash_bwd_dkv.launches = fa.flash_bwd_dq.launches = 0
 
 
 def read_launches() -> tuple[dict, int]:
-    """Every kernel wrapper's launch count, and the number of times any
-    plain version ran on a CUDA tensor so far."""
+    """Every kernel's launch count (``int8_matmul`` is K2's split-K kernel,
+    ``int8_matmul_stripe`` its stripe kernel, both behind one wrapper), and
+    the number of times any plain version ran on a CUDA tensor so far."""
     from vector_quantization_tpu_torch.ops import flash_attention as fa
     from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
     from vector_quantization_tpu_torch.ops.paged_attention import (
@@ -172,7 +180,8 @@ def read_launches() -> tuple[dict, int]:
     )
     from vector_quantization_tpu_torch.ops.vq_lookup import nearest_codes, nearest_codes_reference
 
-    launches = {"int8_matmul": int8_matmul.launches,
+    launches = {"int8_matmul": int8_matmul.design_launches["split_k"],
+                "int8_matmul_stripe": int8_matmul.design_launches["stripe"],
                 "paged_decode_attention": paged_decode_attention.launches,
                 "nearest_codes": nearest_codes.launches,
                 "flash_attention_fwd": fa.flash_attention_fwd.launches,
@@ -274,6 +283,7 @@ def blocks_per_sm(registers: int, threads: int, smem: int) -> int:
 def phase_build() -> None:
     from vector_quantization_tpu_torch.ops import _build
     from vector_quantization_tpu_torch.ops import flash_attention as fa
+    from vector_quantization_tpu_torch.ops import int8_matmul as im
     from vector_quantization_tpu_torch.ops import paged_attention as pa
 
     t0 = time.perf_counter()
@@ -296,39 +306,60 @@ def phase_build() -> None:
                           torch.cuda.get_device_properties(0).multi_processor_count)
     paged_path = {**paged.get("qbf16_kvint8_dh64", {}), **plan._asdict(),
                   "blocks_per_sm": pa.decode_occupancy(plan, torch.bfloat16, torch.int8, 64)}
-    mm = ptxas_entries(logs["int8_matmul"], "w8a16_kernel", ()).get("w8a16_kernel", {})
-    if mm:
-        mm["blocks_per_sm"] = blocks_per_sm(mm["registers"], 256, mm["static_smem"])
+    mm = {**ptxas_entries(logs["int8_matmul"], "w8a16_kernel", ()),
+          **{f"w8a16_stripe_kernel_{k}": v for k, v in
+             ptxas_entries(logs["int8_matmul_stripe"], "w8a16_stripe_kernel", ("kt",)).items()}}
+    if "w8a16_kernel" in mm:
+        split = mm["w8a16_kernel"]
+        split["blocks_per_sm"] = blocks_per_sm(split["registers"], 256, split["static_smem"])
+    mm["plans"] = {}
+    for name, _, d, f, _ in serving_matmuls():
+        p = im.plan(SLOTS, d, f, torch.cuda.get_device_properties(0).multi_processor_count,
+                    True, f % 16 == 0)
+        smem, per_sm = im.occupancy(p) if p.design != "split_k" else (0, None)
+        mm["plans"][name] = {**p._asdict(), "dynamic_smem": smem, "blocks_per_sm": per_sm}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "sources": sorted(logs), "ptxas": regs, "flash_fwd_at_t257": fwd,
           "flash_bwd_dkv_at_t257": dkv, "flash_bwd_dq_at_t257": dq, "paged_attention": paged,
           "paged_attention_at_path": paged_path, "int8_matmul": mm})
-    if not fwd or not dkv or not dq or "registers" not in paged_path or not mm:
+    if (not fwd or not dkv or not dq or "registers" not in paged_path
+            or {"w8a16_kernel", "w8a16_stripe_kernel_kt32", "w8a16_stripe_kernel_kt64"} - set(mm)):
         raise SystemExit("build: a kernel's entry is missing from the ptxas log")
 
 
-def phase_int8_matmul(dev, gen) -> dict:
-    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
-
+def serving_matmuls() -> list[tuple[str, int, int, int, int]]:
+    """The decode step's INT8 matmuls: (name, B, D, F, launches per step)."""
     d, f = MEDIUM["hidden_size"], MEDIUM["ffn_dim"]
-    serving = [  # (name, B, D, F, launches per decode step)
-        ("qkv", SLOTS, d, 3 * d, 24), ("o", SLOTS, d, d, 24),
-        ("gateup", SLOTS, d, 2 * f, 24), ("down", SLOTS, f, d, 24),
-        ("lm_head", SLOTS, d, VOCAB, 1),
-    ]
+    return [("qkv", SLOTS, d, 3 * d, 24), ("o", SLOTS, d, d, 24),
+            ("gateup", SLOTS, d, 2 * f, 24), ("down", SLOTS, f, d, 24),
+            ("lm_head", SLOTS, d, VOCAB, 1)]
+
+
+_K2_SOURCES = {"split_k": ("int8_matmul", "vector_quantization_tpu_torch/csrc/int8_matmul.cu"),
+               "stripe": ("int8_matmul_stripe",
+                          "vector_quantization_tpu_torch/csrc/int8_matmul_stripe.cu")}
+
+
+def phase_int8_matmul(dev, gen) -> list[dict]:
+    from vector_quantization_tpu_torch.ops import int8_matmul as im
+
+    d = MEDIUM["hidden_size"]
     extra = [("b1_qkv", 1, d, 3 * d, 0), ("b7_lm_head", 7, d, VOCAB, 0),
              ("ragged", 5, 1000, 777, 0)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    for name, b, dd, ff, per_step in serving + extra:
+    for name, b, dd, ff, per_step in serving_matmuls() + extra:
         x = torch.randn((b, dd), generator=gen, device=dev).to(torch.bfloat16)
         w = torch.randint(-127, 128, (dd, ff), generator=gen, device=dev, dtype=torch.int8)
         s = torch.rand((ff,), generator=gen, device=dev) * 0.02 + 1e-3
-        got = int8_matmul(x, w, s)
-        want = int8_matmul_reference(x, w, s)
+        p = im.plan(b, dd, ff, sms, im._aligned(x, 2 * dd), im._aligned(w, ff))
+        got = im.int8_matmul(x, w, s)
+        want = im.int8_matmul_reference(x, w, s)
         torch.cuda.synchronize()
         abs_err = float((got - want).abs().max())
         rel_err = abs_err / float(want.abs().max())
         row = {"phase": "int8_matmul", "shape": name, "B": b, "D": dd, "F": ff,
+               "plan": p._asdict(), "source": _K2_SOURCES[p.design][1],
                "max_abs_err": abs_err, "max_rel_err": rel_err, "limit": 1e-3}
         if rel_err > 1e-3 or not torch.isfinite(got).all():
             emit(row)
@@ -342,8 +373,9 @@ def phase_int8_matmul(dev, gen) -> dict:
             ops = 2 * b * dd * ff
             row.update({
                 "launches_per_step": per_step, "weight_copies": copies,
-                "ms": graph_ms([lambda wi=wi: int8_matmul(x, wi, s) for wi in ws]),
-                "plain_ms": graph_ms([lambda wi=wi: int8_matmul_reference(x, wi, s) for wi in ws]),
+                "ms": graph_ms([lambda wi=wi: im.int8_matmul(x, wi, s) for wi in ws]),
+                "plain_ms": graph_ms([lambda wi=wi: im.int8_matmul_reference(x, wi, s)
+                                      for wi in ws]),
                 "library_ms": graph_ms([lambda wi=wi: torch.matmul(x, wi) * s for wi in wb]),
                 "bytes": byts, "ops": ops,
                 "bound_ms": 1e3 * max(byts / HBM_BYTES_PER_S, ops / BF16_FLOPS),
@@ -351,21 +383,31 @@ def phase_int8_matmul(dev, gen) -> dict:
             rows.append(row)
             del ws, wb
         emit(row)
-    n = sum(r["launches_per_step"] for r in rows)
 
-    def per_launch(key):
-        return sum(r[key] * r["launches_per_step"] for r in rows) / n
+    def per_launch(rs, key):
+        return sum(r[key] * r["launches_per_step"] for r in rs) / sum(
+            r["launches_per_step"] for r in rs)
 
-    return {
-        "name": "int8_matmul", "route": "cuda",
-        "source": "vector_quantization_tpu_torch/csrc/int8_matmul.cu",
-        "replaces": "vector_quantization_tpu/ops/int8_matmul.py:53",
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": per_launch("ms"), "plain_ms": per_launch("plain_ms"),
-        "bound_ms": per_launch("bound_ms"), "bound_by": "bytes",
-        "library_ms": per_launch("library_ms"),
-        "note": "mean per launch over one decode step's 97 launches (24x qkv, o, gateup, down + lm head)",
-    }
+    # K2 as a whole: one decode step's 97 launches, each shape under its plan
+    emit({"phase": "int8_matmul", "shape": "decode_step_mean",
+          "launches_per_step": sum(r["launches_per_step"] for r in rows),
+          **{k: per_launch(rows, k) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}})
+    kernels = []
+    for design, (kname, source) in _K2_SOURCES.items():
+        mine = [r for r in rows if r["plan"]["design"] == design]
+        if not mine:
+            raise SystemExit(f"int8_matmul: no serving shape runs the {design} design")
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": "vector_quantization_tpu/ops/int8_matmul.py:54",
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": per_launch(mine, "ms"), "plain_ms": per_launch(mine, "plain_ms"),
+            "bound_ms": per_launch(mine, "bound_ms"), "bound_by": "bytes",
+            "library_ms": per_launch(mine, "library_ms"),
+            "note": "mean per launch over the decode step's launches of this kernel: "
+                    + ", ".join(f"{r['launches_per_step']}x {r['shape']}" for r in mine),
+        })
+    return kernels
 
 
 def phase_paged_attention(dev, gen) -> dict:
@@ -649,7 +691,8 @@ def phase_serving(model, dev, seed: int, n_requests: int) -> tuple[dict, dict]:
           and all(c.shape == (IMAGE_TOKENS,) and (c >= 0).all() and (c < CODEBOOK).all()
                   for c in done.values())
           and len(server._free_pages) == server._total_pages and server._pages_reserved == 0
-          and launches["int8_matmul"] > 0 and launches["paged_decode_attention"] > 0
+          and launches["int8_matmul"] > 0 and launches["int8_matmul_stripe"] > 0
+          and launches["paged_decode_attention"] > 0
           and plain_runs == 0)
     if not ok:
         raise SystemExit("serving: a check failed (see the serving line)")
@@ -1237,12 +1280,12 @@ def main() -> int:
     profile_step()
     profile_tokenizer()
     profile_ar_step(algo, ar_state, codes_batch)
-    for k in (k_int8, k_attn):
+    for k in (*k_int8, k_attn):
         k["launches"] = launches[k["name"]]
     k_vq["launches"] = tok_launches["nearest_codes"]
     for k in k_flash:
         k["launches"] = ar_launches[k["name"]]
-    emit({"kernels": [k_int8, k_attn, k_vq, *k_flash]})
+    emit({"kernels": [*k_int8, k_attn, k_vq, *k_flash]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})
     return 0

@@ -1,47 +1,50 @@
 #!/usr/bin/env python3
-"""Where K2's time goes: the INT8 matmul with parts cut out, the harness's
-floor per graph node, and the library yardstick's two nodes.
+"""Where K2's time goes: the shipped choice per shape, each design with parts
+cut out and under other plans, the harness's floor per graph node, and the
+library yardstick's two nodes.
 
 Usage: python3 int8_matmul_probe.py [--source PATH] [--seed 0]
 
-``--source`` is an ``int8_matmul.cu`` (default: the package's own,
-``vector_quantization_tpu_torch/csrc/int8_matmul.cu``; the stripe design,
-tried and not shipped, is
-``vector_quantization_tpu_torch/csrc/designs/int8_matmul_stripe.cu``). The
-probe recognises the design by its kernel's name and builds it as it is
-and copies changed by text
-substitution (``flash_fwd_probe.cut``, which raises on a miss), with the
-flags of ``ops/_build.py``, all at once. Every variant is timed at the five
-serving shapes of ``chip_smoke.py`` (B = 64; qkv, o, gate+up, down, lm head
-of Llama-medium) by CUDA-graph replay (``chip_smoke.graph_ms``), with the
-weight rotated through more than 50 MB as ``chip_smoke.py`` phase
+First, at the five serving shapes of ``chip_smoke.py`` (B = 64; qkv, o,
+gate+up, down, lm head of Llama-medium), ``planned``: the package's own
+``int8_matmul``, under the plan its ``plan`` function picks (printed beside
+it), next to ``library``. Then the design of ``--source``, an INT8 matmul
+source (default: the split-K design,
+``vector_quantization_tpu_torch/csrc/int8_matmul.cu``; the stripe design is
+``vector_quantization_tpu_torch/csrc/int8_matmul_stripe.cu``). The probe
+recognises the design by its kernel's name and builds it as it is and
+copies changed by text substitution (``flash_fwd_probe.cut``, which raises
+on a miss), with the flags of ``ops/_build.py``, all at once. Every variant
+is timed at the five shapes by CUDA-graph replay (``chip_smoke.graph_ms``),
+with the weight rotated through more than 50 MB as ``chip_smoke.py`` phase
 ``int8_matmul`` does. What is timed, per design:
 
 - ``w8a16_kernel`` (the split-K design with f32 atomics into a zeroed
   output): ``shipped`` (a ``torch.zeros`` node, then the kernel, as its
-  wrapper ran them), ``no_memset`` (the kernel alone, storing where it
+  wrapper runs them), ``no_memset`` (the kernel alone, storing where it
   would add), ``no_products`` and ``no_loads`` (also without the memset),
   and ``empty`` (the kernel returning at once: one node's floor);
 - ``w8a16_stripe_kernel`` (one launch per call: a block per 32-column
   stripe over all of D or a cluster's share of it, each warp streaming its
   own k tiles):
-  ``shipped``, ``no_products`` (loads only), ``no_loads`` (products on
-  whatever shared memory holds), ``no_store`` (the warps' sums meet but
-  are not stored), ``empty``, the shipped kernel under every other plan
-  (tile depth, split of D over a cluster, ring depth; each checked
-  against the plain version before it is timed), and a block
-  timeline (``timeline``, also on the no-loads and no-products copies):
-  when each block's warp 0 saw its first tile, finished its own tiles,
-  passed the block's barriers, and ended;
+  ``shipped`` (under the package's ``stripe_plan``), ``no_products``
+  (loads only), ``no_loads`` (products on whatever shared memory holds),
+  ``no_store`` (the warps' sums meet but are not stored), ``empty``, the
+  shipped kernel under every other plan (``plan``: tile depth, split of D
+  over a cluster, ring depth; each checked against the plain version
+  before it is timed), and a block timeline (``timeline``, also on the
+  no-loads and no-products copies): when each block's warp 0 saw its
+  first tile, finished its own tiles, passed the block's barriers, and
+  ended;
 - for both: ``zeros`` (the ``torch.zeros`` node alone), ``matmul``
   (``torch.matmul(x, w_bf16)`` alone), ``scale`` (``y * s`` alone, on a
   precomputed ``y``) and ``library`` (the two together: ``library_ms``).
 
 Prints one JSON line per (variant, shape) with microseconds per call over
 three graph timings, then the ``nvidia-smi`` name and power limit. The
-shipped variant is checked against the plain version; the cut copies
-compute garbage, and only their times mean anything. Exits non-zero
-without a CUDA device.
+shipped and planned variants are checked against the plain version; the
+cut copies compute garbage, and only their times mean anything. Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -53,12 +56,14 @@ import math
 import subprocess
 import sys
 from pathlib import Path
-from typing import NamedTuple
 
 import torch
 
 from chip_smoke import HBM_BYTES_PER_S, MEDIUM, SLOTS, VOCAB, graph_ms
 from flash_fwd_probe import build
+from vector_quantization_tpu_torch.ops.int8_matmul import (
+    Plan, int8_matmul, int8_matmul_reference, occupancy, plan, split_k, stripe_plan,
+)
 
 ROOT = Path(__file__).resolve().parent
 SOURCE = ROOT / "vector_quantization_tpu_torch" / "csrc" / "int8_matmul.cu"
@@ -120,53 +125,6 @@ STRIPE["timeline_no_products"] = STAMPS + STRIPE["no_store"] + STRIPE["no_produc
 STRIPE_MARK = "w8a16_stripe_kernel"
 
 
-class StripePlan(NamedTuple):
-    """A launch of the stripe design: a block per 32 columns and 64 rows, k
-    tiles ``kt`` deep, D split over clusters of ``split`` blocks, ``stages``
-    tiles in each warp's ring, and which operands are copied 16 bytes at a
-    time (``x_vec``, ``w_vec``; else 4 bytes at a time)."""
-
-    kt: int
-    split: int
-    stages: int
-    x_vec: bool
-    w_vec: bool
-
-    def grid(self, b: int, f: int) -> tuple[int, int]:
-        return -(-f // 32) * self.split, -(-b // 64)
-
-    def smem(self) -> int:
-        stage = 64 * self.kt * 2 + self.kt * 32
-        raw = (0 if self.x_vec else 64 * (2 * self.kt + 4)) + (0 if self.w_vec else self.kt * 36)
-        return 1024 + max(8 * self.stages * stage, 8 * 64 * 36 * 4) + 8 * self.stages * raw + 8192
-
-
-def vec_ok(ptr: int, pitch_bytes: int) -> bool:
-    """Whether the stripe design copies an operand 16 bytes at a time."""
-    return ptr % 16 == 0 and pitch_bytes % 16 == 0
-
-
-def stripe_plan(b: int, d: int, f: int, num_sms: int, x_vec: bool, w_vec: bool) -> StripePlan:
-    """The stripe design's own choice: D split over clusters of 2 or 4
-    while the grid fits on the card one block to an SM and every warp keeps
-    a 64-deep tile; 64-deep tiles when the grid fits one block to an SM,
-    else 32-deep (two blocks to an SM); two tiles to a warp's ring."""
-    stripes = -(-f // 32) * -(-b // 64)
-    split = max(k for k in (1, 2, 4) if k == 1 or (stripes * k <= num_sms and d // k >= 512))
-    kt = 64 if stripes * split <= num_sms else 32
-    stages = 2
-    while stages > 1 and StripePlan(kt, split, stages, x_vec, w_vec).smem() > 227 * 1024:
-        stages -= 1
-    return StripePlan(kt, split, stages, x_vec, w_vec)
-
-
-def parent_k_chunk(b: int, d: int, f: int, num_sms: int) -> int:
-    """The split-K design's depth per block (its wrapper's ``split_k``)."""
-    k_tiles, blocks = -(-d // 32), -(-f // 128) * -(-b // 64)
-    splits = min(k_tiles, max(1, -(-2 * num_sms // blocks)))
-    return min(max(-(-k_tiles // splits), 8), k_tiles) * 32
-
-
 def nvidia_smi() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -189,9 +147,29 @@ def rotated(d: int, f: int, gen, dev) -> list[torch.Tensor]:
             for _ in range(copies)]
 
 
-def probe_parent(src: str, dev, gen) -> None:
-    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul_reference
+def probe_planned(dev, gen) -> None:
+    """The package's ``int8_matmul`` as it ships, per shape, beside the
+    library call."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for shape, d, f in SHAPES:
+        b = SLOTS
+        x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+        s = torch.rand((f,), generator=gen, device=dev) * 0.02 + 1e-3
+        ws = rotated(d, f, gen, dev)
+        chosen = plan(b, d, f, sms, x.data_ptr() % 16 == 0 and d % 8 == 0,
+                      ws[0].data_ptr() % 16 == 0 and f % 16 == 0)
+        got, want = int8_matmul(x, ws[0], s), int8_matmul_reference(x, ws[0], s)
+        torch.cuda.synchronize()
+        rel = float((got - want).abs().max() / want.abs().max())
+        if rel > 1e-3 or not bool(torch.isfinite(got).all()):
+            raise SystemExit(f"int8_matmul_probe: planned {shape} disagrees ({rel})")
+        emit("planned", shape, b, d, f, times([lambda w=w: int8_matmul(x, w, s) for w in ws]),
+             plan=chosen._asdict(), max_rel_err=rel, weight_copies=len(ws))
+        library_nodes(shape, b, d, f, x, s, ws, dev)
+        del ws
 
+
+def probe_parent(src: str, dev, gen) -> None:
     libs = build(src, PARENT, OUT / "parent")
     fns = {}
     for name, (lib, _) in libs.items():
@@ -205,7 +183,7 @@ def probe_parent(src: str, dev, gen) -> None:
         x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
         s = torch.rand((f,), generator=gen, device=dev) * 0.02 + 1e-3
         ws = rotated(d, f, gen, dev)
-        k_chunk = parent_k_chunk(b, d, f, sms)
+        k_chunk = split_k(b, d, f, sms)
         splits = math.ceil(d / k_chunk)
         out = torch.empty((b, f), device=dev)
 
@@ -234,12 +212,10 @@ def probe_parent(src: str, dev, gen) -> None:
 
 
 def probe_stripe(src: str, dev, gen) -> None:
-    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul_reference
-
     libs = build(src, STRIPE, OUT / "stripe")
     fns = {}
     for name, (lib, _) in libs.items():
-        fn = lib.vqt_int8_matmul
+        fn = lib.vqt_int8_matmul_stripe
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fns[name] = fn
@@ -249,7 +225,7 @@ def probe_stripe(src: str, dev, gen) -> None:
         x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
         s = torch.rand((f,), generator=gen, device=dev) * 0.02 + 1e-3
         ws = rotated(d, f, gen, dev)
-        x_vec, w_vec = vec_ok(x.data_ptr(), 2 * d), vec_ok(ws[0].data_ptr(), f)
+        x_vec, w_vec = x.data_ptr() % 16 == 0 and d % 8 == 0, ws[0].data_ptr() % 16 == 0 and f % 16 == 0
         shipped = stripe_plan(b, d, f, sms, x_vec, w_vec)
         want = int8_matmul_reference(x, ws[0], s)
 
@@ -262,24 +238,25 @@ def probe_stripe(src: str, dev, gen) -> None:
                 raise SystemExit(f"int8_matmul_probe: launch failed, CUDA error {err}")
             return out
 
-        plans = [shipped] + [p for p in (StripePlan(kt, k, st, x_vec, w_vec)
+        plans = [shipped] + [p for p in (Plan("stripe", 32, k, kt, st, 0, x_vec, w_vec)
                                          for kt in (32, 64) for k in (1, 2, 4)
                                          for st in (1, 2, 3, 4))
-                             if p != shipped and p.smem() <= 227 * 1024]
+                             if p != shipped and p.smem() <= 232_448]
         for name, fn in fns.items():
             if name.startswith("timeline"):
-                stripe_timeline(fn, call, shipped, name, shape, b, f, ws)
+                stripe_timeline(fn, call, shipped, name, shape, b, d, f, ws)
                 continue
             for plan in (plans if name == "shipped" else [shipped]):
-                extra = {"design": "stripe", "plan": plan._asdict(),
-                         "grid": plan.grid(b, f), "weight_copies": len(ws)}
+                extra = {"plan": plan._asdict(), "grid": plan.grid(b, d, f),
+                         "weight_copies": len(ws)}
                 if name == "shipped":
                     got = call(fn, ws[0], plan)
                     torch.cuda.synchronize()
                     rel = float((got - want).abs().max() / want.abs().max())
                     if rel > 1e-3 or not bool(torch.isfinite(got).all()):
                         raise SystemExit(f"int8_matmul_probe: {shape} {plan} disagrees ({rel})")
-                    extra.update(max_rel_err=rel, **occupancy(libs[name][0], plan))
+                    smem, per_sm = occupancy(plan)
+                    extra.update(max_rel_err=rel, dynamic_smem=smem, blocks_per_sm=per_sm)
                 label = name if plan is shipped or name != "shipped" else "plan"
                 emit(label, shape, b, d, f,
                      times([lambda w=w, fn=fn, p=plan: call(fn, w, p) for w in ws]), **extra)
@@ -287,20 +264,7 @@ def probe_stripe(src: str, dev, gen) -> None:
         del ws
 
 
-def occupancy(lib, plan: StripePlan) -> dict:
-    """A stripe plan's dynamic shared memory per block and resident blocks
-    per SM on the current card."""
-    i = ctypes.c_int
-    fn = lib.vqt_int8_matmul_occupancy
-    fn.restype, fn.argtypes = i, [i] * 4 + [ctypes.POINTER(i)] * 2
-    smem, blocks = i(), i()
-    if fn(plan.kt, plan.stages, int(plan.x_vec), int(plan.w_vec), ctypes.byref(smem),
-          ctypes.byref(blocks)) != 0:
-        raise SystemExit("int8_matmul_probe: occupancy query failed")
-    return {"dynamic_smem": smem.value, "blocks_per_sm": blocks.value}
-
-
-def stripe_timeline(fn, call, plan, name, shape, b, f, ws) -> None:
+def stripe_timeline(fn, call, plan, name, shape, b, d, f, ws) -> None:
     """One graph replay of a timeline copy over the rotated weights; the
     last call's stamps: per block, microseconds from the kernel's first
     entry to each stamp (percentiles), and each phase's median."""
@@ -309,7 +273,7 @@ def stripe_timeline(fn, call, plan, name, shape, b, f, ws) -> None:
     outs = []
     graph_ms([lambda w=w: outs.append(call(fn, w, plan)) for w in ws], replays=1)
     torch.cuda.synchronize()
-    gx, gy = plan.grid(b, f)
+    gx, gy, _ = plan.grid(b, d, f)
     st = outs[-1].view(-1).view(torch.int64)[: 6 * gx * gy].view(-1, 6).cpu().numpy()
     st = st[st[:, 0] > 0]  # blocks of a split's cluster write their stamps, all
     st = (st - st[:, 0].min()).astype(np.float64) / 1e3
@@ -347,6 +311,7 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     src = args.source.read_text()
+    probe_planned(dev, gen)
     if PARENT_MARK in src:
         probe_parent(src, dev, gen)
     elif STRIPE_MARK in src:

@@ -12,6 +12,7 @@ import torch
 
 from vector_quantization_tpu_torch.models.transformers.llama import LlamaTransformer
 from vector_quantization_tpu_torch.ops import flash_attention as fa
+from vector_quantization_tpu_torch.ops import int8_matmul as im
 from vector_quantization_tpu_torch.ops.int8_matmul import (
     int8_matmul,
     int8_matmul_reference,
@@ -43,6 +44,26 @@ def _rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
 
 
+def _forced_plan(design, x, w):
+    # the design's own plan at this shape, whatever plan() would pick
+    (b, d), f = x.shape, w.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    x_vec, w_vec = im._aligned(x, 2 * d), im._aligned(w, f)
+    if design == "split_k":
+        k_chunk = im.split_k(b, d, f, sms)
+        return im.Plan("split_k", 128, -(-d // k_chunk), 32, 1, k_chunk, x_vec, w_vec)
+    return im.stripe_plan(b, d, f, sms, x_vec, w_vec)
+
+
+def _int8_inputs(dev, b, d, f, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev, torch.bfloat16)
+    w = torch.from_numpy(rng.integers(-127, 128, (d, f), dtype=np.int8)).to(dev)
+    s = torch.from_numpy(rng.uniform(1e-3, 2e-2, f).astype(np.float32)).to(dev)
+    return x, w, s
+
+
+@pytest.mark.parametrize("design", ["split_k", "stripe"])
 @pytest.mark.parametrize(
     "b,d,f",
     [
@@ -54,38 +75,51 @@ def _rel_err(got, want):
         (64, 1000, 777), (130, 1000, 17385), (5, 100, 37), (64, 20000, 256),
     ],
 )
-def test_int8_matmul_kernel_matches_plain(dev, b, d, f):
-    # bf16 inputs, exact bf16*int8 products, f32 sums in another order
-    rng = np.random.default_rng(b * 7 + d + f)
-    x = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev, torch.bfloat16)
-    w = torch.from_numpy(rng.integers(-127, 128, (d, f), dtype=np.int8)).to(dev)
-    s = torch.from_numpy(rng.uniform(1e-3, 2e-2, f).astype(np.float32)).to(dev)
+def test_int8_matmul_kernel_matches_plain(dev, design, b, d, f):
+    # bf16 inputs, exact bf16*int8 products, f32 sums in another order; each
+    # design forced at every shape (the stripe design copies unaligned rows
+    # 4 bytes at a time)
+    x, w, s = _int8_inputs(dev, b, d, f, b * 7 + d + f)
+    p = _forced_plan(design, x, w)
     before = int8_matmul.launches
-    got = int8_matmul(x, w, s)
+    got = int8_matmul(x, w, s, plan=p)
     torch.cuda.synchronize()
     assert int8_matmul.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (b, f)
     assert _rel_err(got, int8_matmul_reference(x, w, s)) <= 1e-3
 
 
-def test_int8_matmul_graph_replays_match_plain(dev):
-    # one call (split-K over a cluster) captured in a CUDA graph; x changed
-    # in place between replays: each replay matches the plain version on the
-    # new x (nothing carries over between launches)
-    rng = np.random.default_rng(3)
-    x = torch.from_numpy(rng.standard_normal((64, 1024), dtype=np.float32)).to(dev, torch.bfloat16)
-    w = torch.from_numpy(rng.integers(-127, 128, (1024, 3072), dtype=np.int8)).to(dev)
-    s = torch.from_numpy(rng.uniform(1e-3, 2e-2, 3072).astype(np.float32)).to(dev)
+@pytest.mark.parametrize("d,f", [(1024, 3072), (1024, 1024), (1024, 17385)])
+def test_int8_matmul_graph_replays_match_plain(dev, d, f):
+    # one planned call (the stripe design whole, split over a cluster, and
+    # the split-K design with its zeroed output) captured in a CUDA graph;
+    # x changed in place between replays: each replay matches the plain
+    # version on the new x (nothing carries over between launches)
+    x, w, s = _int8_inputs(dev, 64, d, f, 3)
+    rng = np.random.default_rng(4)
     int8_matmul(x, w, s)  # warm-up: build
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         out = int8_matmul(x, w, s)
     for _ in range(2):
-        x.copy_(torch.from_numpy(rng.standard_normal((64, 1024), dtype=np.float32)))
+        x.copy_(torch.from_numpy(rng.standard_normal((64, d), dtype=np.float32)))
         g.replay()
         torch.cuda.synchronize()
         assert _rel_err(out, int8_matmul_reference(x, w, s)) <= 1e-3
+
+
+@pytest.mark.parametrize("d,f", [(1024, 3072), (1024, 1024), (1024, 5632), (2816, 1024)])
+def test_int8_matmul_plan_smem_matches_kernel(dev, d, f):
+    # the plan's reckoning of shared memory is the kernel's, and the blocks
+    # an SM holds are at least what the plan counted on
+    x, w, _ = _int8_inputs(dev, 64, d, f, 5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p = im.plan(64, d, f, sms, im._aligned(x, 2 * d), im._aligned(w, f))
+    smem, per_sm = im.occupancy(p)
+    assert smem == p.smem()
+    gx, gy, gz = p.grid(64, d, f)
+    assert per_sm * sms >= gx * gy * gz
 
 
 def _paged_inputs(dev, *, pool_dtype, q_dtype, b=64, h=16, dh=64, ps=64,

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from vector_quantization_tpu.ops.int8_matmul import int8_matmul as jax_int8_matmul
-from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, split_k
+from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, plan, split_k
 
 
 def _inputs(b, d, f, seed=0):
@@ -66,3 +66,53 @@ def test_split_k_covers_depth(b, d, f):
     assert (splits - 1) * k_chunk < d <= splits * k_chunk
     tiles = -(-f // 128) * -(-b // 64)
     assert splits == 1 or tiles * (splits - 1) < 2 * 132
+
+
+# the shapes of tests/test_torch_cuda.py's kernel test; the first five are
+# the decode step's (qkv, o, gate+up, down, lm head of Llama-medium)
+PLAN_SHAPES = [
+    (64, 1024, 3072), (64, 1024, 1024), (64, 1024, 5632), (64, 2816, 1024), (64, 1024, 17385),
+    (1, 1024, 3072), (7, 2816, 1024), (3, 100, 37), (130, 96, 200),
+    (64, 1000, 777), (130, 1000, 17385), (5, 100, 37), (64, 20000, 256),
+]
+
+
+def _plan(b, d, f):
+    # operands at 16-byte aligned bases, as torch allocates them
+    return plan(b, d, f, 132, (2 * d) % 16 == 0, f % 16 == 0)
+
+
+@pytest.mark.parametrize("b,d,f", PLAN_SHAPES)
+def test_plan_covers_each_column_and_depth_once(b, d, f):
+    # per 64-row tile, the blocks' column stripes tile [0, F) and each
+    # stripe's depth runs tile [0, D), with no overlap and no gap
+    p = _plan(b, d, f)
+    blocks = p.blocks(b, d, f)
+    gx, gy, gz = p.grid(b, d, f)
+    assert len(blocks) == gx * gy * gz
+    assert sorted({m0 for m0, *_ in blocks}) == list(range(0, b, 64))
+    for m0 in range(0, b, 64):
+        cols = sorted({n0 for r, n0, *_ in blocks if r == m0})
+        assert cols == list(range(0, f, p.n))
+        for n0 in cols:
+            runs = sorted((k0, k1) for r, c, k0, k1 in blocks if (r, c) == (m0, n0))
+            assert runs[0][0] == 0 and runs[-1][1] == d
+            assert all(a[1] == c[0] and a[0] < a[1] for a, c in zip(runs, runs[1:]))
+
+
+@pytest.mark.parametrize("b,d,f", PLAN_SHAPES)
+def test_plan_launch_fits_the_card(b, d, f):
+    # a cluster (the blocks that split D through distributed shared memory)
+    # divides grid x and is a portable size; a block's shared memory fits
+    p = _plan(b, d, f)
+    gx = p.grid(b, d, f)[0]
+    if p.design != "split_k":
+        assert 1 <= p.split <= 8 and gx % p.split == 0
+    assert p.smem() <= 232_448
+
+
+@pytest.mark.parametrize("b,d,f", [s for s in PLAN_SHAPES if s[2] % 16])
+def test_plan_takes_split_k_where_w_rows_are_unaligned(b, d, f):
+    p = _plan(b, d, f)
+    assert p.design == "split_k" and p.k_chunk == split_k(b, d, f, 132)
+    assert plan(b, d, f, 132, True, False).design == "split_k"

@@ -1,11 +1,3 @@
-// A redesign of K2 (csrc/int8_matmul.cu) that is NOT shipped: it is not
-// built by ops/_build.py and no wrapper calls it. int8_matmul_probe.py
-// times it (`python3 int8_matmul_probe.py --source
-// vector_quantization_tpu_torch/csrc/designs/int8_matmul_stripe.cu`), with
-// its plan (`stripe_plan` there). On an H100 it beat the bf16 library call
-// at the qkv, o and lm head shapes of the decode step but not at gate+up
-// and down (PERF.md), so the shipped K2 stays the split-K design.
-//
 // Weight-only INT8 matmul (W8A16) for Hopper: out (B, F) f32 =
 //   (x (B, D) bf16 @ w (D, F) int8 converted to bf16) * scale (F,) f32,
 // with f32 accumulation and the per-output-channel scale applied to the f32
@@ -14,7 +6,9 @@
 // Replaces the TPU kernel vector_quantization_tpu/ops/int8_matmul.py
 // `_int8_matmul_pallas` (kernel body `_kernel`), and keeps its
 // decomposition: a grid step owns a stripe of output columns over the whole
-// depth D, so no sum crosses a block.
+// depth D, so no sum crosses a block. The wrapper (ops/int8_matmul.py
+// `plan`) launches it where w's rows are 16-byte aligned (F % 16 == 0) and
+// the split-K design of csrc/int8_matmul.cu elsewhere.
 //
 // What bounds it on the H100: at the decode batch (B = 64) the product does
 // 2 B = 128 operations per weight byte, far below the card's ~295 bf16
@@ -429,16 +423,17 @@ int occupancy(int stages, int x_vec, int w_vec, int* smem, int* blocks_per_sm) {
       blocks_per_sm, w8a16_stripe_kernel<KT>, THREADS, *smem);
 }
 
+
 }  // namespace
 
 // x (B, D) bf16, w (D, F) int8, scale (F,) f32 -> out (B, F) f32 under the
-// plan (int8_matmul_probe.py `stripe_plan`): k tiles of kt (32 or 64) depths,
+// plan (ops/int8_matmul.py `stripe_plan`): k tiles of kt (32 or 64) depths,
 // D split over clusters of `split` (1, 2 or 4) blocks, `stages` (1-4) tiles
 // in each warp's ring, and each operand read 16 bytes at a time (x_vec,
 // w_vec: base and row pitch multiples of 16 bytes) or 4 bytes at a time.
-extern "C" int vqt_int8_matmul(const void* x, const void* w, const void* scale, void* out,
-                               int B, int D, int F, int kt, int split, int stages, int x_vec,
-                               int w_vec, void* stream) {
+extern "C" int vqt_int8_matmul_stripe(const void* x, const void* w, const void* scale,
+                                      void* out, int B, int D, int F, int kt, int split,
+                                      int stages, int x_vec, int w_vec, void* stream) {
   if (B < 1 || D < 1 || F < 1 || stages < 1 || stages > MAX_STAGES ||
       (split != 1 && split != 2 && split != 4))
     return (int)cudaErrorInvalidValue;
@@ -455,8 +450,8 @@ extern "C" int vqt_int8_matmul(const void* x, const void* w, const void* scale, 
 }
 
 // shared memory per block of a launch and the blocks that fit on one SM
-extern "C" int vqt_int8_matmul_occupancy(int kt, int stages, int x_vec, int w_vec, int* smem,
-                                         int* blocks_per_sm) {
+extern "C" int vqt_int8_matmul_stripe_occupancy(int kt, int stages, int x_vec, int w_vec,
+                                                int* smem, int* blocks_per_sm) {
   switch (kt) {
     case 32: return occupancy<32>(stages, x_vec, w_vec, smem, blocks_per_sm);
     case 64: return occupancy<64>(stages, x_vec, w_vec, smem, blocks_per_sm);

@@ -6,25 +6,33 @@ accumulation, and the per-output-channel scale is applied to the f32 sum
 (the function of ``vector_quantization_tpu/ops/int8_matmul.py``
 ``int8_matmul``, both its Pallas and its XLA path).
 
-A CUDA tensor goes through the hand-written Hopper kernel
-(``csrc/int8_matmul.cu``); a CPU tensor through the plain version
-:func:`int8_matmul_reference`, which repeats the kernel's arithmetic step by
-step. The choice is made by the tensor's device alone.
+A CUDA tensor goes through a hand-written Hopper kernel, chosen per shape by
+:func:`plan` (no timing at run time): the stripe design
+(``csrc/int8_matmul_stripe.cu``) where w's rows are 16-byte aligned, the
+split-K design (``csrc/int8_matmul.cu``) elsewhere. A CPU tensor goes
+through the plain version :func:`int8_matmul_reference`, which repeats the
+kernels' arithmetic step by step. The choice is made by the tensor's device
+alone.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
-__all__ = ["int8_matmul", "int8_matmul_reference", "split_k"]
+__all__ = [
+    "Plan", "int8_matmul", "int8_matmul_reference", "occupancy", "plan", "split_k", "stripe_plan",
+]
 
-_BN, _BM, _BK = 128, 64, 32  # the kernel's tile sizes (csrc/int8_matmul.cu)
+_BN, _BM, _BK = 128, 64, 32  # the split-K kernel's tile sizes (csrc/int8_matmul.cu)
 _MIN_K_TILES = 8  # 256 of depth per block at least
+_SMEM_BLOCK = 232_448  # shared memory one block may use on an H100
+_SMEM_SM = 233_472  # an H100 SM's shared memory, 1,024 of it reserved per block
 _sm_count: dict[int, int] = {}
 
 
@@ -44,6 +52,62 @@ def int8_matmul_reference(
 int8_matmul_reference.cuda_calls = 0
 
 
+class Plan(NamedTuple):
+    """How one call is launched.
+
+    ``design``: ``"split_k"`` (``csrc/int8_matmul.cu``: a block per 128
+    columns and ``k_chunk`` of depth, the ``split`` partial sums of a column
+    added by f32 atomics into a zeroed output, 32-deep tiles prefetched into
+    registers) or ``"stripe"`` (``csrc/int8_matmul_stripe.cu``: a block per
+    32 columns over all of D or, when ``split`` > 1, a 1/``split`` share of
+    it, the cluster's sums met in distributed shared memory; each warp
+    streams its own ``kt``-deep tiles through a ring of ``stages``). Both
+    take 64 rows of x per block. ``x_vec`` / ``w_vec``: the stripe design
+    copies that operand 16 bytes at a time (else 4 bytes at a time)."""
+
+    design: str
+    n: int
+    split: int
+    kt: int
+    stages: int
+    k_chunk: int
+    x_vec: bool
+    w_vec: bool
+
+    def grid(self, b: int, d: int, f: int) -> tuple[int, int, int]:
+        """The launch's grid; a cluster is ``split`` blocks along x, except
+        in the split-K design, whose D splits are grid y."""
+        if self.design == "split_k":
+            return -(-f // self.n), -(-d // self.k_chunk), -(-b // 64)
+        return -(-f // self.n) * self.split, -(-b // 64), 1
+
+    def blocks(self, b: int, d: int, f: int) -> list[tuple[int, int, int, int]]:
+        """Each block's (first row, first column, first depth, end depth),
+        as the kernel derives them from its block index; its columns are
+        [first column, first column + ``n``) within F."""
+        out = []
+        for m0 in range(0, b, 64):
+            for n0 in range(0, f, self.n):
+                if self.design == "split_k":
+                    out += [(m0, n0, k0, min(d, k0 + self.k_chunk))
+                            for k0 in range(0, d, self.k_chunk)]
+                    continue
+                tiles = -(-d // self.kt)
+                for rank in range(self.split):
+                    kb, ke = rank * tiles // self.split, (rank + 1) * tiles // self.split
+                    out.append((m0, n0, kb * self.kt, min(d, ke * self.kt)))
+        return out
+
+    def smem(self) -> int:
+        """Shared memory per block, in bytes (the kernels' own reckoning)."""
+        if self.design == "split_k":
+            return _BM * (_BK + 8) * 2 + _BK * (_BN + 16)  # static x and w tiles
+        stage = 64 * self.kt * 2 + self.kt * 32
+        raw = ((0 if self.x_vec else 64 * (2 * self.kt + 4))
+               + (0 if self.w_vec else self.kt * 36))
+        return 1024 + max(8 * self.stages * stage, 8 * 64 * 36 * 4) + 8 * self.stages * raw + 8192
+
+
 def split_k(b: int, d: int, f: int, num_sms: int) -> int:
     """Depth per block (a multiple of 32): split D until the grid (F tiles
     x D splits x B tiles) holds about two blocks per SM, but give each block
@@ -56,6 +120,45 @@ def split_k(b: int, d: int, f: int, num_sms: int) -> int:
     return min(max(-(-k_tiles // splits), _MIN_K_TILES), k_tiles) * _BK
 
 
+def stripe_plan(b: int, d: int, f: int, num_sms: int, x_vec: bool, w_vec: bool) -> Plan:
+    """The stripe design's plan. Each rule follows the sweep of every plan
+    at the Llama-medium decode shapes on an H100 (PERF.md, PR 8):
+
+    - D is split over clusters of 2 or 4 only while the grid stays within
+      half the SMs and each block keeps 512 of depth: clusters of 4 over
+      128 blocks at one block per SM took a second wave (blocks entering
+      8.4 us late), and split 2 beat split 4 at both shapes that split;
+    - 64-deep tiles where each warp gets two of them at least, else 32;
+    - as many ring stages as fit beside the blocks an SM must hold for the
+      grid to run in one wave (two where it has more blocks than SMs), up
+      to 4 and to one more than a warp's tiles (a deeper ring holds
+      nothing: at o, 3 stages took 7.51 us and 4 took 7.62, PR 10)."""
+    stripes = -(-f // 32) * -(-b // 64)
+    split = max(k for k in (1, 2, 4) if k == 1 or (2 * stripes * k <= num_sms and d // k >= 512))
+    kt = 64 if d // split >= 8 * 2 * 64 else 32
+    per_sm = 1 if stripes * split <= num_sms else 2
+    warp_tiles = -(-(-(-d // kt) // split) // 8)  # a warp's k tiles, at most
+    stages = min(4, warp_tiles + 1)
+    while stages > 1 and per_sm * (
+            Plan("stripe", 32, split, kt, stages, 0, x_vec, w_vec).smem() + 1024) > _SMEM_SM:
+        stages -= 1
+    return Plan("stripe", 32, split, kt, stages, 0, x_vec, w_vec)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, d: int, f: int, num_sms: int, x_vec: bool, w_vec: bool) -> Plan:
+    """The design and its parameters for one call, from the shape, the SM
+    count and the operands' alignment (``x_vec``: x's base and row pitch
+    2 D are multiples of 16 bytes; ``w_vec``: w's base and pitch F are). The
+    stripe design where w is aligned; the split-K design otherwise (the lm
+    head's F = 17385: there the stripe design's 4-byte weight copies lost
+    to it, 58.6 against 45.4 us, PERF.md)."""
+    if w_vec:
+        return stripe_plan(b, d, f, num_sms, x_vec, w_vec)
+    k_chunk = split_k(b, d, f, num_sms)
+    return Plan("split_k", _BN, -(-d // k_chunk), _BK, 1, k_chunk, x_vec, w_vec)
+
+
 def _num_sms(device: torch.device) -> int:
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _sm_count:
@@ -63,7 +166,32 @@ def _num_sms(device: torch.device) -> int:
     return _sm_count[idx]
 
 
-def _launch(x2: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _aligned(t: torch.Tensor, pitch_bytes: int) -> bool:
+    return t.data_ptr() % 16 == 0 and pitch_bytes % 16 == 0
+
+
+def occupancy(p: Plan) -> tuple[int, int]:
+    """A stripe-design plan's dynamic shared memory per block and resident
+    blocks per SM on the current card, as the kernel reckons them."""
+    fn = _build.load("int8_matmul_stripe").vqt_int8_matmul_stripe_occupancy
+    smem, per_sm = ctypes.c_int(), ctypes.c_int()
+    err = fn(p.kt, p.stages, int(p.x_vec), int(p.w_vec), ctypes.byref(smem), ctypes.byref(per_sm))
+    if err != 0:
+        raise RuntimeError(f"int8_matmul occupancy query failed: CUDA error {err}")
+    return smem.value, per_sm.value
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(source: str, name: str, n_int: int):
+    """A kernel's C entry: 4 pointers, ``n_int`` ints, the stream."""
+    fn = getattr(_build.load(source), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    return fn
+
+
+def _launch(x2: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+            p: Plan | None) -> torch.Tensor:
     b, d = x2.shape
     f = w.shape[1]
     if w.dtype != torch.int8 or w.dim() != 2 or w.shape[0] != d:
@@ -75,39 +203,45 @@ def _launch(x2: torch.Tensor, w: torch.Tensor, scale: torch.Tensor) -> torch.Ten
     x2 = x2.to(torch.bfloat16).contiguous()
     w = w.contiguous()
     scale = scale.contiguous()
-    k_chunk = split_k(b, d, f, _num_sms(x2.device))
-    splits = math.ceil(d / k_chunk)
-    # split partial sums are added atomically into a zeroed output
-    out = (torch.zeros if splits > 1 else torch.empty)(
-        (b, f), dtype=torch.float32, device=x2.device
-    )
-    fn = _build.load("int8_matmul").vqt_int8_matmul
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    err = fn(
-        x2.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        b, d, f, k_chunk, torch.cuda.current_stream(x2.device).cuda_stream,
-    )
+    if p is None:
+        p = plan(b, d, f, _num_sms(x2.device), _aligned(x2, 2 * d), _aligned(w, f))
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    ptrs = (x2.data_ptr(), w.data_ptr(), scale.data_ptr())
+    if p.design == "split_k":
+        # split partial sums are added atomically into a zeroed output
+        out = (torch.zeros if p.split > 1 else torch.empty)(
+            (b, f), dtype=torch.float32, device=x2.device)
+        err = _entry("int8_matmul", "vqt_int8_matmul", 4)(
+            *ptrs, out.data_ptr(), b, d, f, p.k_chunk, stream)
+    elif p.design == "stripe":
+        out = torch.empty((b, f), dtype=torch.float32, device=x2.device)
+        err = _entry("int8_matmul_stripe", "vqt_int8_matmul_stripe", 8)(
+            *ptrs, out.data_ptr(), b, d, f, p.kt, p.split, p.stages, int(p.x_vec),
+            int(p.w_vec), stream)
+    else:
+        raise ValueError(f"int8_matmul: unknown design {p.design!r}")
     if err != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"int8_matmul {p.design} kernel launch failed: CUDA error {err}")
     int8_matmul.launches += 1
+    int8_matmul.design_launches[p.design] += 1
     return out
 
 
 def int8_matmul(
-    x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor
+    x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor, plan: Plan | None = None
 ) -> torch.Tensor:
     """(..., D) @ int8 (D, F) * scale (F,) -> (..., F) float32.
 
-    CUDA tensors launch the Hopper kernel (and raise if it cannot run);
-    CPU tensors take :func:`int8_matmul_reference`.
+    CUDA tensors launch the kernel that :func:`plan` picks, or the one
+    ``plan`` names (tests and probes force each design this way), and raise
+    if it cannot run; CPU tensors take :func:`int8_matmul_reference`.
     """
     if not x.is_cuda:
         return int8_matmul_reference(x, w_int8, scale)
     lead = x.shape[:-1]
-    out = _launch(x.reshape(-1, x.shape[-1]), w_int8, scale)
+    out = _launch(x.reshape(-1, x.shape[-1]), w_int8, scale, plan)
     return out.reshape(*lead, -1)
 
 
-int8_matmul.launches = 0
+int8_matmul.launches = 0  # every launch
+int8_matmul.design_launches = {"split_k": 0, "stripe": 0}  # the launches of each design
