@@ -10,20 +10,19 @@ kernels at each head dim, their registers, spill bytes, shared memory and
 resident blocks per SM at T = 257; for the paged attention's split kernel
 per (query, pool, head dim) type, its registers and spills, and at the
 serving shape its plan and resident blocks per SM; for the INT8 matmul's
-kernels, the split-K kernel and the stripe kernel at each tile depth,
-their registers, spills and static shared memory, and at each serving
-shape the plan with its dynamic shared memory and blocks per SM), then
-runs these phases, each printing one JSON line; any failure exits
-non-zero:
+split-K and wide kernels, their registers, spills and static shared
+memory), then runs these phases, each printing one JSON line; any failure
+exits non-zero:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions; TF32 is switched off for matmuls and cuDNN convolutions
    for the whole run.
 2. ``int8_matmul``: the wrapper, under the plan ``ops/int8_matmul.plan``
-   picks per shape (printed with the source that ran: the stripe design
-   where F % 16 == 0, the split-K design elsewhere), against its plain
-   version at the serving shapes (B = 64; qkv, o, gate+up, down, lm head of
-   Llama-medium), B in {1, 7} and a ragged F; max relative error <= 1e-3
+   picks per shape (printed with the source that ran and, for the wide
+   design, its dynamic shared memory, blocks per SM and clusters at once),
+   against its plain version at the serving shapes (B = 64; qkv, o,
+   gate+up, down, lm head of Llama-medium), B in {1, 7} and a ragged F
+   (both designs run at one shape at least); max relative error <= 1e-3
    (bf16 inputs, f32 sums in another order). Device times per call (CUDA
    graph replay, weights rotated through enough copies to exceed the 50 MB
    L2) for the kernel, the plain version and a yardstick ``library_ms`` =
@@ -50,9 +49,9 @@ non-zero:
    with numpy), INT8 KV, page size 64, 64 batch rows (32 CFG streams),
    ``steps_per_sync`` 64, alpha 1.75, top-k 600, top-p 0.92, 256 image
    tokens; ``--requests`` requests so slots turn over. Every request must
-   finish with 256 codes in [0, 16384), every page must be freed, all three
-   kernels must have launched, and no plain version may have run on a
-   CUDA tensor.
+   finish with 256 codes in [0, 16384), every page must be freed, K3 and
+   each K2 kernel that a serving shape's plan names must have launched,
+   and no plain version may have run on a CUDA tensor.
 6. ``vq_lookup``: the nearest-code kernel against its plain version at
    the tokenizer's shape N = K = 16384, D = 8 (f32 and bf16), the flagship
    D = 256, a ragged 1000 x 777 x 40 (cosine), N = 1, and planted exact
@@ -117,9 +116,9 @@ non-zero:
 14. ``ar_train_profile``: one codes train step under torch.profiler:
    device time by kernel and the idle share.
 15. ``kernels``: per kernel, launches in its path's run (phase 5 for the
-   server's three: K2's split-K and stripe kernels and K3; phase 7 for the
-   lookup, phase 10 for the three flash kernels), device time per call, the
-   bound, the plain version's and the yardstick's time.
+   server's: K2's kernels that the serving shapes' plans name, and K3;
+   phase 7 for the lookup, phase 10 for the three flash kernels), device
+   time per call, the bound, the plain version's and the yardstick's time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
@@ -141,6 +140,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense tensor-core bf16
 F32_FLOPS = 67e12  # float32 outside the tensor cores
+CSRC = "vector_quantization_tpu_torch/csrc"  # the kernels' sources, from the repo's root
 
 # Llama-medium C2I (configs/ar/transformers/llama.py, bench.py serving recipe)
 NUM_CATEGORIES, CODEBOOK = 1000, 16384
@@ -171,17 +171,19 @@ def zero_launches() -> None:
 
 def read_launches() -> tuple[dict, int]:
     """Every kernel's launch count (``int8_matmul`` is K2's split-K kernel,
-    ``int8_matmul_stripe`` its stripe kernel, both behind one wrapper), and
-    the number of times any plain version ran on a CUDA tensor so far."""
+    ``int8_matmul_wide`` its wide kernel, both behind one wrapper), and the
+    number of times any plain version ran on a CUDA tensor so far."""
     from vector_quantization_tpu_torch.ops import flash_attention as fa
-    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_reference
+    from vector_quantization_tpu_torch.ops.int8_matmul import (
+        DESIGNS, int8_matmul, int8_matmul_reference,
+    )
     from vector_quantization_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_reference,
     )
     from vector_quantization_tpu_torch.ops.vq_lookup import nearest_codes, nearest_codes_reference
 
-    launches = {"int8_matmul": int8_matmul.design_launches["split_k"],
-                "int8_matmul_stripe": int8_matmul.design_launches["stripe"],
+    launches = {**{source: int8_matmul.design_launches[design]
+                   for design, (source, _) in DESIGNS.items()},
                 "paged_decode_attention": paged_decode_attention.launches,
                 "nearest_codes": nearest_codes.launches,
                 "flash_attention_fwd": fa.flash_attention_fwd.launches,
@@ -306,24 +308,17 @@ def phase_build() -> None:
                           torch.cuda.get_device_properties(0).multi_processor_count)
     paged_path = {**paged.get("qbf16_kvint8_dh64", {}), **plan._asdict(),
                   "blocks_per_sm": pa.decode_occupancy(plan, torch.bfloat16, torch.int8, 64)}
-    mm = {**ptxas_entries(logs["int8_matmul"], "w8a16_kernel", ()),
-          **{f"w8a16_stripe_kernel_{k}": v for k, v in
-             ptxas_entries(logs["int8_matmul_stripe"], "w8a16_stripe_kernel", ("kt",)).items()}}
+    mm = {kernel: entry for source, kernel in im.DESIGNS.values()
+          for entry in ptxas_entries(logs[source], kernel, ()).values()}
     if "w8a16_kernel" in mm:
         split = mm["w8a16_kernel"]
         split["blocks_per_sm"] = blocks_per_sm(split["registers"], 256, split["static_smem"])
-    mm["plans"] = {}
-    for name, _, d, f, _ in serving_matmuls():
-        p = im.plan(SLOTS, d, f, torch.cuda.get_device_properties(0).multi_processor_count,
-                    True, f % 16 == 0)
-        smem, per_sm = im.occupancy(p) if p.design != "split_k" else (0, None)
-        mm["plans"][name] = {**p._asdict(), "dynamic_smem": smem, "blocks_per_sm": per_sm}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "sources": sorted(logs), "ptxas": regs, "flash_fwd_at_t257": fwd,
           "flash_bwd_dkv_at_t257": dkv, "flash_bwd_dq_at_t257": dq, "paged_attention": paged,
           "paged_attention_at_path": paged_path, "int8_matmul": mm})
     if (not fwd or not dkv or not dq or "registers" not in paged_path
-            or {"w8a16_kernel", "w8a16_stripe_kernel_kt32", "w8a16_stripe_kernel_kt64"} - set(mm)):
+            or {kernel for _, kernel in im.DESIGNS.values()} - set(mm)):
         raise SystemExit("build: a kernel's entry is missing from the ptxas log")
 
 
@@ -335,31 +330,26 @@ def serving_matmuls() -> list[tuple[str, int, int, int, int]]:
             ("lm_head", SLOTS, d, VOCAB, 1)]
 
 
-_K2_SOURCES = {"split_k": ("int8_matmul", "vector_quantization_tpu_torch/csrc/int8_matmul.cu"),
-               "stripe": ("int8_matmul_stripe",
-                          "vector_quantization_tpu_torch/csrc/int8_matmul_stripe.cu")}
-
-
 def phase_int8_matmul(dev, gen) -> list[dict]:
     from vector_quantization_tpu_torch.ops import int8_matmul as im
 
     d = MEDIUM["hidden_size"]
     extra = [("b1_qkv", 1, d, 3 * d, 0), ("b7_lm_head", 7, d, VOCAB, 0),
              ("ragged", 5, 1000, 777, 0)]
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for name, b, dd, ff, per_step in serving_matmuls() + extra:
         x = torch.randn((b, dd), generator=gen, device=dev).to(torch.bfloat16)
         w = torch.randint(-127, 128, (dd, ff), generator=gen, device=dev, dtype=torch.int8)
         s = torch.rand((ff,), generator=gen, device=dev) * 0.02 + 1e-3
-        p = im.plan(b, dd, ff, sms, im._aligned(x, 2 * dd), im._aligned(w, ff))
+        p = im.plan_for(x, w)
         got = im.int8_matmul(x, w, s)
         want = im.int8_matmul_reference(x, w, s)
         torch.cuda.synchronize()
         abs_err = float((got - want).abs().max())
         rel_err = abs_err / float(want.abs().max())
         row = {"phase": "int8_matmul", "shape": name, "B": b, "D": dd, "F": ff,
-               "plan": p._asdict(), "source": _K2_SOURCES[p.design][1],
+               "plan": p._asdict(), "source": f"{CSRC}/{p.source}.cu",
+               **(im.occupancy(p, b, dd, ff) if p.design == "wide" else {}),
                "max_abs_err": abs_err, "max_rel_err": rel_err, "limit": 1e-3}
         if rel_err > 1e-3 or not torch.isfinite(got).all():
             emit(row)
@@ -393,12 +383,12 @@ def phase_int8_matmul(dev, gen) -> list[dict]:
           "launches_per_step": sum(r["launches_per_step"] for r in rows),
           **{k: per_launch(rows, k) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}})
     kernels = []
-    for design, (kname, source) in _K2_SOURCES.items():
+    for design, (source, _) in im.DESIGNS.items():
         mine = [r for r in rows if r["plan"]["design"] == design]
         if not mine:
-            raise SystemExit(f"int8_matmul: no serving shape runs the {design} design")
+            continue
         kernels.append({
-            "name": kname, "route": "cuda", "source": source,
+            "name": source, "route": "cuda", "source": f"{CSRC}/{source}.cu",
             "replaces": "vector_quantization_tpu/ops/int8_matmul.py:54",
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": per_launch(mine, "ms"), "plain_ms": per_launch(mine, "plain_ms"),
@@ -498,7 +488,7 @@ def phase_paged_attention(dev, gen) -> dict:
         del k, v, ksc, vsc, dense
     return {
         "name": "paged_decode_attention", "route": "cuda",
-        "source": "vector_quantization_tpu_torch/csrc/paged_attention.cu",
+        "source": f"{CSRC}/paged_attention.cu",
         "replaces": "vector_quantization_tpu/ops/paged_attention.py:110",
         "max_abs_err": kernel_row["max_err"], "ms": kernel_row["ms"],
         "plain_ms": kernel_row["plain_ms"], "bound_ms": kernel_row["bound_ms"],
@@ -657,7 +647,8 @@ def phase_decode_step(model, dev, gen):
     return profile_step
 
 
-def phase_serving(model, dev, seed: int, n_requests: int) -> tuple[dict, dict]:
+def phase_serving(model, dev, seed: int, n_requests: int,
+                  k2_kernels: list[str]) -> tuple[dict, dict]:
     from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook
     from vector_quantization_tpu_torch.tasks.serving import ARServer
 
@@ -691,7 +682,7 @@ def phase_serving(model, dev, seed: int, n_requests: int) -> tuple[dict, dict]:
           and all(c.shape == (IMAGE_TOKENS,) and (c >= 0).all() and (c < CODEBOOK).all()
                   for c in done.values())
           and len(server._free_pages) == server._total_pages and server._pages_reserved == 0
-          and launches["int8_matmul"] > 0 and launches["int8_matmul_stripe"] > 0
+          and all(launches[k] > 0 for k in k2_kernels)
           and launches["paged_decode_attention"] > 0
           and plain_runs == 0)
     if not ok:
@@ -756,7 +747,7 @@ def phase_vq_lookup(dev, gen) -> dict:
         del x, e, got, want
     return {
         "name": "nearest_codes", "route": "cuda",
-        "source": "vector_quantization_tpu_torch/csrc/vq_lookup.cu",
+        "source": f"{CSRC}/vq_lookup.cu",
         "replaces": "vector_quantization_tpu/ops/vq_lookup.py:93",
         "max_abs_err": kernel_row["max_score_gap"], "ms": kernel_row["ms"],
         "plain_ms": kernel_row["plain_ms"], "bound_ms": kernel_row["bound_ms"],
@@ -1060,7 +1051,7 @@ def phase_flash_attention(dev, gen) -> list[dict]:
         bound_bytes, bound_ops = byts / HBM_BYTES_PER_S, ops / BF16_FLOPS
         entries.append({
             "name": name, "route": "cuda",
-            "source": "vector_quantization_tpu_torch/csrc/flash_attention.cu",
+            "source": f"{CSRC}/flash_attention.cu",
             "replaces": ("vector_quantization_tpu/models/transformers/llama.py:232 -> "
                          "jax/experimental/pallas/ops/tpu/" + line),
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1266,7 +1257,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     model = make_medium(args.seed, dev)
     profile_step = phase_decode_step(model, dev, gen)
-    launches, done = phase_serving(model, dev, args.seed, args.requests)
+    launches, done = phase_serving(model, dev, args.seed, args.requests,
+                                   [k["name"] for k in k_int8])
     k_vq = phase_vq_lookup(dev, gen)
     torch.cuda.empty_cache()
     vqgan, vqgan_cfg = make_vqgan(args.seed, dev)

@@ -7,11 +7,11 @@ Usage: python3 int8_matmul_probe.py [--source PATH] [--seed 0]
 
 First, at the five serving shapes of ``chip_smoke.py`` (B = 64; qkv, o,
 gate+up, down, lm head of Llama-medium), ``planned``: the package's own
-``int8_matmul``, under the plan its ``plan`` function picks (printed beside
-it), next to ``library``. Then the design of ``--source``, an INT8 matmul
-source (default: the split-K design,
-``vector_quantization_tpu_torch/csrc/int8_matmul.cu``; the stripe design is
-``vector_quantization_tpu_torch/csrc/int8_matmul_stripe.cu``). The probe
+``int8_matmul``, under the plan its ``plan_for`` picks (printed beside it),
+next to ``library``. Then the design of ``--source``, an INT8 matmul source
+(default: the split-K design,
+``vector_quantization_tpu_torch/csrc/int8_matmul.cu``; the wide design is
+``vector_quantization_tpu_torch/csrc/int8_matmul_wide.cu``). The probe
 recognises the design by its kernel's name and builds it as it is and
 copies changed by text substitution (``flash_fwd_probe.cut``, which raises
 on a miss), with the flags of ``ops/_build.py``, all at once. Every variant
@@ -24,18 +24,18 @@ with the weight rotated through more than 50 MB as ``chip_smoke.py`` phase
   wrapper runs them), ``no_memset`` (the kernel alone, storing where it
   would add), ``no_products`` and ``no_loads`` (also without the memset),
   and ``empty`` (the kernel returning at once: one node's floor);
-- ``w8a16_stripe_kernel`` (one launch per call: a block per 32-column
-  stripe over all of D or a cluster's share of it, each warp streaming its
-  own k tiles):
-  ``shipped`` (under the package's ``stripe_plan``), ``no_products``
+- ``w8a16_wide_kernel`` (one launch per call: a block per 128 columns over
+  a cluster's share of D, x's share held in shared memory), at the aligned
+  shapes: ``shipped`` (under the package's ``wide_plan``), ``no_products``
   (loads only), ``no_loads`` (products on whatever shared memory holds),
-  ``no_store`` (the warps' sums meet but are not stored), ``empty``, the
-  shipped kernel under every other plan (``plan``: tile depth, split of D
-  over a cluster, ring depth; each checked against the plain version
-  before it is timed), and a block timeline (``timeline``, also on the
-  no-loads and no-products copies): when each block's warp 0 saw its
-  first tile, finished its own tiles, passed the block's barriers, and
-  ended;
+  ``no_store`` (the sums meet but are not stored), ``empty``, the shipped
+  kernel under every other plan (``plan``: every cluster size of 1, 2, 4,
+  8 and ring depth that fits; each checked against the plain version
+  before it is timed), ``cvt_pack`` (the widened bf16 pair packed by a
+  conversion instruction in place of a byte permute) and a block timeline
+  (``timeline``, also on the no-loads and no-products copies): when each
+  block's thread 0 entered, saw its first tile, was past its last tile,
+  saw every peer of its cluster started, saw the sums met, and ended;
 - for both: ``zeros`` (the ``torch.zeros`` node alone), ``matmul``
   (``torch.matmul(x, w_bf16)`` alone), ``scale`` (``y * s`` alone, on a
   precomputed ``y``) and ``library`` (the two together: ``library_ms``).
@@ -62,7 +62,7 @@ import torch
 from chip_smoke import HBM_BYTES_PER_S, MEDIUM, SLOTS, VOCAB, graph_ms
 from flash_fwd_probe import build
 from vector_quantization_tpu_torch.ops.int8_matmul import (
-    Plan, int8_matmul, int8_matmul_reference, occupancy, plan, split_k, stripe_plan,
+    Plan, card, int8_matmul, int8_matmul_reference, occupancy, plan_for, split_k, wide_plan,
 )
 
 ROOT = Path(__file__).resolve().parent
@@ -86,43 +86,55 @@ PARENT["no_loads"] = PARENT["no_memset"] + [
     ("    if (it + 1 < ntiles) load_tile(k_begin + (it + 1) * BK);\n", "")]
 PARENT_MARK = "w8a16_kernel("
 
-# one launch per call: a block per 32-column stripe over all of D, each warp
-# streaming its own k tiles
-STRIPE = {
+# one launch per call: a block per 128 columns over a cluster's share of D
+WIDE = {
     "shipped": [],
-    "no_products": [("for (int kk = 0; kk < KT / 16; ++kk) {", "for (int kk = 0; kk < 0; ++kk) {")],
-    "no_loads": [("  for (int j = 0; j < S - 1; ++j) issue(j);\n", ""),
-                 ("    issue(j + S - 1);\n", "")],
-    "no_store": [("        a.out[(size_t)(m0 + row) * a.F + n0 + col + u] = part[u] * a.scale[n0 + col + u];",
-                  "        if (part[u] == 1234.5f) a.out[0] = part[u];")],
-    "empty": [("  const int S = a.stages, KS = a.split;\n",
-               "  return;\n  const int S = a.stages, KS = a.split;\n")],
+    "no_products": [("    for (int kk = 0; kk < WKT / 32; ++kk) {",
+                     "    for (int kk = 0; kk < 0; ++kk) {")],
+    "no_loads": [("  for (int j = 0; j < S; ++j) issue(j);\n", ""),
+                 ("    if (j > 0) issue(j - 1 + S);  // into tile j - 1's ring slot\n", "")],
+    "no_store": [("  *reinterpret_cast<float4*>(dst) = v;\n}",
+                  "  if (v.x == 1234.5f) *reinterpret_cast<float4*>(dst) = v;\n}")],
+    "empty": [("  const int KS = a.split, S = a.stages;\n",
+               "  return;\n  const int KS = a.split, S = a.stages;\n")],
 }
-# thread 0 (warp 0) stamps %globaltimer (ns) at entry, when its first tile
-# landed, after its last tile, when every warp is past its last tile, when
-# the partials are written, and at the end (the sums not stored), into
-# `out` viewed as int64 sextuples
+# thread 0 stamps %globaltimer (ns) at entry, when its first tile landed,
+# past its last tile, when every peer has started, when every row's copies
+# landed (the last two only with a split), and at the end (the sums not
+# stored), into `out` viewed as int64 sextuples
 _T = "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(tl[{}]));"
+_WRITE = ("if (threadIdx.x == 0) { " + _T.format(5) + " unsigned long long* o = "
+          "(unsigned long long*)a.out; const int blk = blockIdx.y * gridDim.x + blockIdx.x;"
+          " for (int k = 0; k < 6; ++k) o[6 * blk + k] = tl[k]; }")
 STAMPS = [
-    ("  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n",
-     "  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;\n"
+    ("  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n",
+     "  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n"
      "  unsigned long long tl[6] = {0, 0, 0, 0, 0, 0}; " + _T.format(0) + "\n"),
-    ("    wait_copies(S - 1);  // tile j landed\n    __syncwarp();\n",
-     "    wait_copies(S - 1);  // tile j landed\n    __syncwarp();\n"
+    ("    __syncthreads();  // everyone's have; every warp is past tile j - 1\n",
+     "    __syncthreads();  // everyone's have; every warp is past tile j - 1\n"
      "    if (j == 0) { " + _T.format(1) + " }\n"),
-    ("  // the partials meet: every warp is past its last tile\n  __syncthreads();\n",
-     "  " + _T.format(2) + "\n  __syncthreads();\n  " + _T.format(3) + "\n"),
-    ("  __syncthreads();\n  // the block's sums",
-     "  __syncthreads();\n  " + _T.format(4) + "\n  // the block's sums"),
-    ("  if (KS == 1) return;\n",
-     "  if (threadIdx.x == 0) { " + _T.format(5) + " unsigned long long* o = "
-     "(unsigned long long*)a.out; const int blk = blockIdx.y * gridDim.x + blockIdx.x;"
-     " for (int k = 0; k < 6; ++k) o[6 * blk + k] = tl[k]; }\n  if (KS == 1) return;\n"),
+    ("  asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n  // group q = 2 mi + hr",
+     "  " + _T.format(2) + "\n  asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n"
+     "  // group q = 2 mi + hr"),
+    ("    for (int q = 0; q < GROUPS; ++q) store(q, sums(q));\n    return;\n",
+     "    for (int q = 0; q < GROUPS; ++q) store(q, sums(q));\n    " + _WRITE + "\n    return;\n"),
+    ("  // every peer has started\n", "  // every peer has started\n  " + _T.format(3) + "\n"),
+    ("  cluster_sync();  // every copy has landed; nothing reads or writes this block's after\n",
+     "  cluster_sync();  // every copy has landed; nothing reads or writes this block's after\n"
+     "  " + _T.format(4) + "\n"),
+    ("    store(rank * GPB + ql, sum);\n  }\n}\n",
+     "    store(rank * GPB + ql, sum);\n  }\n  " + _WRITE + "\n}\n"),
 ]
-STRIPE["timeline"] = STAMPS + STRIPE["no_store"]
-STRIPE["timeline_no_loads"] = STAMPS + STRIPE["no_store"] + STRIPE["no_loads"]
-STRIPE["timeline_no_products"] = STAMPS + STRIPE["no_store"] + STRIPE["no_products"]
-STRIPE_MARK = "w8a16_stripe_kernel"
+WIDE["timeline"] = STAMPS + WIDE["no_store"]
+WIDE["timeline_no_loads"] = STAMPS + WIDE["no_store"] + WIDE["no_loads"]
+WIDE["timeline_no_products"] = STAMPS + WIDE["no_store"] + WIDE["no_products"]
+# the int8 widening's bf16 pair packed by a conversion instruction in place
+# of a byte permute
+WIDE["cvt_pack"] = [(
+    "  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);\n",
+    "  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);\n"
+    "  return *reinterpret_cast<uint32_t*>(&v);\n")]
+WIDE_MARK = "w8a16_wide_kernel"
 
 
 def nvidia_smi() -> str:
@@ -150,14 +162,12 @@ def rotated(d: int, f: int, gen, dev) -> list[torch.Tensor]:
 def probe_planned(dev, gen) -> None:
     """The package's ``int8_matmul`` as it ships, per shape, beside the
     library call."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for shape, d, f in SHAPES:
         b = SLOTS
         x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
         s = torch.rand((f,), generator=gen, device=dev) * 0.02 + 1e-3
         ws = rotated(d, f, gen, dev)
-        chosen = plan(b, d, f, sms, x.data_ptr() % 16 == 0 and d % 8 == 0,
-                      ws[0].data_ptr() % 16 == 0 and f % 16 == 0)
+        chosen = plan_for(x, ws[0])
         got, want = int8_matmul(x, ws[0], s), int8_matmul_reference(x, ws[0], s)
         torch.cuda.synchronize()
         rel = float((got - want).abs().max() / want.abs().max())
@@ -211,81 +221,89 @@ def probe_parent(src: str, dev, gen) -> None:
         del ws
 
 
-def probe_stripe(src: str, dev, gen) -> None:
-    libs = build(src, STRIPE, OUT / "stripe")
-    fns = {}
-    for name, (lib, _) in libs.items():
-        fn = lib.vqt_int8_matmul_stripe
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fns[name] = fn
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+def wide_entry(lib):
+    """A build's C entry of the wide kernel."""
+    fn = lib.vqt_int8_matmul_wide
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    return fn
+
+
+def sweep(b: int, d: int, f: int, shipped: Plan, dev) -> list[Plan]:
+    """Every other wide plan that fits a block."""
+    tiles, sms = -(-d // 64), card(dev).sms
+    plans = (Plan("wide", 128, k, 64, st, -(-tiles // k) * 64)
+             for k in (1, 2, 4, 8) if k <= tiles and -(-f // 128) * -(-b // 64) * k <= 2 * sms
+             for st in sorted({2, 4, min(max(-(-tiles // k), 2), 8)}))
+    return [p for p in plans if p != shipped and p.smem() <= card(dev).smem_block]
+
+
+def probe_wide(src: str, dev, gen) -> None:
+    libs = build(src, WIDE, OUT / "wide")
+    fns = {name: wide_entry(lib) for name, (lib, _) in libs.items()}
     for shape, d, f in SHAPES:
         b = SLOTS
         x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
         s = torch.rand((f,), generator=gen, device=dev) * 0.02 + 1e-3
         ws = rotated(d, f, gen, dev)
-        x_vec, w_vec = x.data_ptr() % 16 == 0 and d % 8 == 0, ws[0].data_ptr() % 16 == 0 and f % 16 == 0
-        shipped = stripe_plan(b, d, f, sms, x_vec, w_vec)
+        shipped = wide_plan(b, d, f, card(dev))
+        if plan_for(x, ws[0]) != shipped:  # rows not aligned, or a share too deep
+            del ws
+            continue
         want = int8_matmul_reference(x, ws[0], s)
 
-        def call(fn, w, plan):
+        def call(name, w, p):
             out = torch.empty((b, f), device=dev)
-            err = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), b, d, f,
-                     plan.kt, plan.split, plan.stages, int(plan.x_vec), int(plan.w_vec),
-                     torch.cuda.current_stream().cuda_stream)
+            err = fns[name](x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), b, d, f,
+                            p.split, p.stages, torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise SystemExit(f"int8_matmul_probe: launch failed, CUDA error {err}")
             return out
 
-        plans = [shipped] + [p for p in (Plan("stripe", 32, k, kt, st, 0, x_vec, w_vec)
-                                         for kt in (32, 64) for k in (1, 2, 4)
-                                         for st in (1, 2, 3, 4))
-                             if p != shipped and p.smem() <= 232_448]
-        for name, fn in fns.items():
+        for name in fns:
             if name.startswith("timeline"):
-                stripe_timeline(fn, call, shipped, name, shape, b, d, f, ws)
+                timeline(call, shipped, name, shape, b, d, f, ws)
                 continue
-            for plan in (plans if name == "shipped" else [shipped]):
-                extra = {"plan": plan._asdict(), "grid": plan.grid(b, d, f),
-                         "weight_copies": len(ws)}
+            for p in ([shipped] + sweep(b, d, f, shipped, dev) if name == "shipped"
+                      else [shipped]):
+                extra = {"plan": p._asdict(), "grid": p.grid(b, d, f), "weight_copies": len(ws)}
                 if name == "shipped":
-                    got = call(fn, ws[0], plan)
+                    got = call(name, ws[0], p)
                     torch.cuda.synchronize()
                     rel = float((got - want).abs().max() / want.abs().max())
                     if rel > 1e-3 or not bool(torch.isfinite(got).all()):
-                        raise SystemExit(f"int8_matmul_probe: {shape} {plan} disagrees ({rel})")
-                    smem, per_sm = occupancy(plan)
-                    extra.update(max_rel_err=rel, dynamic_smem=smem, blocks_per_sm=per_sm)
-                label = name if plan is shipped or name != "shipped" else "plan"
+                        raise SystemExit(f"int8_matmul_probe: {shape} {p} disagrees ({rel})")
+                    extra.update(max_rel_err=rel, **occupancy(p, b, d, f))
+                label = name if p is shipped or name != "shipped" else "plan"
                 emit(label, shape, b, d, f,
-                     times([lambda w=w, fn=fn, p=plan: call(fn, w, p) for w in ws]), **extra)
+                     times([lambda w=w, n=name, p=p: call(n, w, p) for w in ws]), **extra)
         library_nodes(shape, b, d, f, x, s, ws, dev)
         del ws
 
 
-def stripe_timeline(fn, call, plan, name, shape, b, d, f, ws) -> None:
+def timeline(call, plan, name, shape, b, d, f, ws) -> None:
     """One graph replay of a timeline copy over the rotated weights; the
     last call's stamps: per block, microseconds from the kernel's first
     entry to each stamp (percentiles), and each phase's median."""
     import numpy as np
 
     outs = []
-    graph_ms([lambda w=w: outs.append(call(fn, w, plan)) for w in ws], replays=1)
+    graph_ms([lambda w=w: outs.append(call(name, w, plan)) for w in ws], replays=1)
     torch.cuda.synchronize()
     gx, gy, _ = plan.grid(b, d, f)
     st = outs[-1].view(-1).view(torch.int64)[: 6 * gx * gy].view(-1, 6).cpu().numpy()
-    st = st[st[:, 0] > 0]  # blocks of a split's cluster write their stamps, all
+    st = st[st[:, 0] > 0]  # every block writes its stamps (a split's owners after the meet)
     st = (st - st[:, 0].min()).astype(np.float64) / 1e3
+    names = ("entry", "first_tile", "last_tile", "peers_started", "sums_met", "end")
+    cols = range(6) if plan.split > 1 else (0, 1, 2, 5)  # unsplit: no meet
     pct = [0, 10, 50, 90, 100]
-    names = ("entry", "first_tile", "own_tiles", "all_tiles", "partials", "end")
     print(json.dumps({
         "variant": name, "shape": shape, "blocks": gx * gy, "plan": plan._asdict(),
         "span_us": float(st[:, 5].max()),
-        **{f"{n}_us_pcts_0_10_50_90_100": np.percentile(st[:, k], pct).tolist()
-           for k, n in enumerate(names)},
-        "phase_us_median": {names[k]: float(np.median(st[:, k] - st[:, k - 1]))
-                            for k in range(1, 6)},
+        **{f"{names[k]}_us_pcts_0_10_50_90_100": np.percentile(st[:, k], pct).tolist()
+           for k in cols},
+        "phase_us_median": {names[k]: float(np.median(st[:, k] - st[:, j]))
+                            for j, k in zip(cols, cols[1:])},
     }), flush=True)
 
 
@@ -314,8 +332,8 @@ def main() -> int:
     probe_planned(dev, gen)
     if PARENT_MARK in src:
         probe_parent(src, dev, gen)
-    elif STRIPE_MARK in src:
-        probe_stripe(src, dev, gen)
+    elif WIDE_MARK in src:
+        probe_wide(src, dev, gen)
     else:
         raise SystemExit("int8_matmul_probe: no known design in " + str(args.source))
     print(nvidia_smi(), flush=True)

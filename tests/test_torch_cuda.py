@@ -45,14 +45,14 @@ def _rel_err(got, want):
 
 
 def _forced_plan(design, x, w):
-    # the design's own plan at this shape, whatever plan() would pick
+    # the design's own plan at this shape, whatever plan() would pick; None
+    # where the wide design does not take the shape
     (b, d), f = x.shape, w.shape[1]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    x_vec, w_vec = im._aligned(x, 2 * d), im._aligned(w, f)
+    card = im.card(x.device)
     if design == "split_k":
-        k_chunk = im.split_k(b, d, f, sms)
-        return im.Plan("split_k", 128, -(-d // k_chunk), 32, 1, k_chunk, x_vec, w_vec)
-    return im.stripe_plan(b, d, f, sms, x_vec, w_vec)
+        return im.split_k_plan(b, d, f, card.sms)
+    aligned = x.data_ptr() % 16 == 0 and d % 8 == 0 and w.data_ptr() % 16 == 0 and f % 16 == 0
+    return im.wide_plan(b, d, f, card) if aligned else None
 
 
 def _int8_inputs(dev, b, d, f, seed):
@@ -63,7 +63,7 @@ def _int8_inputs(dev, b, d, f, seed):
     return x, w, s
 
 
-@pytest.mark.parametrize("design", ["split_k", "stripe"])
+@pytest.mark.parametrize("design", ["split_k", "wide"])
 @pytest.mark.parametrize(
     "b,d,f",
     [
@@ -77,31 +77,58 @@ def _int8_inputs(dev, b, d, f, seed):
 )
 def test_int8_matmul_kernel_matches_plain(dev, design, b, d, f):
     # bf16 inputs, exact bf16*int8 products, f32 sums in another order; each
-    # design forced at every shape (the stripe design copies unaligned rows
-    # 4 bytes at a time)
+    # design forced at every shape it takes; where the wide design does not
+    # take the shape (rows not 16-byte aligned, or a share too deep for
+    # shared memory), a wide launch is refused
     x, w, s = _int8_inputs(dev, b, d, f, b * 7 + d + f)
     p = _forced_plan(design, x, w)
+    if p is None:
+        tiles = -(-d // 64)
+        forced = im.Plan("wide", 128, 8, 64, 2, -(-tiles // 8) * 64)
+        with pytest.raises(RuntimeError):
+            im._launch(x, w, s, forced)
+        return
     before = int8_matmul.launches
-    got = int8_matmul(x, w, s, plan=p)
+    got = im._launch(x, w, s, p)
     torch.cuda.synchronize()
     assert int8_matmul.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (b, f)
     assert _rel_err(got, int8_matmul_reference(x, w, s)) <= 1e-3
 
 
-@pytest.mark.parametrize("d,f", [(1024, 3072), (1024, 1024), (1024, 17385)])
-def test_int8_matmul_graph_replays_match_plain(dev, d, f):
-    # one planned call (the stripe design whole, split over a cluster, and
-    # the split-K design with its zeroed output) captured in a CUDA graph;
-    # x changed in place between replays: each replay matches the plain
-    # version on the new x (nothing carries over between launches)
+def test_int8_matmul_launches_the_planned_kernel(dev):
+    # the public entry launches plan_for's design at each decode shape and
+    # counts it under that design
+    for d, f in [(1024, 3072), (1024, 1024), (1024, 5632), (2816, 1024), (1024, 17385)]:
+        x, w, s = _int8_inputs(dev, 64, d, f, d + f)
+        p = im.plan_for(x, w)
+        before = dict(int8_matmul.design_launches)
+        got = int8_matmul(x, w, s)
+        torch.cuda.synchronize()
+        assert p.design == ("split_k" if f % 16 else "wide")
+        assert int8_matmul.design_launches[p.design] == before[p.design] + 1
+        assert _rel_err(got, int8_matmul_reference(x, w, s)) <= 1e-3
+
+
+@pytest.mark.parametrize(
+    "design,d,f",
+    [("split_k", 1024, 3072), ("split_k", 2816, 1024), ("split_k", 1024, 17385),
+     ("wide", 1024, 5632), ("wide", 1024, 1024)],
+)
+def test_int8_matmul_graph_replays_match_plain(dev, design, d, f):
+    # one call of each design (the split-K design with its zeroed output
+    # at 4, 11 and 2 splits, the wide design's cluster launch) captured in
+    # a CUDA graph; x changed in place between replays: each replay
+    # matches the plain version on the new x (nothing carries over between
+    # launches)
     x, w, s = _int8_inputs(dev, 64, d, f, 3)
+    p = _forced_plan(design, x, w)
     rng = np.random.default_rng(4)
-    int8_matmul(x, w, s)  # warm-up: build
+    im._launch(x, w, s, p)  # warm-up: build
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        out = int8_matmul(x, w, s)
+        out = im._launch(x, w, s, p)
     for _ in range(2):
         x.copy_(torch.from_numpy(rng.standard_normal((64, d), dtype=np.float32)))
         g.replay()
@@ -109,17 +136,41 @@ def test_int8_matmul_graph_replays_match_plain(dev, d, f):
         assert _rel_err(out, int8_matmul_reference(x, w, s)) <= 1e-3
 
 
+@pytest.mark.parametrize("split", [None, 1, 2, 4, 8])
 @pytest.mark.parametrize("d,f", [(1024, 3072), (1024, 1024), (1024, 5632), (2816, 1024)])
-def test_int8_matmul_plan_smem_matches_kernel(dev, d, f):
-    # the plan's reckoning of shared memory is the kernel's, and the blocks
-    # an SM holds are at least what the plan counted on
+def test_int8_matmul_plan_smem_matches_kernel(dev, split, d, f):
+    # the plan's reckoning of shared memory is the kernel's, and an SM
+    # holds the blocks the plan counted on (None: the shipped plan; else
+    # that cluster size, ring of 2); past the card's limit the kernel
+    # refuses the plan, as a launch would
     x, w, _ = _int8_inputs(dev, 64, d, f, 5)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    p = im.plan(64, d, f, sms, im._aligned(x, 2 * d), im._aligned(w, f))
-    smem, per_sm = im.occupancy(p)
-    assert smem == p.smem()
-    gx, gy, gz = p.grid(64, d, f)
-    assert per_sm * sms >= gx * gy * gz
+    p = _forced_plan("wide", x, w)
+    if split is not None:
+        p = im.Plan("wide", 128, split, 64, 2, -(-(-(-d // 64)) // split) * 64)
+    if p.smem() > im.card(dev).smem_block:
+        with pytest.raises(RuntimeError):
+            im.occupancy(p, 64, d, f)
+        return
+    occ = im.occupancy(p, 64, d, f)
+    assert occ["dynamic_smem"] == p.smem()
+    if split is None:
+        gx, gy, gz = p.grid(64, d, f)
+        assert occ["blocks_per_sm"] >= -(-gx * gy * gz // im.card(dev).sms)
+
+
+@pytest.mark.parametrize("split,stages", [(1, 2), (1, 8), (2, 3), (4, 2), (4, 5), (8, 2)])
+@pytest.mark.parametrize("b,d,f", [(64, 1024, 1024), (130, 1000, 208), (5, 192, 48)])
+def test_int8_matmul_wide_plans_match_plain(dev, split, stages, b, d, f):
+    # the wide kernel at every cluster size, with a ring shallower than a
+    # block's share (slots refilled), ragged D (1000), a partial last column
+    # stripe (208, 48), two row tiles (130), and more cluster blocks than
+    # k tiles (192: 3 tiles)
+    x, w, s = _int8_inputs(dev, b, d, f, split + stages)
+    share = -(-(-(-d // 64)) // split)
+    got = im._launch(x, w, s, im.Plan("wide", 128, split, 64, stages, share * 64))
+    torch.cuda.synchronize()
+    assert got.shape == (b, f)
+    assert _rel_err(got, int8_matmul_reference(x, w, s)) <= 1e-3
 
 
 def _paged_inputs(dev, *, pool_dtype, q_dtype, b=64, h=16, dh=64, ps=64,

@@ -7,12 +7,12 @@ accumulation, and the per-output-channel scale is applied to the f32 sum
 ``int8_matmul``, both its Pallas and its XLA path).
 
 A CUDA tensor goes through a hand-written Hopper kernel, chosen per shape by
-:func:`plan` (no timing at run time): the stripe design
-(``csrc/int8_matmul_stripe.cu``) where w's rows are 16-byte aligned, the
-split-K design (``csrc/int8_matmul.cu``) elsewhere. A CPU tensor goes
-through the plain version :func:`int8_matmul_reference`, which repeats the
-kernels' arithmetic step by step. The choice is made by the tensor's device
-alone.
+:func:`plan` (no timing at run time): the wide design
+(``csrc/int8_matmul_wide.cu``) where x's and w's rows are 16-byte aligned
+and a block's share fits, the split-K design (``csrc/int8_matmul.cu``)
+elsewhere. A CPU tensor goes through the plain version
+:func:`int8_matmul_reference`, which repeats the kernels' arithmetic step by
+step. The choice is made by the tensor's device alone.
 """
 
 from __future__ import annotations
@@ -26,14 +26,13 @@ import torch
 from . import _build
 
 __all__ = [
-    "Plan", "int8_matmul", "int8_matmul_reference", "occupancy", "plan", "split_k", "stripe_plan",
+    "DESIGNS", "H100", "Card", "Plan", "card", "int8_matmul", "int8_matmul_reference",
+    "occupancy", "plan", "plan_for", "split_k", "split_k_plan", "wide_plan",
 ]
 
 _BN, _BM, _BK = 128, 64, 32  # the split-K kernel's tile sizes (csrc/int8_matmul.cu)
 _MIN_K_TILES = 8  # 256 of depth per block at least
-_SMEM_BLOCK = 232_448  # shared memory one block may use on an H100
-_SMEM_SM = 233_472  # an H100 SM's shared memory, 1,024 of it reserved per block
-_sm_count: dict[int, int] = {}
+_RESERVED = 1024  # shared memory a Hopper SM keeps aside per resident block
 
 
 def int8_matmul_reference(
@@ -52,18 +51,35 @@ def int8_matmul_reference(
 int8_matmul_reference.cuda_calls = 0
 
 
+class Card(NamedTuple):
+    """What a plan reads of the card: its SM count, the shared memory of
+    one SM and the most of it one block may take (bytes)."""
+
+    sms: int
+    smem_sm: int
+    smem_block: int
+
+
+H100 = Card(132, 233_472, 232_448)  # NVIDIA H100 SXM (80GB HBM3), where the plans were tuned
+
+# each design's kernel: its source, csrc/<source>.cu (the name ``_build.load``
+# takes and the kernel's name in reports), and the kernel function in it
+DESIGNS = {"split_k": ("int8_matmul", "w8a16_kernel"),
+           "wide": ("int8_matmul_wide", "w8a16_wide_kernel")}
+
+
 class Plan(NamedTuple):
     """How one call is launched.
 
     ``design``: ``"split_k"`` (``csrc/int8_matmul.cu``: a block per 128
     columns and ``k_chunk`` of depth, the ``split`` partial sums of a column
     added by f32 atomics into a zeroed output, 32-deep tiles prefetched into
-    registers) or ``"stripe"`` (``csrc/int8_matmul_stripe.cu``: a block per
-    32 columns over all of D or, when ``split`` > 1, a 1/``split`` share of
-    it, the cluster's sums met in distributed shared memory; each warp
-    streams its own ``kt``-deep tiles through a ring of ``stages``). Both
-    take 64 rows of x per block. ``x_vec`` / ``w_vec``: the stripe design
-    copies that operand 16 bytes at a time (else 4 bytes at a time)."""
+    registers) or ``"wide"`` (``csrc/int8_matmul_wide.cu``: a block per 128
+    columns over a 1/``split`` share of D, each block's rows pushed to the
+    block of the cluster that stores them; x's share, ``k_chunk`` deep at
+    most, held whole in shared memory, the weight's 64-deep tiles through a
+    ring of ``stages``; x's and w's rows 16-byte aligned). Both take 64
+    rows of x per block."""
 
     design: str
     n: int
@@ -71,12 +87,15 @@ class Plan(NamedTuple):
     kt: int
     stages: int
     k_chunk: int
-    x_vec: bool
-    w_vec: bool
+
+    @property
+    def source(self) -> str:
+        """The kernel's source: ``csrc/<source>.cu``."""
+        return DESIGNS[self.design][0]
 
     def grid(self, b: int, d: int, f: int) -> tuple[int, int, int]:
-        """The launch's grid; a cluster is ``split`` blocks along x, except
-        in the split-K design, whose D splits are grid y."""
+        """The launch's grid; in the wide design a cluster is ``split``
+        blocks along x, in the split-K design D's splits are grid y."""
         if self.design == "split_k":
             return -(-f // self.n), -(-d // self.k_chunk), -(-b // 64)
         return -(-f // self.n) * self.split, -(-b // 64), 1
@@ -102,10 +121,9 @@ class Plan(NamedTuple):
         """Shared memory per block, in bytes (the kernels' own reckoning)."""
         if self.design == "split_k":
             return _BM * (_BK + 8) * 2 + _BK * (_BN + 16)  # static x and w tiles
-        stage = 64 * self.kt * 2 + self.kt * 32
-        raw = ((0 if self.x_vec else 64 * (2 * self.kt + 4))
-               + (0 if self.w_vec else self.kt * 36))
-        return 1024 + max(8 * self.stages * stage, 8 * 64 * 36 * 4) + 8 * self.stages * raw + 8192
+        # x's share, the weight ring, the cluster's copies of its rows
+        recv = 64 * 128 * 4 if self.split > 1 else 0
+        return 1024 + self.k_chunk // 64 * 64 * 128 + self.stages * 64 * 128 + recv
 
 
 def split_k(b: int, d: int, f: int, num_sms: int) -> int:
@@ -120,65 +138,80 @@ def split_k(b: int, d: int, f: int, num_sms: int) -> int:
     return min(max(-(-k_tiles // splits), _MIN_K_TILES), k_tiles) * _BK
 
 
-def stripe_plan(b: int, d: int, f: int, num_sms: int, x_vec: bool, w_vec: bool) -> Plan:
-    """The stripe design's plan. Each rule follows the sweep of every plan
-    at the Llama-medium decode shapes on an H100 (PERF.md, PR 8):
+def split_k_plan(b: int, d: int, f: int, num_sms: int) -> Plan:
+    """The split-K design's plan: :func:`split_k`'s depth per block."""
+    k_chunk = split_k(b, d, f, num_sms)
+    return Plan("split_k", _BN, -(-d // k_chunk), _BK, 1, k_chunk)
 
-    - D is split over clusters of 2 or 4 only while the grid stays within
-      half the SMs and each block keeps 512 of depth: clusters of 4 over
-      128 blocks at one block per SM took a second wave (blocks entering
-      8.4 us late), and split 2 beat split 4 at both shapes that split;
-    - 64-deep tiles where each warp gets two of them at least, else 32;
-    - as many ring stages as fit beside the blocks an SM must hold for the
-      grid to run in one wave (two where it has more blocks than SMs), up
-      to 4 and to one more than a warp's tiles (a deeper ring holds
-      nothing: at o, 3 stages took 7.51 us and 4 took 7.62, PR 10)."""
-    stripes = -(-f // 32) * -(-b // 64)
-    split = max(k for k in (1, 2, 4) if k == 1 or (2 * stripes * k <= num_sms and d // k >= 512))
-    kt = 64 if d // split >= 8 * 2 * 64 else 32
-    per_sm = 1 if stripes * split <= num_sms else 2
-    warp_tiles = -(-(-(-d // kt) // split) // 8)  # a warp's k tiles, at most
-    stages = min(4, warp_tiles + 1)
-    while stages > 1 and per_sm * (
-            Plan("stripe", 32, split, kt, stages, 0, x_vec, w_vec).smem() + 1024) > _SMEM_SM:
-        stages -= 1
-    return Plan("stripe", 32, split, kt, stages, 0, x_vec, w_vec)
+
+def wide_plan(b: int, d: int, f: int, card: Card) -> Plan | None:
+    """The wide design's plan, for operands read 16 bytes at a time: 128
+    columns per block; D split over the largest cluster of 1, 2, 4 or 8
+    whose grid runs in one wave at two blocks per SM (at most one block per
+    64-deep tile); every weight tile of a block's share in the ring (2-8),
+    fewer where they would not fit beside the blocks an SM must hold. None
+    where even 2 do not. Each rule is the best of the sweep at all four
+    aligned decode shapes (PERF.md): clusters of 3, 5, 6
+    or 7 were slower than 4 or 8, fewer than 132 blocks slower than up to
+    264, and 128 columns faster than 64 (NVIDIA H100 80GB HBM3, 700 W)."""
+    tiles = -(-d // 64)
+    stripes = -(-f // 128) * -(-b // 64)
+    split = max(k for k in (1, 2, 4, 8)
+                if k == 1 or (k <= tiles and stripes * k <= 2 * card.sms))
+    share, per_sm = -(-tiles // split), -(-stripes * split // card.sms)
+    for stages in range(min(max(share, 2), 8), 1, -1):
+        p = Plan("wide", 128, split, 64, stages, share * 64)
+        if p.smem() <= card.smem_block and per_sm * (p.smem() + _RESERVED) <= card.smem_sm:
+            return p
+    return None
 
 
 @functools.lru_cache(maxsize=None)
-def plan(b: int, d: int, f: int, num_sms: int, x_vec: bool, w_vec: bool) -> Plan:
-    """The design and its parameters for one call, from the shape, the SM
-    count and the operands' alignment (``x_vec``: x's base and row pitch
-    2 D are multiples of 16 bytes; ``w_vec``: w's base and pitch F are). The
-    stripe design where w is aligned; the split-K design otherwise (the lm
-    head's F = 17385: there the stripe design's 4-byte weight copies lost
-    to it, 58.6 against 45.4 us, PERF.md)."""
-    if w_vec:
-        return stripe_plan(b, d, f, num_sms, x_vec, w_vec)
-    k_chunk = split_k(b, d, f, num_sms)
-    return Plan("split_k", _BN, -(-d // k_chunk), _BK, 1, k_chunk, x_vec, w_vec)
+def plan(b: int, d: int, f: int, card: Card, aligned: bool) -> Plan:
+    """The design and its parameters for one call, from the shape, the card
+    and the operands' alignment (``aligned``: the bases of x and w and their
+    row pitches, 2 D and F bytes, are multiples of 16 bytes). The wide
+    design where they are and its shares fit; the split-K design elsewhere
+    (the lm head's F = 17385 among them)."""
+    return (aligned and wide_plan(b, d, f, card)) or split_k_plan(b, d, f, card.sms)
 
 
-def _num_sms(device: torch.device) -> int:
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> Card:
+    props = torch.cuda.get_device_properties(index)
+    return Card(props.multi_processor_count, props.shared_memory_per_multiprocessor,
+                props.shared_memory_per_block_optin)
+
+
+def card(device: torch.device) -> Card:
+    """A CUDA device's :class:`Card`, read once."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _sm_count:
-        _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _sm_count[idx]
+    return _card(idx)
 
 
-def _aligned(t: torch.Tensor, pitch_bytes: int) -> bool:
-    return t.data_ptr() % 16 == 0 and pitch_bytes % 16 == 0
+def plan_for(x: torch.Tensor, w_int8: torch.Tensor) -> Plan:
+    """The plan of a call on x (B, D) bf16 and w_int8 (D, F), both
+    contiguous and on one CUDA device, as :func:`int8_matmul` launches it."""
+    (b, d), f = x.shape, w_int8.shape[1]
+    aligned = (x.data_ptr() % 16 == 0 and (2 * d) % 16 == 0
+               and w_int8.data_ptr() % 16 == 0 and f % 16 == 0)
+    return plan(b, d, f, card(x.device), aligned)
 
 
-def occupancy(p: Plan) -> tuple[int, int]:
-    """A stripe-design plan's dynamic shared memory per block and resident
-    blocks per SM on the current card, as the kernel reckons them."""
-    fn = _build.load("int8_matmul_stripe").vqt_int8_matmul_stripe_occupancy
-    smem, per_sm = ctypes.c_int(), ctypes.c_int()
-    err = fn(p.kt, p.stages, int(p.x_vec), int(p.w_vec), ctypes.byref(smem), ctypes.byref(per_sm))
+def occupancy(p: Plan, b: int, d: int, f: int) -> dict:
+    """A wide plan's dynamic shared memory per block, resident blocks per
+    SM and clusters of its grid that run at once on the current card, as
+    the kernel reckons them."""
+    if p.design != "wide":
+        raise ValueError(f"occupancy: a wide plan, got {p.design!r}")
+    smem, per_sm, clusters = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _build.load(p.source).vqt_int8_matmul_wide_occupancy(
+        b, d, f, p.split, p.stages, ctypes.byref(smem), ctypes.byref(per_sm),
+        ctypes.byref(clusters))
     if err != 0:
         raise RuntimeError(f"int8_matmul occupancy query failed: CUDA error {err}")
-    return smem.value, per_sm.value
+    return {"dynamic_smem": smem.value, "blocks_per_sm": per_sm.value,
+            "clusters_at_once": clusters.value}
 
 
 @functools.lru_cache(maxsize=None)
@@ -191,7 +224,9 @@ def _entry(source: str, name: str, n_int: int):
 
 
 def _launch(x2: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-            p: Plan | None) -> torch.Tensor:
+            p: Plan | None = None) -> torch.Tensor:
+    """One launch on x2 (B, D): under :func:`plan_for`'s plan, or under
+    ``p`` (the card tests force each design this way)."""
     b, d = x2.shape
     f = w.shape[1]
     if w.dtype != torch.int8 or w.dim() != 2 or w.shape[0] != d:
@@ -204,20 +239,19 @@ def _launch(x2: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     w = w.contiguous()
     scale = scale.contiguous()
     if p is None:
-        p = plan(b, d, f, _num_sms(x2.device), _aligned(x2, 2 * d), _aligned(w, f))
+        p = plan_for(x2, w)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     ptrs = (x2.data_ptr(), w.data_ptr(), scale.data_ptr())
     if p.design == "split_k":
         # split partial sums are added atomically into a zeroed output
         out = (torch.zeros if p.split > 1 else torch.empty)(
             (b, f), dtype=torch.float32, device=x2.device)
-        err = _entry("int8_matmul", "vqt_int8_matmul", 4)(
+        err = _entry(p.source, "vqt_int8_matmul", 4)(
             *ptrs, out.data_ptr(), b, d, f, p.k_chunk, stream)
-    elif p.design == "stripe":
+    elif p.design == "wide":
         out = torch.empty((b, f), dtype=torch.float32, device=x2.device)
-        err = _entry("int8_matmul_stripe", "vqt_int8_matmul_stripe", 8)(
-            *ptrs, out.data_ptr(), b, d, f, p.kt, p.split, p.stages, int(p.x_vec),
-            int(p.w_vec), stream)
+        err = _entry(p.source, "vqt_int8_matmul_wide", 5)(
+            *ptrs, out.data_ptr(), b, d, f, p.split, p.stages, stream)
     else:
         raise ValueError(f"int8_matmul: unknown design {p.design!r}")
     if err != 0:
@@ -228,20 +262,19 @@ def _launch(x2: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 def int8_matmul(
-    x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor, plan: Plan | None = None
+    x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor
 ) -> torch.Tensor:
     """(..., D) @ int8 (D, F) * scale (F,) -> (..., F) float32.
 
-    CUDA tensors launch the kernel that :func:`plan` picks, or the one
-    ``plan`` names (tests and probes force each design this way), and raise
-    if it cannot run; CPU tensors take :func:`int8_matmul_reference`.
+    CUDA tensors launch the kernel that :func:`plan` picks, and raise if it
+    cannot run; CPU tensors take :func:`int8_matmul_reference`.
     """
     if not x.is_cuda:
         return int8_matmul_reference(x, w_int8, scale)
     lead = x.shape[:-1]
-    out = _launch(x.reshape(-1, x.shape[-1]), w_int8, scale, plan)
+    out = _launch(x.reshape(-1, x.shape[-1]), w_int8, scale)
     return out.reshape(*lead, -1)
 
 
 int8_matmul.launches = 0  # every launch
-int8_matmul.design_launches = {"split_k": 0, "stripe": 0}  # the launches of each design
+int8_matmul.design_launches = dict.fromkeys(DESIGNS, 0)  # the launches of each design
