@@ -254,7 +254,7 @@ def ptxas_entries(log: str, kernel: str, params: tuple[str, ...] = ("dh",)) -> d
             key = kernel if kernel in m.group(1) and not params else None
             if k and params:
                 vals = []  # a repeated type is a back-reference (S_, S0_, ...) to the last one
-                for n, t, _ in re.findall(r"L[ib](\d+)E|(13__nv_bfloat16|[fa])(?=L|13|S|[fa])|(S\d*_)",
+                for n, t, _ in re.findall(r"L[ib](\d+)E|(13__nv_bfloat16|[fa])(?=L|13|S|[fa]|E)|(S\d*_)",
                                             k.group(1) + "E"):
                     vals.append(n or (_MANGLED_TYPES[t] if t else vals[-1]))
                 key = "_".join(f"{p}{v}" for p, v in zip(params, vals))
@@ -310,14 +310,18 @@ def phase_build() -> None:
                   "blocks_per_sm": pa.decode_occupancy(plan, torch.bfloat16, torch.int8, 64)}
     mm = {kernel: entry for source, kernel in im.DESIGNS.values()
           for entry in ptxas_entries(logs[source], kernel, ()).values()}
+    vq = ptxas_entries(logs["vq_lookup"], "nearest_tc_kernel", ("x", "e", "reg"))
+    vq_prep = ptxas_entries(logs["vq_lookup"], "prep_kernel", ("e",))
     if "w8a16_kernel" in mm:
         split = mm["w8a16_kernel"]
         split["blocks_per_sm"] = blocks_per_sm(split["registers"], 256, split["static_smem"])
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "sources": sorted(logs), "ptxas": regs, "flash_fwd_at_t257": fwd,
           "flash_bwd_dkv_at_t257": dkv, "flash_bwd_dq_at_t257": dq, "paged_attention": paged,
-          "paged_attention_at_path": paged_path, "int8_matmul": mm})
-    if (not fwd or not dkv or not dq or "registers" not in paged_path
+          "paged_attention_at_path": paged_path, "int8_matmul": mm,
+          "vq_lookup": vq, "vq_lookup_prologue": vq_prep})
+    if (not fwd or not dkv or not dq or "registers" not in paged_path or len(vq) != 8
+            or len(vq_prep) != 2
             or {kernel for _, kernel in im.DESIGNS.values()} - set(mm)):
         raise SystemExit("build: a kernel's entry is missing from the ptxas log")
 
@@ -690,25 +694,63 @@ def phase_serving(model, dev, seed: int, n_requests: int,
     return launches, done
 
 
+TF32_FLOPS = 495e12  # dense tensor-core TF32
+
+
+def lookup_bounds(n: int, k: int, d: int, x_dtype, e_dtype) -> dict:
+    """K1's two bounds in ms. ``bound_ms``: this design's, the largest of the
+    bytes (x and the codebook read once, the codes written once) over the
+    card's memory rate, the TF32 passes (3 for f32 x f32, 2 for a mixed pair,
+    1 for bf16 x bf16) x 2NKD over the tensor cores' TF32 rate, and one
+    compare per score (NK) at the f32 rate. ``bound_f32_cuda_cores_ms``: the
+    products and compares (2NKD + 2NK) at the f32 rate outside the tensor
+    cores."""
+    size = {torch.float32: 4, torch.bfloat16: 2}
+    byts = n * d * size[x_dtype] + k * d * size[e_dtype] + n * 4
+    passes = 1 + (x_dtype == torch.float32) + (e_dtype == torch.float32)
+    terms = {"bytes": byts / HBM_BYTES_PER_S, "tensor_core_passes": passes * 2 * n * k * d / TF32_FLOPS,
+             "compares": n * k / F32_FLOPS}
+    return {"bytes": byts, "tf32_passes": passes, "bound_ms": 1e3 * max(terms.values()),
+            "bound_term": max(terms, key=terms.get),
+            "bound_f32_cuda_cores_ms": 1e3 * (2 * n * k * d + 2 * n * k) / F32_FLOPS}
+
+
+def kernels_per_call(fn) -> list[str]:
+    """The device kernels one call of ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name[:60] for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def phase_vq_lookup(dev, gen) -> dict:
     from vector_quantization_tpu_torch.ops.vq_lookup import (
-        NEAR_TIE_REL_TOL, compare_codes, nearest_codes, nearest_codes_reference,
+        NEAR_TIE_REL_TOL, compare_codes, nearest_codes, nearest_codes_reference, plan,
     )
 
     n_path = TOKENIZER_BATCH * GRID * GRID
-    cases = [  # (name, N, K, D, dtype, metric, planted ties)
-        ("path_f32", n_path, CODEBOOK, 8, torch.float32, "l2", False),
-        ("path_bf16", n_path, CODEBOOK, 8, torch.bfloat16, "l2", False),
-        ("flagship_d256", 16384, 16384, 256, torch.float32, "l2", False),
-        ("ragged_cosine", 1000, 777, 40, torch.float32, "cosine", False),
-        ("n1", 1, CODEBOOK, 8, torch.float32, "l2", False),
-        ("planted_ties", 4096, 1000, 8, torch.float32, "l2", True),
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [  # (name, N, K, D, dtype, metric, rows, timed)
+        ("path_f32", n_path, CODEBOOK, 8, torch.float32, "l2", "gaussian", True),
+        ("path_bf16", n_path, CODEBOOK, 8, torch.bfloat16, "l2", "gaussian", True),
+        ("path_normalized", n_path, CODEBOOK, 8, torch.float32, "l2", "unit", True),
+        ("flagship_d256", 16384, 16384, 256, torch.float32, "l2", "gaussian", True),
+        ("ragged_cosine", 1000, 777, 40, torch.float32, "cosine", "gaussian", False),
+        ("n1", 1, CODEBOOK, 8, torch.float32, "l2", "gaussian", False),
+        ("planted_ties", 4096, 1000, 8, torch.float32, "l2", "ties", False),
+        ("planted_ties_bf16", 4096, 1000, 8, torch.bfloat16, "l2", "ties", False),
     ]
     kernel_row = None
-    for name, n, k, d, dtype, metric, ties in cases:
+    for name, n, k, d, dtype, metric, rows, timed in cases:
         x = torch.randn((n, d), generator=gen, device=dev)
         e = torch.randn((k, d), generator=gen, device=dev)
-        if ties:  # odd codes repeat the even ones; every third row sits on one
+        if rows == "unit":  # the LlamaGen quantizer looks up l2-normalised rows
+            x, e = x / x.norm(dim=1, keepdim=True), e / e.norm(dim=1, keepdim=True)
+        if rows == "ties":  # odd codes repeat the even ones; every third row sits on one
             e[1::2] = e[0::2][: k // 2]
             x[::3] = e[torch.randint(0, k // 2, (x[::3].shape[0],), generator=gen, device=dev) * 2]
         x, e = x.to(dtype), e.to(dtype)
@@ -717,12 +759,13 @@ def phase_vq_lookup(dev, gen) -> dict:
         torch.cuda.synchronize()
         rep = compare_codes(x, e, got, want, metric)
         row = {"phase": "vq_lookup", "shape": name, "N": n, "K": k, "D": d,
-               "dtype": str(dtype).removeprefix("torch."), "metric": metric,
+               "dtype": str(dtype).removeprefix("torch."), "metric": metric, "rows": rows,
+               "plan": plan(n, k, d, dtype == torch.bfloat16, dtype == torch.bfloat16, sms)._asdict(),
                "rows_differing": rep["differ"], "rows_excused_as_near_ties": rep["excused"],
                "near_tie_rows": rep["near_tie_rows"], "near_tie_abs_tol": rep["tol"],
                "near_tie_rel_tol": NEAR_TIE_REL_TOL, "max_score_gap": rep["max_score_gap"]}
         ok = rep["ok"] and got.dtype == torch.int32 and got.shape == (n,)
-        if ties:
+        if rows == "ties":
             planted = torch.arange(0, n, 3, device=dev)
             row["planted_ties_exact"] = bool(torch.equal(got[planted], want[planted])
                                              and (got[planted] % 2 == 0).all())
@@ -730,29 +773,33 @@ def phase_vq_lookup(dev, gen) -> dict:
         if not ok:
             emit(row)
             raise SystemExit(f"vq_lookup {name}: kernel and plain codes disagree beyond near-ties")
-        if name == "path_f32":
-            esq_half = 0.5 * (e * e).sum(dim=1)
-            byts = n * d * 4 + k * d * 4 + k * 4 + n * 4
-            ops = 2 * n * k * d + 2 * n * k
+        if timed:
+            xf, ef = x.float(), e.float()
+            esq_half = 0.5 * (ef * ef).sum(dim=1)
+            launched = kernels_per_call(lambda: nearest_codes(x, e))
             row.update({
                 "ms": graph_ms([lambda: nearest_codes(x, e)]),
                 "plain_ms": graph_ms([lambda: nearest_codes_reference(x, e)], replays=3),
                 "library_ms": graph_ms([lambda: torch.argmin(
-                    torch.addmm(esq_half, x, e.T, alpha=-1), dim=1)], replays=3),
-                "bytes": byts, "ops": ops,
-                "bound_ms": 1e3 * max(byts / HBM_BYTES_PER_S, ops / F32_FLOPS),
+                    torch.addmm(esq_half, xf, ef.T, alpha=-1), dim=1)], replays=3),
+                "launches_per_call": len(launched), "kernels_per_call": launched,
+                **lookup_bounds(n, k, d, dtype, dtype),
             })
-            kernel_row = row
+            if name == "path_f32":
+                kernel_row = row
+            del xf, ef, esq_half
         emit(row)
         del x, e, got, want
     return {
         "name": "nearest_codes", "route": "cuda",
         "source": f"{CSRC}/vq_lookup.cu",
-        "replaces": "vector_quantization_tpu/ops/vq_lookup.py:93",
+        "replaces": "vector_quantization_tpu/ops/vq_lookup.py:94",
         "max_abs_err": kernel_row["max_score_gap"], "ms": kernel_row["ms"],
         "plain_ms": kernel_row["plain_ms"], "bound_ms": kernel_row["bound_ms"],
         "bound_by": "operations", "library_ms": kernel_row["library_ms"],
-        "note": (f"N = K = 16384, D = 8, f32; max_abs_err is the largest plain-score gap "
+        "bound_f32_cuda_cores_ms": kernel_row["bound_f32_cuda_cores_ms"],
+        "note": (f"N = K = 16384, D = 8, f32; bound_ms is the tensor-core bound (3 TF32 passes); "
+                 f"max_abs_err is the largest plain-score gap "
                  f"between the kernel's code and the row's best ({kernel_row['rows_differing']} "
                  f"rows differ, all near-ties); library_ms writes the N x K matrix"),
     }

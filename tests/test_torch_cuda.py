@@ -292,29 +292,47 @@ def test_paged_attention_graph_replays_match_plain(dev):
         assert float((out - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
 
 
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
 @pytest.mark.parametrize(
-    "n,k,d,dtype,metric,ties",
+    "n,k,d,dtype,e_dtype,metric,rows",
     [
-        (16384, 16384, 8, torch.float32, "l2", False),  # the tokenizer's lookup
-        (16384, 16384, 8, torch.bfloat16, "l2", False),
-        (16384, 16384, 256, torch.float32, "l2", False),
-        (1000, 777, 40, torch.float32, "cosine", False),
-        (1, 16384, 8, torch.float32, "l2", False),
-        (4096, 1000, 8, torch.float32, "l2", True),
-        (4096, 1000, 8, torch.bfloat16, "l2", True),
+        (16384, 16384, 8, _F32, _F32, "l2", "gaussian"),  # the tokenizer's lookup
+        (16384, 16384, 8, _BF16, _BF16, "l2", "gaussian"),
+        (16384, 16384, 8, _F32, _F32, "l2", "unit"),  # what the LlamaGen quantizer feeds
+        (16384, 16384, 256, _F32, _F32, "l2", "gaussian"),
+        (1000, 777, 40, _F32, _F32, "cosine", "gaussian"),
+        (1, 16384, 8, _F32, _F32, "l2", "gaussian"),
+        (4096, 1000, 8, _F32, _F32, "l2", "ties"),
+        (4096, 1000, 8, _BF16, _BF16, "l2", "ties"),
+        (4096, 1000, 1, _F32, _F32, "l2", "gaussian"),  # D padded from 1 to 8
+        (4096, 1000, 12, _F32, _F32, "l2", "gaussian"),  # two k-steps, the second half zero
+        (4096, 1000, 12, _BF16, _BF16, "l2", "gaussian"),  # rows not 16-byte multiples
+        (4096, 3000, 8, _F32, _BF16, "l2", "gaussian"),  # two passes
+        (4096, 3000, 8, _BF16, _F32, "l2", "gaussian"),
+        (4096, 1000, 40, _F32, _BF16, "l2", "ties"),
+        (4096, 1000, 40, _BF16, _F32, "l2", "ties"),
+        (16384, 100, 8, _F32, _F32, "l2", "gaussian"),  # fewer code tiles than the grid wants splits
+        (1000, 300, 512, _F32, _F32, "l2", "gaussian"),  # x streamed through the ring
     ],
 )
-def test_nearest_codes_kernel_matches_plain(dev, n, k, d, dtype, metric, ties):
-    # f32 scores summed in another order: rows may differ only as near-ties
-    # (compare_codes); planted exact ties go to the lowest index exactly
+def test_nearest_codes_kernel_matches_plain(dev, n, k, d, dtype, e_dtype, metric, rows):
+    # TF32 splits and f32 sums in another order: rows may differ only as
+    # near-ties (compare_codes); planted exact ties go to the lowest index
+    # exactly
     rng = np.random.default_rng(n + k + d)
     x = rng.standard_normal((n, d), dtype=np.float32)
     e = rng.standard_normal((k, d), dtype=np.float32)
+    if rows == "unit":
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        e /= np.linalg.norm(e, axis=1, keepdims=True)
+    ties = rows == "ties"
     if ties:
         e[1::2] = e[0::2][: k // 2]
         x[::3] = e[rng.integers(0, k // 2, x[::3].shape[0]) * 2]
     x = torch.from_numpy(x).to(dev, dtype)
-    e = torch.from_numpy(e).to(dev, dtype)
+    e = torch.from_numpy(e).to(dev, e_dtype)
     before = nearest_codes.launches
     got = nearest_codes(x, e, metric)
     torch.cuda.synchronize()

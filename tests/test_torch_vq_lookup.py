@@ -1,7 +1,9 @@
 """The port's nearest-code lookup (plain version on CPU), distances, STE and
 quantizer losses against the JAX functions on the same numpy-made inputs:
 the lookup against the JAX Pallas kernel in interpret mode (its own test
-shapes) and against its XLA path at a wide code dimension."""
+shapes) and against its XLA path at a wide code dimension. Also, on the
+CPU, the Hopper kernel's arithmetic (TF32 splits, three tensor-core passes,
+f32 sums) emulated in numpy against float64 scores, and its launch plan."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,9 +19,10 @@ from vector_quantization_tpu_torch.ops import losses
 from vector_quantization_tpu_torch.ops.distances import normalize, pairwise_distance
 from vector_quantization_tpu_torch.ops.ste import ste
 from vector_quantization_tpu_torch.ops.vq_lookup import (
+    NEAR_TIE_REL_TOL,
     compare_codes,
-    k_tiles_per_split,
     nearest_codes,
+    plan,
     vq_quantize,
 )
 
@@ -126,13 +129,93 @@ def test_ste_forward_is_z_gradient_to_x():
     assert x.grad.tolist() == [1.0, 1.0] and z.grad is None
 
 
+@pytest.mark.parametrize("d", [8, 256])
 @pytest.mark.parametrize("n,k", [(16384, 16384), (1, 16384), (1000, 777), (130, 64), (16384, 100)])
-def test_k_splits_cover_the_codebook(n, k):
+def test_k_splits_cover_the_codebook(n, k, d):
     # the kernel's grid: each block takes a run of 128-code tiles; the runs
-    # cover the codebook once, none is empty, and the grid fills a 132-SM
-    # card with at least 8 blocks per SM where the codebook has the tiles
-    per = k_tiles_per_split(n, k, 132)
+    # cover the codebook once, none is empty, and at N = 16384 the grid fills
+    # a 132-SM card's block slots (>= 90% of one wave) where the codebook has
+    # the tiles
+    p = plan(n, k, d, False, False, 132)
     k_tiles = -(-k // 128)
-    splits = -(-k_tiles // per)
-    assert 1 <= per <= k_tiles and (splits - 1) * per < k_tiles <= splits * per
-    assert splits == k_tiles or -(-n // 128) * splits >= 8 * 132
+    assert 1 <= p.tiles_per_split <= k_tiles
+    assert (p.splits - 1) * p.tiles_per_split < k_tiles <= p.splits * p.tiles_per_split
+    assert p.row_tiles == -(-n // p.block_rows)
+    slots = 132 * p.blocks_per_sm
+    blocks = p.row_tiles * p.splits
+    if n == 16384:
+        assert p.splits == k_tiles or 0.9 * slots <= blocks <= slots
+    assert p.splits == k_tiles or blocks >= min(0.9 * slots, p.row_tiles * k_tiles)
+
+
+@pytest.mark.parametrize("d", [1, 8, 12, 40, 256, 1024, 4096])
+@pytest.mark.parametrize("x_bf16,e_bf16", [(False, False), (False, True), (True, False), (True, True)])
+def test_plan_fits_a_block(d, x_bf16, e_bf16):
+    # one k-step holds x in registers (256-row blocks); elsewhere x's tile
+    # stays in shared memory while it fits beside the ring (every D up to 256
+    # in f32), and streams through the ring past that; a block never asks
+    # for more than an H100 block's 232,448 bytes
+    p = plan(16384, 16384, d, x_bf16, e_bf16, 132)
+    assert p.k_steps == -(-d // 8)
+    assert p.reg_x == (d <= 8) and p.block_rows == (256 if d <= 8 else 128)
+    assert p.smem_bytes <= 232_448 and (p.smem_bytes * p.blocks_per_sm <= 233_472)
+    if d <= 256:
+        assert p.x_resident
+    assert p.x_resident or d > 256
+    assert p.workspace_bytes >= 16384 * 8 + 16384 * 4 + 16384 * p.k_steps * 8 * (2 if e_bf16 else 4)
+
+
+def _tf32(v):
+    # cvt.rna.tf32.f32 on finite values: round the 13 dropped bits to
+    # nearest, ties away from zero (sign and magnitude bits)
+    u = np.asarray(v, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(v):
+    hi = _tf32(v)
+    return hi, _tf32(v - hi)
+
+
+def _emulated_scores(x, e):
+    """The Hopper kernel's scores esq - x.e in numpy: A = -x and e split into
+    TF32 hi/lo, per 8-wide k-step the products x_lo.e_hi, x_hi.e_lo and
+    x_hi.e_hi (each exact in f32), each mma's sum rounded to f32 once; the
+    accumulator starts at esq at D <= 8 and at 0 elsewhere, esq then added
+    once at the end."""
+    n, d = x.shape
+    dp = -(-d // 8) * 8
+    xp = np.zeros((n, dp), np.float32)
+    ep = np.zeros((e.shape[0], dp), np.float32)
+    xp[:, :d], ep[:, :d] = -x, e
+    (xh, xl), (eh, el) = _split(xp), _split(ep)
+    esq = np.zeros(e.shape[0], np.float32)
+    for j in range(d):  # the prologue's fmaf chain
+        esq = (esq.astype(np.float64) + e[:, j].astype(np.float64) ** 2).astype(np.float32)
+    esq = (np.float32(0.5) * esq).astype(np.float32)
+    acc = np.broadcast_to(esq, (n, e.shape[0])).copy() if dp == 8 else np.zeros((n, e.shape[0]), np.float32)
+    for s in range(0, dp, 8):
+        for a, b in ((xl, eh), (xh, el), (xh, eh)):
+            prod = a[:, s:s + 8].astype(np.float64) @ b[:, s:s + 8].astype(np.float64).T
+            acc = (acc.astype(np.float64) + prod).astype(np.float32)
+    return acc if dp == 8 else (acc + esq[None, :]).astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [8, 40, 256])
+@pytest.mark.parametrize("rows", ["gaussian", "unit"])
+def test_tf32_three_pass_scores_match_float64(d, rows):
+    # the design's arithmetic lies well inside the near-tie rule: every
+    # emulated score within a tenth of NEAR_TIE_REL_TOL * max|score| of the
+    # float64 score; planted duplicate codes give bit-equal scores
+    rng = np.random.default_rng(d)
+    x = rng.standard_normal((256, d), dtype=np.float32)
+    e = rng.standard_normal((512, d), dtype=np.float32)
+    if rows == "unit":
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+        e /= np.linalg.norm(e, axis=1, keepdims=True)
+    e[1::2] = e[0::2]
+    got = _emulated_scores(x, e)
+    x64, e64 = x.astype(np.float64), e.astype(np.float64)
+    want = 0.5 * (e64 * e64).sum(axis=1)[None, :] - x64 @ e64.T
+    assert np.abs(got - want).max() <= 0.1 * NEAR_TIE_REL_TOL * np.abs(want).max()
+    np.testing.assert_array_equal(got[:, 1::2], got[:, 0::2])

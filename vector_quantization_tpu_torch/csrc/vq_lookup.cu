@@ -1,35 +1,57 @@
-// Nearest-codebook lookup for Hopper: codes (N,) int32 =
-//   argmin_k ( esq[k] - x[n] . e[k] ),  esq[k] = 0.5 * ||e[k]||^2 (f32,
-// computed by the caller), which has the argmin of ||x[n] - e[k]||^2.
-// Products and sums in f32 (bf16 inputs are widened exactly); an exact tie
-// goes to the lowest index. The N x K score matrix is never written.
+// Nearest-codebook lookup for Hopper, on the tensor cores: codes (N,) int32 =
+//   argmin_k ( esq[k] - x[n] . e[k] ),  esq[k] = 0.5 * ||e[k]||^2,
+// which has the argmin of ||x[n] - e[k]||^2. An exact tie goes to the lowest
+// index. The N x K score matrix is never written.
 //
-// Replaces the TPU kernel vector_quantization_tpu/ops/vq_lookup.py:93
-// `_nearest_codes_pallas` (kernel body `_nearest_kernel`).
+// Replaces the TPU kernel vector_quantization_tpu/ops/vq_lookup.py:94
+// `_nearest_codes_pallas` (kernel body `_nearest_kernel`): a running
+// (min, argmin) over codebook tiles.
 //
-// What bounds it on the H100: operations. At the tokenizer's shape
-// (N = 16384 rows, K = 16384 codes, D = 8) the inputs are 1.2 MB, read in
-// 0.35 us, while the work is 2*N*K*D + 2*N*K = 4.8 G operations, ~72 us at
-// the 67 TFLOP/s of f32 outside the tensor cores. At D = 8 each (row, code)
-// pair costs 8 FMAs plus a compare and a select, so the FMA pipe and the
-// selection logic, not the matmul, set the pace. What the design does:
-// - a block owns a 128-row x 128-code tile; each of its 256 threads keeps an
-//   8 x 8 micro-tile of scores in registers (acc starts at esq and takes
-//   one FMA per dimension with the negated x), reading x and codebook
-//   values from shared memory as float4s;
-// - after the last D chunk of a codebook tile each thread folds its 8 codes
-//   per row into a running (best, index) in registers, in ascending code
-//   order with a strict `<`, so the lowest index wins within a thread;
-// - the codebook is split across blocks (grid.y) so that 128 row tiles
-//   still give the card many blocks; each block reduces its rows' (best,
-//   index) over the 16 threads sharing them with warp shuffles, then does
-//   one 64-bit atomicMin per row on a key with the order-preserving bits of
-//   the score above the index: the smaller score wins and, on an exact tie,
-//   the smaller index. A last pass turns the keys into int32 codes;
-// - the next chunk's global loads are issued before the current chunk's
-//   FMAs (register prefetch); ragged N, K and D are masked, not padded.
-// Tensor cores (x . e^T on mma/wgmma) and cp.async/TMA pipelining are
-// later work.
+// What bounds it on the H100: operations. At the tokenizer's shape (N = K =
+// 16384, D = 8) the inputs are 1.2 MB, read in 0.35 us, while x . e takes
+// 2*N*K*D = 4.3 GFLOP a pass. On the f32 FMA pipes (67 TFLOP/s) the call
+// could not take under 72 us; on the TF32 tensor cores (495 TFLOP/s) three
+// passes take at least 26 us, and one compare per score 4 us.
+//
+// What the design does:
+// - products on the tensor cores: mma.sync m16n8k8 with TF32 operands and
+//   f32 sums. An f32 operand v is split as hi = cvt.rna.tf32(v), lo =
+//   cvt.rna.tf32(v - hi); the score takes x_lo.e_hi + x_hi.e_lo + x_hi.e_hi
+//   (the dropped x_lo.e_lo is ~2^-22 |x||e|). A bf16 operand is exact in
+//   TF32, so its lo pass is skipped: 3 passes for f32 x f32, 2 for a mixed
+//   pair, 1 for bf16 x bf16. D is zero-padded to a multiple of 8;
+// - the A operand is -x, so the accumulator holds the score itself. At D <= 8
+//   (one k-step) it starts at esq (the mma's C operand); at larger D it
+//   starts at 0 and esq is added after the last k-step, so that the many
+//   roundings of the sums happen at the size of x . e and not of esq;
+// - a prologue launch writes esq, the codebook's hi/lo split in the mma's
+//   B-fragment order, one contiguous run per (codebook tile, D-chunk), fills
+//   the row keys and zeroes the per-row-tile counters (and, where x's tile
+//   does not fit in shared memory, packs x's D-chunks the same way);
+// - a block owns 128 rows and walks its run of 128-code tiles (the
+//   codebook is split across blocks, grid.y, by the wrapper's plan so that
+//   the grid fills the card); 8 warps, each 32 rows x 64 codes of a tile
+//   (at D <= 8, 256 rows and 16 warps: each codebook tile read from L2 then
+//   serves twice the rows).
+//   Codebook tiles arrive by bulk copies (cp.async.bulk) into a ring of 16
+//   stages (4 at D > 8) behind mbarriers: each warp waits for a stage and releases it, and
+//   the last warp to release a stage issues its next copy, so the warps are
+//   not held in step by a block barrier and one warp's products overlap
+//   another's selection;
+// - x stays resident: at D <= 8 each warp keeps its split fragments of -x
+//   in registers for the whole loop; elsewhere the block's x tile stays in
+//   shared memory when it fits (D <= 256 in f32) and is split as it is read;
+// - the argmin is taken on the accumulator fragments: a thread folds its 16
+//   scores of a row with fminf (at D <= 8 as the products land), the quad
+//   of lanes sharing the row folds the four minima, and only where that
+//   beats the row's best does a lane whose own minimum improves look for
+//   the lowest of its codes holding it (a strict < across tiles, which come
+//   in ascending order). A lane keeps its own (best, code); the quad's lanes
+//   meet at the end, the two warps of a row and the blocks that split the
+//   codebook in one 64-bit atomicMin per row on a key with the
+//   order-preserving bits of the score above the index (smaller score
+//   first, then smaller index); the last block of a row tile to finish turns
+//   the keys into codes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,38 +59,113 @@
 
 namespace {
 
-constexpr int BN = 128;       // rows per block
-constexpr int BK = 128;       // codes per codebook tile
-constexpr int DK = 8;         // dimensions per shared-memory chunk
-constexpr int THREADS = 256;  // 16 row groups x 16 code groups
-constexpr int PITCH = BN + 4; // conflict-free transposed stores, float4-aligned
+constexpr int WARPS_M = 4, WARPS_M_REG = 8;   // warps along rows: D > 8, D <= 8
+constexpr int WARPS_N = 2;                    // warps along codes
+constexpr int MT = 2, NT = 8;                 // a warp's 16-row and 8-code mma tiles
+constexpr int BM = WARPS_M * MT * 16;         // 128 rows per block at D > 8
+constexpr int BM_REG = WARPS_M_REG * MT * 16;  // 256 rows per block at D <= 8
+constexpr int BN = WARPS_N * NT * 8;          // 128 codes per codebook tile
+constexpr int THREADS = 32 * WARPS_M * WARPS_N, THREADS_REG = 32 * WARPS_M_REG * WARPS_N;
+constexpr int Q_TILE = BN * 2;                // floats of a tile's esq in C-fragment order
+constexpr int KC = 2;                         // k-steps of 8 dimensions per ring stage (D > 8)
+constexpr int STAGES_REG = 16, STAGES = 4;    // ring stages at D <= 8 and above
+constexpr int BAR_BYTES = 256;                // the ring's mbarriers and release counts
 
+template <typename T> constexpr bool is_f32 = sizeof(T) == 4;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// 4 consecutive elements starting at p (16 bytes for f32, 8 for bf16)
-__device__ __forceinline__ void load4(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-  out[0] = __low2float(lo); out[1] = __high2float(lo);
-  out[2] = __low2float(hi); out[3] = __high2float(hi);
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
 }
 
-template <typename T>
-__device__ __forceinline__ void load_row4(const T* base, int rows, int D, int row,
-                                          int d0, bool vec, float* out) {
-  if (row < rows && vec && d0 + 4 <= D) {
-    load4(base + (size_t)row * D + d0, out);
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      out[q] = (row < rows && d0 + q < D) ? to_f32(base[(size_t)row * D + d0 + q]) : 0.f;
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = tf32(v - __uint_as_float(hi));
+}
+
+// d = a . b + c (16 x 8 x 8, TF32 in, f32 out)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1, const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
+        "f"(c[2]), "f"(c[3]));
+}
+
+__device__ __forceinline__ void mma_acc(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// the arrival of the thread that issues a stage's copies, with their bytes
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from device memory
+// into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A wait that has not ended after ~2^34 cycles (seconds; the copies take
+// microseconds) traps: a broken protocol fails the launch instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 34)) __trap();
   }
+}
+
+// The warp is done reading a stage that all warps share: lane 0 counts it,
+// and returns true in the warp that counts last, which then issues the
+// stage's next copy (the fences order the warps' reads of the stage before
+// that copy's writes).
+__device__ __forceinline__ bool warp_release(unsigned* count, unsigned every, int lane) {
+  __syncwarp();
+  if (lane != 0) return false;
+  __threadfence_block();
+  if (atomicAdd(count, 1u) % every != every - 1) return false;
+  __threadfence_block();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  return true;
 }
 
 // smaller float <-> smaller unsigned key (-0.0 folded into +0.0 first)
@@ -80,145 +177,527 @@ __device__ __forceinline__ unsigned long long make_key(float s, int idx) {
   return ((unsigned long long)ord << 32) | (uint32_t)idx;
 }
 
+// ---- shapes shared by the host and the kernels ----------------------------
+
+// a row of `dims` elements of `size` bytes, padded to a pitch of 4 mod 8
+// words: the 8 rows x 4 columns of an mma fragment then fall in 32 banks
+__host__ __device__ inline int pitch(int dims, int size) {
+  const int words = dims * size / 4;
+  return (words + ((4 - words) % 8 + 8) % 8) * 4 / size;
+}
+
+struct Shape {
+  int N, K, D, KS, kc, n_chunks, KSp, k_tiles, row_tiles, Kp, ew, xsize;
+  bool reg;
+};
+
+// KS k-steps of 8 dimensions, walked kc at a time (1 at KS = 1, else 2);
+// KSp = KS rounded up to whole chunks, the extra k-step all zeros
+inline Shape make_shape(int N, int K, int D, int x_dtype, int e_dtype) {
+  Shape s;
+  s.N = N; s.K = K; s.D = D;
+  s.KS = (D + 7) / 8;
+  s.reg = s.KS == 1;
+  s.kc = s.reg ? 1 : KC;
+  s.n_chunks = (s.KS + s.kc - 1) / s.kc;
+  s.KSp = s.n_chunks * s.kc;
+  s.k_tiles = (K + BN - 1) / BN;
+  s.row_tiles = (N + (s.reg ? BM_REG : BM) - 1) / (s.reg ? BM_REG : BM);
+  s.Kp = s.k_tiles * BN;
+  s.ew = e_dtype == 0 ? 4 : 2;  // floats per lane per B fragment: hi pair (+ lo pair)
+  s.xsize = x_dtype == 0 ? 4 : 2;
+  return s;
+}
+
+inline size_t round16(size_t b) { return (b + 15) / 16 * 16; }
+
+// bytes of one stage's B fragments, and of one packed x chunk
+inline int e_bytes(const Shape& s) { return (BN / 8) * s.kc * 32 * s.ew * 4; }
+inline int xc_bytes(const Shape& s) { return BM * pitch(s.kc * 8, s.xsize) * s.xsize; }
+
+// workspace: keys (N x 8) | counters (row tiles x 4) | esq (Kp x 8) | split
+// codebook (k_tiles x n_chunks stages) | packed x (row_tiles x n_chunks
+// chunks; only where x is not resident)
+struct Workspace {
+  size_t keys, counters, esq, eb, xw, bytes;
+};
+
+inline Workspace carve(const Shape& s, bool x_res) {
+  Workspace w;
+  w.keys = 0;
+  w.counters = round16((size_t)s.N * 8);
+  w.esq = w.counters + round16((size_t)s.row_tiles * 4);
+  w.eb = w.esq + (size_t)s.Kp * 8;
+  w.xw = w.eb + (size_t)s.k_tiles * s.n_chunks * e_bytes(s);
+  w.bytes = w.xw + (x_res ? 0 : (size_t)s.row_tiles * s.n_chunks * xc_bytes(s));
+  return w;
+}
+
+inline int stage_bytes(const Shape& s, bool x_res) {
+  return e_bytes(s) + Q_TILE * 4 + (x_res ? 0 : xc_bytes(s));
+}
+
+inline int smem_bytes(const Shape& s, bool x_res) {
+  return BAR_BYTES + (s.reg ? STAGES_REG : STAGES) * stage_bytes(s, x_res) +
+         (x_res && !s.reg ? BM * pitch(s.KSp * 8, s.xsize) * s.xsize : 0);
+}
+
+// ---- prologue ---------------------------------------------------------------
+
+struct Prep {
+  const void* x;
+  const void* e;
+  float* esq;
+  float* eb;
+  void* xw;
+  unsigned long long* keys;
+  int* counters;
+  int N, K, D, KSp, kc, n_chunks, k_tiles, row_tiles, pack_x;
+};
+
+// A warp per 8-code n-tile writes its B fragments for every k-step (lane
+// (g, t) of k-step ks holds e[8 nt + g][8 ks + t] and [.. + t + 4], split)
+// and the n-tile's esq (in the order of an mma's C fragment); then keys,
+// counters and, where asked, packed x.
 template <typename TX, typename TE>
-__global__ void __launch_bounds__(THREADS, 2)
-nearest_kernel(const TX* __restrict__ x, const TE* __restrict__ e,
-               const float* __restrict__ esq, unsigned long long* __restrict__ keys,
-               int N, int K, int D, int tiles_per_split) {
-  __shared__ __align__(16) float xs[DK * PITCH];  // -x, transposed: [d][row]
-  __shared__ __align__(16) float es[DK * PITCH];  // e, transposed: [d][code]
-  __shared__ __align__(16) float qs[BK];          // esq of the tile, +inf past K
+__global__ void prep_kernel(const Prep p) {
+  const TE* e = static_cast<const TE*>(p.e);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const long long warps = (long long)gridDim.x * blockDim.x / 32;
+  const long long first_warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  for (long long nt = first_warp; nt < (long long)p.k_tiles * (BN / 8); nt += warps) {
+    const int code = (int)nt * 8 + g;
+    const int t = (int)nt / (BN / 8), i = (int)nt % (BN / 8);
+    const bool row = code < p.K;
+    float s = 0.f;
+    for (int ks = 0; ks < p.KSp; ++ks) {
+      const int d0 = ks * 8 + t4;
+      const float v0 = row && d0 < p.D ? to_f32(e[(size_t)code * p.D + d0]) : 0.f;
+      const float v1 = row && d0 + 4 < p.D ? to_f32(e[(size_t)code * p.D + d0 + 4]) : 0.f;
+      s = fmaf(v1, v1, fmaf(v0, v0, s));
+      const int c = ks / p.kc, kk = ks % p.kc;
+      const size_t unit = ((((size_t)t * p.n_chunks + c) * (BN / 8) + i) * p.kc + kk) * 32 + lane;
+      if (is_f32<TE>) {
+        uint4 w;
+        split(v0, w.x, w.z);
+        split(v1, w.y, w.w);
+        reinterpret_cast<uint4*>(p.eb)[unit] = w;
+      } else {  // a widened bf16 is a TF32 value already
+        reinterpret_cast<float2*>(p.eb)[unit] = make_float2(v0, v1);
+      }
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    // esq in the order of an accumulator's C fragment: lane t of the n-tile
+    // holds {esq[2t], esq[2t + 1], esq[2t], esq[2t + 1]}; +inf past K
+    const float q = row ? 0.5f * s : __int_as_float(0x7f800000);
+    const float q0 = __shfl_sync(0xffffffffu, q, (2 * t4) * 4), q1 = __shfl_sync(0xffffffffu, q, (2 * t4 + 1) * 4);
+    if (g == 0) reinterpret_cast<float4*>(p.esq)[nt * 4 + t4] = make_float4(q0, q1, q0, q1);
+  }
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long n = first; n < p.N; n += stride) p.keys[n] = ~0ull;
+  for (long long r = first; r < p.row_tiles; r += stride) p.counters[r] = 0;
+  if (p.pack_x) {  // [row tile][chunk][BM rows][pitch], zero past N and D
+    const TX* x = static_cast<const TX*>(p.x);
+    TX* xw = static_cast<TX*>(p.xw);
+    const int xp = pitch(p.kc * 8, sizeof(TX));
+    const long long total = (long long)p.row_tiles * p.n_chunks * BM * xp;
+    for (long long q = first; q < total; q += stride) {
+      const int col = (int)(q % xp);
+      const long long rest = q / xp;
+      const int r = (int)(rest % BM), c = (int)(rest / BM % p.n_chunks);
+      const int row = (int)(rest / BM / p.n_chunks) * BM + r, d = c * p.kc * 8 + col;
+      xw[q] = row < p.N && col < p.kc * 8 && d < p.D ? x[(size_t)row * p.D + d] : TX(0.f);
+    }
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int tn = tid & 15, tm = tid >> 4;
-  const int n0 = blockIdx.x * BN;
-  const int k_tiles = (K + BK - 1) / BK;
-  const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(k_tiles, t_begin + tiles_per_split);
-  if (t_begin >= t_end) return;
-  const int n_chunks = (D + DK - 1) / DK;
-  const int iters = (t_end - t_begin) * n_chunks;
+// ---- main kernel ------------------------------------------------------------
 
-  // loader: row (or code) tid/2 of the tile, dimensions 4*(tid%2) .. +3 of
-  // the chunk; at D = 8 a warp reads 512 contiguous bytes of x and of e
-  const int lr = tid >> 1, lc = (tid & 1) * 4;
-  const bool x_vec = (D % 4 == 0) && ((reinterpret_cast<uintptr_t>(x) % (4 * sizeof(TX))) == 0);
-  const bool e_vec = (D % 4 == 0) && ((reinterpret_cast<uintptr_t>(e) % (4 * sizeof(TE))) == 0);
-  float xr[4], er[4], qr = 0.f;
-  auto load = [&](int it) {
-    const int t = t_begin + it / n_chunks, c = it % n_chunks;
-    const int d0 = c * DK + lc;
-    load_row4(x, N, D, n0 + lr, d0, x_vec, xr);
-    load_row4(e, K, D, t * BK + lr, d0, e_vec, er);
-    if (c == 0 && tid < BK) {
-      const int code = t * BK + tid;
-      qr = code < K ? esq[code] : __int_as_float(0x7f800000);  // +inf
+struct Args {
+  const void* x;
+  const float* eb;
+  const float* esq;
+  const void* xw;
+  unsigned long long* keys;
+  int* counters;
+  int32_t* codes;
+  int N, D, KSp, n_chunks, k_tiles, tiles_per_split, x_res;
+};
+
+// x rows [row0, row0 + BM) x dims [0, dims) into shared memory rows of `p`
+// elements, zero past N and D: 16-byte copies where rows allow them, else
+// one element at a time through registers
+template <typename TX>
+__device__ __forceinline__ void load_x(TX* dst, int p, const TX* x, int N, int D, int row0,
+                                       int dims) {
+  constexpr int PER = 16 / sizeof(TX);
+  if ((D * sizeof(TX)) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) {
+    const int units = dims / PER;
+    for (int i = threadIdx.x; i < BM * units; i += THREADS) {
+      const int r = i / units, c = (i % units) * PER;
+      const bool ok = row0 + r < N && c < D;
+      cp_async16(dst + r * p + c, ok ? x + (size_t)(row0 + r) * D + c : x, ok);
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+  } else {
+    for (int i = threadIdx.x; i < BM * dims; i += THREADS) {
+      const int r = i / dims, c = i % dims;
+      dst[r * p + c] = row0 + r < N && c < D ? x[(size_t)(row0 + r) * D + c] : TX(0.f);
+    }
+  }
+}
+
+// the B fragments of one n-tile and k-step: hi pair, then lo pair (f32)
+template <bool ELO>
+__device__ __forceinline__ void frag_e(const float* b, uint32_t& h0, uint32_t& h1, uint32_t& l0,
+                                       uint32_t& l1) {
+  if (ELO) {
+    const uint4 w = *reinterpret_cast<const uint4*>(b);
+    h0 = w.x; h1 = w.y; l0 = w.z; l1 = w.w;
+  } else {
+    const uint2 w = *reinterpret_cast<const uint2*>(b);
+    h0 = w.x; h1 = w.y; l0 = l1 = 0;
+  }
+}
+
+template <typename TX, typename TE, bool REG>
+__global__ void __launch_bounds__(REG ? THREADS_REG : THREADS, 1) nearest_tc_kernel(const Args a) {
+  constexpr bool XLO = is_f32<TX>, ELO = is_f32<TE>;
+  constexpr int EW = ELO ? 4 : 2;
+  constexpr int KCE = REG ? 1 : KC;                 // k-steps per chunk
+  constexpr int ST = REG ? STAGES_REG : STAGES;     // ring stages
+  constexpr int WARPS = (REG ? WARPS_M_REG : WARPS_M) * WARPS_N;
+  constexpr int ROWS = REG ? BM_REG : BM;           // rows per block
+  constexpr int E_STAGE = (BN / 8) * KCE * 32 * EW;  // floats of B fragments per stage
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_last;
+
+  const TX* x = static_cast<const TX*>(a.x);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int row0 = blockIdx.x * ROWS;
+  const int t_begin = blockIdx.y * a.tiles_per_split;
+  const int t_end = min(a.k_tiles, t_begin + a.tiles_per_split);
+  const int iters = (t_end - t_begin) * a.n_chunks;
+  const bool x_res = REG || a.x_res;
+  const int xc = x_res ? 0 : BM * pitch(KCE * 8, sizeof(TX)) * (int)sizeof(TX);
+  const int xp = pitch(x_res ? a.KSp * 8 : KCE * 8, sizeof(TX));
+  const int stage = (E_STAGE + Q_TILE) * 4 + xc;
+  const uint32_t full = smem_addr(smem);                         // ST mbarriers
+  unsigned* count = reinterpret_cast<unsigned*>(smem + 8 * ST);  // ST release counts
+  unsigned char* ring = smem + BAR_BYTES;
+  TX* xs = reinterpret_cast<TX*>(ring + ST * stage);  // the resident x tile
+
+  auto st_e = [&](int s) { return reinterpret_cast<float*>(ring + s * stage); };
+  auto st_q = [&](int s) { return st_e(s) + E_STAGE; };
+  auto st_x = [&](int s) { return reinterpret_cast<TX*>(st_q(s) + Q_TILE); };
+
+  // iteration j = (tile, chunk) into stage j % ST: the chunk's B
+  // fragments, the tile's esq with its last chunk, x's chunk where x is
+  // not resident; one thread issues it
+  auto issue = [&](int j) {
+    const int s = j % ST, t = t_begin + j / a.n_chunks, c = j % a.n_chunks;
+    const bool last = c == a.n_chunks - 1;
+    const uint32_t bar = full + 8 * s;
+    mbar_expect_tx(bar, E_STAGE * 4 + (last ? Q_TILE * 4 : 0) + xc);
+    bulk_copy(st_e(s), a.eb + ((size_t)t * a.n_chunks + c) * E_STAGE, E_STAGE * 4, bar);
+    if (last) bulk_copy(st_q(s), a.esq + (size_t)t * Q_TILE, Q_TILE * 4, bar);
+    if (!x_res)
+      bulk_copy(st_x(s), static_cast<const unsigned char*>(a.xw) + ((size_t)blockIdx.x * a.n_chunks + c) * xc,
+                xc, bar);
+  };
+
+  // -x's fragments: rows r, r + 8 at columns t4 and t4 + 4 of a k-step
+  uint32_t ahi[MT][4], alo[MT][4];
+  auto frag_x = [&](auto get) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r = wm * MT * 16 + mt * 16 + g;
+      const float v[4] = {-get(r, 0), -get(r + 8, 0), -get(r, 4), -get(r + 8, 4)};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (XLO) split(v[q], ahi[mt][q], alo[mt][q]);
+        else ahi[mt][q] = __float_as_uint(v[q]);
+      }
     }
   };
 
-  float best[8];
-  int bidx[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) { best[i] = __int_as_float(0x7f800000); bidx[i] = -1; }
-  float acc[8][8];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      count[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (REG) {  // one k-step: the fragments come from device memory, once
+    frag_x([&](int r, int dd) {
+      const int row = row0 + r, d = t4 + dd;
+      return row < a.N && d < a.D ? to_f32(x[(size_t)row * a.D + d]) : 0.f;
+    });
+  } else if (x_res) {
+    load_x(xs, xp, x, a.N, a.D, row0, a.KSp * 8);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int j = 0; j < ST && j < iters; ++j) issue(j);
 
-  load(0);
+  // each row's best so far: the quad's (rbest), and this lane's over its
+  // own codes (best, at code bidx)
+  float rbest[MT][2], best[MT][2];
+  int bidx[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rbest[mt][h] = best[mt][h] = __int_as_float(0x7f800000);
+      bidx[mt][h] = -1;
+    }
+  float acc[MT][NT][4];
+
+  int t = t_begin, c = 0, s = 0, phase = 0;  // (tile, chunk, stage) and the stage's parity
   for (int it = 0; it < iters; ++it) {
-    const int t = t_begin + it / n_chunks, c = it % n_chunks;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      xs[(lc + q) * PITCH + lr] = -xr[q];
-      es[(lc + q) * PITCH + lr] = er[q];
-    }
-    if (c == 0 && tid < BK) qs[tid] = qr;
-    __syncthreads();
-    if (it + 1 < iters) load(it + 1);
+    mbar_wait(full + 8 * s, phase);
+    const float* e = st_e(s) + (wn * NT * KCE * 32 + lane) * EW;
+    const float* q = st_q(s) + (wn * NT * 4 + t4) * 4;  // + 16 nt: n-tile nt's C fragment
+    const bool last = c == a.n_chunks - 1;
 
-    if (c == 0) {
-      float q8[8];
-      *reinterpret_cast<float4*>(&q8[0]) = *reinterpret_cast<const float4*>(&qs[tn * 4]);
-      *reinterpret_cast<float4*>(&q8[4]) = *reinterpret_cast<const float4*>(&qs[64 + tn * 4]);
+    float m[MT][2];  // each row's minimum over this thread's codes of the tile
+    if (REG) {  // the minima fold in as the products land, n-tile by n-tile
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int nt = 0; nt < NT; ++nt) {
+        const float4 q4 = *reinterpret_cast<const float4*>(q + nt * 16);
+        const float c0[4] = {q4.x, q4.y, q4.z, q4.w};
+        uint32_t bh0, bh1, bl0, bl1;
+        frag_e<ELO>(e + nt * 32 * EW, bh0, bh1, bl0, bl1);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = q8[j];
+        for (int mt = 0; mt < MT; ++mt) {  // small products first, esq as C
+          if (XLO) {
+            mma(acc[mt][nt], alo[mt], bh0, bh1, c0);
+            if (ELO) mma_acc(acc[mt][nt], ahi[mt], bl0, bl1);
+            mma_acc(acc[mt][nt], ahi[mt], bh0, bh1);
+          } else if (ELO) {
+            mma(acc[mt][nt], ahi[mt], bl0, bl1, c0);
+            mma_acc(acc[mt][nt], ahi[mt], bh0, bh1);
+          } else {
+            mma(acc[mt][nt], ahi[mt], bh0, bh1, c0);
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v = fminf(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+            m[mt][h] = nt == 0 ? v : fminf(m[mt][h], v);
+          }
+        }
+      }
+    } else {
+      if (c == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+      }
+      const TX* xb = x_res ? xs + c * KCE * 8 : st_x(s);
+#pragma unroll
+      for (int ks = 0; ks < KCE; ++ks) {
+        frag_x([&](int r, int dd) { return to_f32(xb[r * xp + ks * 8 + t4 + dd]); });
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          uint32_t bh0, bh1, bl0, bl1;
+          frag_e<ELO>(e + (nt * KCE + ks) * 32 * EW, bh0, bh1, bl0, bl1);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            if (XLO) mma_acc(acc[mt][nt], alo[mt], bh0, bh1);
+            if (ELO) mma_acc(acc[mt][nt], ahi[mt], bl0, bl1);
+            mma_acc(acc[mt][nt], ahi[mt], bh0, bh1);
+          }
+        }
+      }
+      if (last) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float4 q4 = *reinterpret_cast<const float4*>(q + nt * 16);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            acc[mt][nt][0] += q4.x; acc[mt][nt][1] += q4.y;
+            acc[mt][nt][2] += q4.z; acc[mt][nt][3] += q4.w;
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // an fminf tree over the tile's codes
+            float v[NT];
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) v[nt] = fminf(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+#pragma unroll
+            for (int w = NT / 2; w > 0; w /= 2)
+#pragma unroll
+              for (int i = 0; i < w; ++i) v[i] = fminf(v[i], v[i + w]);
+            m[mt][h] = v[0];
+          }
+      }
     }
+    if (warp_release(count + s, WARPS, lane) && it + ST < iters) issue(it + ST);
+
+    if (last) {
+      // the tile's argmin per row: acc[.][nt][2h + j] holds code
+      // cbase + 8 nt + j, ascending in (nt, j). The quad's minimum of the
+      // row (shuffles, all rows at once) filters: only where the tile
+      // improves the row does a lane whose own minimum improves look for
+      // the lowest of its codes holding it. The quad's lanes meet at the end.
+      const int cbase = t * BN + wn * NT * 8 + 2 * t4;
+      float qm[MT][2];
 #pragma unroll
-    for (int dd = 0; dd < DK; ++dd) {
-      float a[8], b[8];
-      *reinterpret_cast<float4*>(&a[0]) = *reinterpret_cast<const float4*>(&xs[dd * PITCH + tm * 4]);
-      *reinterpret_cast<float4*>(&a[4]) = *reinterpret_cast<const float4*>(&xs[dd * PITCH + 64 + tm * 4]);
-      *reinterpret_cast<float4*>(&b[0]) = *reinterpret_cast<const float4*>(&es[dd * PITCH + tn * 4]);
-      *reinterpret_cast<float4*>(&b[4]) = *reinterpret_cast<const float4*>(&es[dd * PITCH + 64 + tn * 4]);
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int h = 0; h < 2; ++h) qm[mt][h] = fminf(m[mt][h], __shfl_xor_sync(0xffffffffu, m[mt][h], 1));
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (c == n_chunks - 1) {
-      // codes of this thread, ascending: tn*4 + 0..3, then 64 + tn*4 + 0..3
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int h = 0; h < 2; ++h) qm[mt][h] = fminf(qm[mt][h], __shfl_xor_sync(0xffffffffu, qm[mt][h], 2));
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int code = t * BK + (j >> 2) * 64 + tn * 4 + (j & 3);
-          if (acc[i][j] < best[i]) { best[i] = acc[i][j]; bidx[i] = code; }
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (qm[mt][h] < rbest[mt][h]) {  // the same for the 4 lanes of the quad
+            rbest[mt][h] = qm[mt][h];
+            if (m[mt][h] < best[mt][h]) {
+              int idx = 0;
+#pragma unroll
+              for (int nt = NT - 1; nt >= 0; --nt) {
+                if (acc[mt][nt][2 * h + 1] == m[mt][h]) idx = cbase + nt * 8 + 1;
+                if (acc[mt][nt][2 * h] == m[mt][h]) idx = cbase + nt * 8;
+              }
+              best[mt][h] = m[mt][h];
+              bidx[mt][h] = idx;
+            }
+          }
         }
     }
-    __syncthreads();
+    if (++c == a.n_chunks) { c = 0; ++t; }
+    if (++s == ST) { s = 0; phase ^= 1; }
   }
 
-  // the 16 threads of a row group are lanes differing in bits 0..3
+  // the quad's lanes meet in registers; the two warps of a row (wn = 0, 1)
+  // and the blocks splitting the codebook in the row's key. Rows of a
+  // quad: wm*32 + mt*16 + h*8 + g
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    unsigned long long key = make_key(best[i], bidx[i]);
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, off);
-      key = other < key ? other : key;
+    for (int h = 0; h < 2; ++h) {
+      unsigned long long key = make_key(best[mt][h], bidx[mt][h]);
+#pragma unroll
+      for (int off = 1; off < 4; off *= 2) {
+        const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, off);
+        key = other < key ? other : key;
+      }
+      const int row = row0 + wm * MT * 16 + mt * 16 + h * 8 + g;
+      if (t4 == 0 && row < a.N && key != ~0ull) atomicMin(&a.keys[row], key);
     }
-    const int row = n0 + (i >> 2) * 64 + tm * 4 + (i & 3);
-    if (tn == 0 && row < N) atomicMin(&keys[row], key);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(&a.counters[blockIdx.x], 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (s_last) {  // every split of this row tile has met in the keys
+    __threadfence();
+    for (int i = threadIdx.x; i < ROWS && row0 + i < a.N; i += 32 * WARPS)
+      a.codes[row0 + i] = (int32_t)(uint32_t)(__ldcg(&a.keys[row0 + i]) & 0xffffffffull);
   }
 }
 
-__global__ void fill_keys(unsigned long long* keys, int N) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < N) keys[i] = ~0ull;
+template <typename TX, typename TE, bool REG>
+int set_smem(int smem) {
+  if (int err = (int)cudaFuncSetAttribute(nearest_tc_kernel<TX, TE, REG>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    return err;
+  // shared memory before L1, so that the blocks the launch bounds allow fit
+  return (int)cudaFuncSetAttribute(nearest_tc_kernel<TX, TE, REG>,
+                                   cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
 }
 
-__global__ void decode_keys(const unsigned long long* keys, int32_t* codes, int N) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < N) codes[i] = (int32_t)(uint32_t)(keys[i] & 0xffffffffull);
+template <typename TX, typename TE, bool REG>
+int run(const Args& args, const Shape& s, bool x_res, int splits, cudaStream_t stream) {
+  const int smem = smem_bytes(s, x_res);
+  if (int err = set_smem<TX, TE, REG>(smem)) return err;
+  nearest_tc_kernel<TX, TE, REG><<<dim3(s.row_tiles, splits), REG ? THREADS_REG : THREADS, smem,
+                                   stream>>>(args);
+  return (int)cudaGetLastError();
 }
 
 template <typename TX, typename TE>
-void launch(const void* x, const void* e, const float* esq, unsigned long long* keys,
-            int N, int K, int D, int tiles_per_split, cudaStream_t stream) {
-  const int k_tiles = (K + BK - 1) / BK;
-  const dim3 grid((N + BN - 1) / BN, (k_tiles + tiles_per_split - 1) / tiles_per_split);
-  nearest_kernel<TX, TE><<<grid, THREADS, 0, stream>>>(
-      (const TX*)x, (const TE*)e, esq, keys, N, K, D, tiles_per_split);
+int launch(const Shape& s, const void* x, const void* e, unsigned char* ws, void* codes,
+           int tiles_per_split, bool x_res, cudaStream_t stream) {
+  const Workspace w = carve(s, x_res);
+  const int splits = (s.k_tiles + tiles_per_split - 1) / tiles_per_split;
+  const Prep p{x, e, reinterpret_cast<float*>(ws + w.esq), reinterpret_cast<float*>(ws + w.eb),
+               ws + w.xw, reinterpret_cast<unsigned long long*>(ws + w.keys),
+               reinterpret_cast<int*>(ws + w.counters), s.N, s.K, s.D, s.KSp, s.kc, s.n_chunks,
+               s.k_tiles, s.row_tiles, x_res ? 0 : 1};
+  // a warp per n-tile of the codebook, at least a thread per row for the keys
+  const long long threads = (long long)s.Kp / 8 * 32 > s.N ? (long long)s.Kp / 8 * 32 : s.N;
+  const int prep_blocks = (int)((threads + 255) / 256 < 2048 ? (threads + 255) / 256 : 2048);
+  // the same carveout as the lookup's, so that the card does not switch
+  // between the two launches
+  if (int err = (int)cudaFuncSetAttribute(prep_kernel<TX, TE>,
+                                          cudaFuncAttributePreferredSharedMemoryCarveout,
+                                          (int)cudaSharedmemCarveoutMaxShared))
+    return err;
+  prep_kernel<TX, TE><<<prep_blocks, 256, 0, stream>>>(p);
+  if (int err = (int)cudaGetLastError()) return err;
+
+  const Args args{x, p.eb, p.esq, p.xw, p.keys, p.counters, (int32_t*)codes, s.N, s.D, s.KSp,
+                  s.n_chunks, s.k_tiles, tiles_per_split, x_res ? 1 : 0};
+  return s.reg ? run<TX, TE, true>(args, s, true, splits, stream)
+               : run<TX, TE, false>(args, s, x_res, splits, stream);
+}
+
+template <typename TX, typename TE>
+int occupancy(bool reg, int smem, int* blocks) {
+  if (reg) {
+    if (int err = set_smem<TX, TE, true>(smem)) return err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, nearest_tc_kernel<TX, TE, true>,
+                                                              THREADS_REG, smem);
+  }
+  if (int err = set_smem<TX, TE, false>(smem)) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, nearest_tc_kernel<TX, TE, false>,
+                                                            THREADS, smem);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. `keys` is (N,) 64-bit scratch.
+// dtype codes: 0 = float32, 1 = bfloat16. `workspace` holds `workspace_bytes`
+// (at least what the shape needs: keys, counters, esq, the split codebook
+// and, where x is not resident, packed x); `tiles_per_split` codebook tiles
+// of 128 codes per block; `x_resident`: the block's x tile stays in shared
+// memory (always at D <= 8, where x is held in registers).
 extern "C" int vqt_nearest_codes(const void* x, int x_dtype, const void* e, int e_dtype,
-                                 const void* esq, void* keys, void* codes,
-                                 int N, int K, int D, int tiles_per_split, void* stream) {
+                                 void* workspace, long long workspace_bytes, void* codes,
+                                 int N, int K, int D, int tiles_per_split, int x_resident,
+                                 void* stream) {
   if (N < 1 || K < 1 || D < 1 || tiles_per_split < 1 || x_dtype < 0 || x_dtype > 1 ||
       e_dtype < 0 || e_dtype > 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  unsigned long long* k64 = (unsigned long long*)keys;
-  const int fill_blocks = (N + 255) / 256;
-  fill_keys<<<fill_blocks, 256, 0, s>>>(k64, N);
-  const float* q = (const float*)esq;
-  if (x_dtype == 0 && e_dtype == 0) launch<float, float>(x, e, q, k64, N, K, D, tiles_per_split, s);
-  else if (x_dtype == 0) launch<float, __nv_bfloat16>(x, e, q, k64, N, K, D, tiles_per_split, s);
-  else if (e_dtype == 0) launch<__nv_bfloat16, float>(x, e, q, k64, N, K, D, tiles_per_split, s);
-  else launch<__nv_bfloat16, __nv_bfloat16>(x, e, q, k64, N, K, D, tiles_per_split, s);
-  decode_keys<<<fill_blocks, 256, 0, s>>>(k64, (int32_t*)codes, N);
-  return (int)cudaGetLastError();
+  const Shape s = make_shape(N, K, D, x_dtype, e_dtype);
+  const bool xr = x_resident != 0 || s.reg;
+  if ((long long)carve(s, xr).bytes > workspace_bytes) return (int)cudaErrorInvalidValue;
+  unsigned char* ws = (unsigned char*)workspace;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (x_dtype == 0 && e_dtype == 0) return launch<float, float>(s, x, e, ws, codes, tiles_per_split, xr, st);
+  if (x_dtype == 0) return launch<float, __nv_bfloat16>(s, x, e, ws, codes, tiles_per_split, xr, st);
+  if (e_dtype == 0) return launch<__nv_bfloat16, float>(s, x, e, ws, codes, tiles_per_split, xr, st);
+  return launch<__nv_bfloat16, __nv_bfloat16>(s, x, e, ws, codes, tiles_per_split, xr, st);
+}
+
+// resident blocks per SM of the lookup kernel for these types, variant
+// (`reg`: D <= 8) and dynamic shared memory, into *blocks
+extern "C" int vqt_nearest_blocks_per_sm(int x_dtype, int e_dtype, int reg, int smem, int* blocks) {
+  if (x_dtype == 0 && e_dtype == 0) return occupancy<float, float>(reg != 0, smem, blocks);
+  if (x_dtype == 0) return occupancy<float, __nv_bfloat16>(reg != 0, smem, blocks);
+  if (e_dtype == 0) return occupancy<__nv_bfloat16, float>(reg != 0, smem, blocks);
+  return occupancy<__nv_bfloat16, __nv_bfloat16>(reg != 0, smem, blocks);
 }

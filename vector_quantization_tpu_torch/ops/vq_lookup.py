@@ -2,22 +2,28 @@
 
 ``nearest_codes(x (N, D), codebook (K, D), metric="l2") -> (N,) int32``:
 for each row, the argmin over codes of ``0.5·‖e_k‖² − x·e_k`` (the argmin of
-``‖x − e_k‖²``), products and sums in f32, an exact tie to the lowest index;
-``metric="cosine"`` normalises both sides first. It is the function of
+``‖x − e_k‖²``), an exact tie to the lowest index; ``metric="cosine"``
+normalises both sides first. It is the function of
 ``vector_quantization_tpu/ops/vq_lookup.py`` ``nearest_codes`` (its Pallas
 kernel ``_nearest_codes_pallas`` and its XLA path).
 
 A CUDA tensor goes through the hand-written Hopper kernel
-(``csrc/vq_lookup.cu``) at every code width D; a CPU tensor through the
-plain version :func:`nearest_codes_reference`. The device alone decides:
-the JAX package's choice between Pallas and XLA by code width was measured
-on a TPU and is not carried over. ``‖e‖²/2`` is computed in PyTorch before
-the launch, as the JAX package computes it outside its kernel.
+(``csrc/vq_lookup.cu``) at every code width D: products on the tensor cores
+in TF32, an f32 operand split into two TF32 parts (three passes for f32 x
+f32, one for bf16 x bf16), f32 sums, the argmin taken on the accumulators.
+Two launches per call: a prologue that writes ``‖e‖²/2`` and the split
+codebook into a workspace, then the lookup. :func:`plan` sizes the launch
+from the shapes and the card's SM count. A CPU tensor goes through the plain
+version :func:`nearest_codes_reference`. The device alone decides: the JAX
+package's choice between Pallas and XLA by code width was measured on a TPU
+and is not carried over.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -26,19 +32,24 @@ from .distances import normalize
 
 __all__ = [
     "NEAR_TIE_REL_TOL",
+    "LookupPlan",
     "compare_codes",
-    "k_tiles_per_split",
     "lookup_scores",
     "nearest_codes",
     "nearest_codes_reference",
+    "plan",
     "vq_quantize",
 ]
 
-_BN, _BK = 128, 128  # the kernel's row and code tiles (csrc/vq_lookup.cu)
+# the kernel's shape (csrc/vq_lookup.cu): rows per block (D > 8, D <= 8),
+# codes per codebook tile, 8-wide k-steps per ring stage (D > 8), ring
+# stages (D <= 8, D > 8), and the bytes of the ring's barriers
+_BM, _BM_REG, _BN, _KC, _STAGES_REG, _STAGES, _BAR = 128, 256, 128, 2, 16, 4, 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # two lookups may disagree only where the plain scores of both codes lie
 # within this fraction of max|score| of the row's best: f32 sums taken in
-# another order (the kernel's FMA chain, a BLAS dot, XLA's ‖x‖²−2x·e+‖e‖²)
+# another order or in parts (the kernel's TF32 splits, a BLAS dot, XLA's
+# ‖x‖²−2x·e+‖e‖²)
 NEAR_TIE_REL_TOL = 1e-5
 
 
@@ -75,15 +86,77 @@ def nearest_codes_reference(
 nearest_codes_reference.cuda_calls = 0
 
 
-def k_tiles_per_split(n: int, k: int, num_sms: int) -> int:
-    """Codebook tiles of 128 codes per block: split the codebook across
-    blocks until the grid (row tiles x splits) holds about 16 blocks per
-    SM, so that 128 row tiles (N = 16384) still fill 132 SMs with a short
-    tail wave."""
-    row_tiles = -(-n // _BN)
-    k_tiles = -(-k // _BK)
-    splits = min(k_tiles, max(1, -(-16 * num_sms // row_tiles)))
-    return -(-k_tiles // splits)
+class LookupPlan(NamedTuple):
+    """How one call is launched (mirrors ``csrc/vq_lookup.cu``)."""
+
+    k_steps: int  # D padded to a multiple of 8, over 8
+    reg_x: bool  # one k-step: each warp holds its x fragments in registers
+    block_rows: int  # rows per block: 256 (16 warps) with reg_x, else 128 (8 warps)
+    x_resident: bool  # the block's x tile stays in shared memory for the whole loop
+    row_tiles: int  # blocks along N (128 rows each)
+    splits: int  # blocks along the codebook
+    tiles_per_split: int  # 128-code tiles each of those blocks walks
+    blocks_per_sm: int  # what the kernel's launch bounds allow
+    smem_bytes: int  # dynamic shared memory per block
+    workspace_bytes: int  # keys, counters, esq, the split codebook (and x's chunks)
+
+
+def _round16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def _pitch(dims: int, size: int) -> int:
+    """Shared-memory row pitch in elements: 4 mod 8 words (conflict-free
+    mma fragment reads)."""
+    words = dims * size // 4
+    return (words + (4 - words) % 8) * 4 // size
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, k: int, d: int, x_bf16: bool, e_bf16: bool, sms: int,
+         smem_block: int = 232_448) -> LookupPlan:
+    """The launch for (N, K, D) and the operands' types on a card of ``sms``
+    SMs whose blocks may take ``smem_block`` bytes of shared memory.
+
+    The codebook is split across blocks so that the grid (row tiles x
+    splits) fills whole waves of the card's block slots best, the fewest
+    splits among equals: at N = 16384 every 128-row tile then runs on its
+    own slot in one wave. Deterministic: from the shapes and the card
+    only, never from timing."""
+    ks = -(-d // 8)
+    reg = ks == 1
+    bm = _BM_REG if reg else _BM
+    k_tiles, row_tiles = -(-k // _BN), -(-n // bm)
+    ew, xsize = (2 if e_bf16 else 4), (2 if x_bf16 else 4)
+    kc = 1 if reg else _KC  # k-steps per ring stage
+    ksp = -(-ks // kc) * kc  # whole chunks: the workspace's k-steps
+    e_stage = (_BN // 8) * kc * 32 * ew * 4  # B fragments of one (tile, chunk)
+    x_chunk = _BM * _pitch(8 * kc, xsize) * xsize
+    x_tile = _BM * _pitch(8 * ksp, xsize) * xsize
+    stages = _STAGES_REG if reg else _STAGES
+    x_res = reg or _BAR + stages * (e_stage + _BN * 8) + x_tile <= smem_block
+    stage = e_stage + _BN * 8 + (0 if x_res else x_chunk)
+    smem = _BAR + stages * stage + (x_tile if x_res and not reg else 0)
+    blocks_per_sm = 1
+    slots = sms * blocks_per_sm
+    best = None
+    for s in range(1, min(k_tiles, 4 * -(-slots // row_tiles)) + 1):
+        per = -(-k_tiles // s)
+        splits = -(-k_tiles // per)
+        blocks = row_tiles * splits
+        fill = blocks / (-(-blocks // slots) * slots)
+        if best is None or fill > best[0] + 1e-9:
+            best = (fill, splits, per)
+    _, splits, per = best
+    kp = k_tiles * _BN
+    workspace = (_round16(n * 8) + _round16(row_tiles * 4) + kp * 8
+                 + k_tiles * (ksp // kc) * e_stage + (0 if x_res else row_tiles * (ksp // kc) * x_chunk))
+    return LookupPlan(ks, reg, bm, x_res, row_tiles, splits, per, blocks_per_sm, smem, workspace)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _kernel():
@@ -91,7 +164,7 @@ def _kernel():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = i
-        fn.argtypes = [p, i, p, i, p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, i, p, i, p, ctypes.c_longlong, p, i, i, i, i, i, p]
     return fn
 
 
@@ -106,18 +179,18 @@ def _launch(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
         raise ValueError("nearest_codes: x and codebook must be on one CUDA device")
     n, d = x.shape
     k = codebook.shape[0]
-    if min(n, k, d) < 1 or max(n, k, d) >= 2**31:
+    if min(n, k, d) < 1 or max(n, k + _BN, d + 8) >= 2**31:
         raise ValueError(f"nearest_codes: sizes N={n}, K={k}, D={d} outside [1, 2^31)")
     x = x.contiguous()
     codebook = codebook.contiguous()
-    esq = _half_sq_norms(codebook)
-    keys = torch.empty((n,), dtype=torch.int64, device=x.device)
+    idx = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    p = plan(n, k, d, x.dtype == torch.bfloat16, codebook.dtype == torch.bfloat16, _sms(idx))
+    workspace = torch.empty((p.workspace_bytes,), dtype=torch.uint8, device=x.device)
     codes = torch.empty((n,), dtype=torch.int32, device=x.device)
     err = _kernel()(
         x.data_ptr(), _DTYPE_CODE[x.dtype], codebook.data_ptr(), _DTYPE_CODE[codebook.dtype],
-        esq.data_ptr(), keys.data_ptr(), codes.data_ptr(), n, k, d,
-        k_tiles_per_split(n, k, torch.cuda.get_device_properties(x.device).multi_processor_count),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        workspace.data_ptr(), p.workspace_bytes, codes.data_ptr(), n, k, d,
+        p.tiles_per_split, int(p.x_resident), torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"nearest_codes kernel launch failed: CUDA error {err}")
