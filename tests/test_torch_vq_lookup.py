@@ -151,13 +151,13 @@ def test_k_splits_cover_the_codebook(n, k, d):
 @pytest.mark.parametrize("d", [1, 8, 12, 40, 256, 1024, 4096])
 @pytest.mark.parametrize("x_bf16,e_bf16", [(False, False), (False, True), (True, False), (True, True)])
 def test_plan_fits_a_block(d, x_bf16, e_bf16):
-    # one k-step holds x in registers (256-row blocks); elsewhere x's tile
-    # stays in shared memory while it fits beside the ring (every D up to 256
-    # in f32), and streams through the ring past that; a block never asks
-    # for more than an H100 block's 232,448 bytes
+    # one k-step holds x in registers; elsewhere x's tile stays in shared
+    # memory while it fits beside the ring (every D up to 256 in f32), and
+    # streams through the ring past that; a block never asks for more than
+    # an H100 block's 232,448 bytes
     p = plan(16384, 16384, d, x_bf16, e_bf16, 132)
     assert p.k_steps == -(-d // 8)
-    assert p.reg_x == (d <= 8) and p.block_rows == (256 if d <= 8 else 128)
+    assert p.reg_x == (d <= 8) and p.block_rows == 128
     assert p.smem_bytes <= 232_448 and (p.smem_bytes * p.blocks_per_sm <= 233_472)
     if d <= 256:
         assert p.x_resident
@@ -180,9 +180,9 @@ def _split(v):
 def _emulated_scores(x, e):
     """The Hopper kernel's scores esq - x.e in numpy: A = -x and e split into
     TF32 hi/lo, per 8-wide k-step the products x_lo.e_hi, x_hi.e_lo and
-    x_hi.e_hi (each exact in f32), each mma's sum rounded to f32 once; the
-    accumulator starts at esq at D <= 8 and at 0 elsewhere, esq then added
-    once at the end."""
+    x_hi.e_hi (each exact in f32) summed by the tensor cores, each pass's sum
+    rounded to f32 once, from 0; then esq (the prologue's f32 sum of squares
+    over half) added once."""
     n, d = x.shape
     dp = -(-d // 8) * 8
     xp = np.zeros((n, dp), np.float32)
@@ -190,15 +190,15 @@ def _emulated_scores(x, e):
     xp[:, :d], ep[:, :d] = -x, e
     (xh, xl), (eh, el) = _split(xp), _split(ep)
     esq = np.zeros(e.shape[0], np.float32)
-    for j in range(d):  # the prologue's fmaf chain
+    for j in range(d):
         esq = (esq.astype(np.float64) + e[:, j].astype(np.float64) ** 2).astype(np.float32)
     esq = (np.float32(0.5) * esq).astype(np.float32)
-    acc = np.broadcast_to(esq, (n, e.shape[0])).copy() if dp == 8 else np.zeros((n, e.shape[0]), np.float32)
+    acc = np.zeros((n, e.shape[0]), np.float32)
     for s in range(0, dp, 8):
         for a, b in ((xl, eh), (xh, el), (xh, eh)):
             prod = a[:, s:s + 8].astype(np.float64) @ b[:, s:s + 8].astype(np.float64).T
             acc = (acc.astype(np.float64) + prod).astype(np.float32)
-    return acc if dp == 8 else (acc + esq[None, :]).astype(np.float32)
+    return (acc + esq[None, :]).astype(np.float32)
 
 
 @pytest.mark.parametrize("d", [8, 40, 256])

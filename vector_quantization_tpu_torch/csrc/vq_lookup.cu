@@ -14,44 +14,46 @@
 // passes take at least 26 us, and one compare per score 4 us.
 //
 // What the design does:
-// - products on the tensor cores: mma.sync m16n8k8 with TF32 operands and
-//   f32 sums. An f32 operand v is split as hi = cvt.rna.tf32(v), lo =
-//   cvt.rna.tf32(v - hi); the score takes x_lo.e_hi + x_hi.e_lo + x_hi.e_hi
-//   (the dropped x_lo.e_lo is ~2^-22 |x||e|). A bf16 operand is exact in
-//   TF32, so its lo pass is skipped: 3 passes for f32 x f32, 2 for a mixed
-//   pair, 1 for bf16 x bf16. D is zero-padded to a multiple of 8;
-// - the A operand is -x, so the accumulator holds the score itself. At D <= 8
-//   (one k-step) it starts at esq (the mma's C operand); at larger D it
-//   starts at 0 and esq is added after the last k-step, so that the many
-//   roundings of the sums happen at the size of x . e and not of esq;
-// - a prologue launch writes esq, the codebook's hi/lo split in the mma's
-//   B-fragment order, one contiguous run per (codebook tile, D-chunk), fills
-//   the row keys and zeroes the per-row-tile counters (and, where x's tile
-//   does not fit in shared memory, packs x's D-chunks the same way);
-// - a block owns 128 rows and walks its run of 128-code tiles (the
-//   codebook is split across blocks, grid.y, by the wrapper's plan so that
-//   the grid fills the card); 8 warps, each 32 rows x 64 codes of a tile
-//   (at D <= 8, 256 rows and 16 warps: each codebook tile read from L2 then
-//   serves twice the rows).
-//   Codebook tiles arrive by bulk copies (cp.async.bulk) into a ring of 16
-//   stages (4 at D > 8) behind mbarriers: each warp waits for a stage and releases it, and
-//   the last warp to release a stage issues its next copy, so the warps are
-//   not held in step by a block barrier and one warp's products overlap
-//   another's selection;
+// - products on the tensor cores: wgmma m64n128k8 with TF32 operands and
+//   f32 sums, one warpgroup per 64 rows, the A operand (-x) in registers and
+//   the B operand (a 128-code tile of the codebook) in shared memory. An f32
+//   operand v is split as hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v - hi);
+//   the score takes x_lo.e_hi + x_hi.e_lo + x_hi.e_hi (the dropped
+//   x_lo.e_lo is ~2^-22 |x||e|). A bf16 operand is exact in TF32, so its lo
+//   pass is skipped: 3 passes for f32 x f32, 2 for a mixed pair, 1 for bf16
+//   x bf16. D is zero-padded to a multiple of 8;
+// - the A operand is -x, so the accumulator holds -x . e; esq is added by
+//   one more wgmma after the last k-step, its A operand 1 in three columns
+//   and its B tile esq's three TF32 parts (hi + mid + lo = esq exactly), so
+//   that the sums round at the size of x . e and the scores need no
+//   instruction outside the tensor cores (loading esq into the accumulator
+//   first took 23 us more at D = 8, adding it afterwards 34 us);
+// - a prologue launch writes esq and the codebook's hi/lo split as wgmma B
+//   tiles (K-major 8 x 4 core matrices, no swizzle), one contiguous run per
+//   (codebook tile, D-chunk),
+//   fills the row keys and zeroes the per-row-tile counters (and, where x's
+//   tile does not fit in shared memory, packs x's D-chunks the same way);
+// - a block owns 128 rows (two warpgroups) and walks its run of 128-code
+//   tiles (the codebook is split across blocks, grid.y, by the wrapper's
+//   plan so that the grid fills the card). The tiles arrive by bulk copies
+//   (cp.async.bulk) into a ring of 16 stages (4 at D > 8) behind mbarriers,
+//   issued by a ninth warp as soon as the eight compute warps have left a
+//   stage;
 // - x stays resident: at D <= 8 each warp keeps its split fragments of -x
-//   in registers for the whole loop; elsewhere the block's x tile stays in
-//   shared memory when it fits (D <= 256 in f32) and is split as it is read;
-// - the argmin is taken on the accumulator fragments: a thread folds its 16
-//   scores of a row with fminf (at D <= 8 as the products land), the quad
-//   of lanes sharing the row folds the four minima, and only where that
-//   beats the row's best does a lane whose own minimum improves look for
-//   the lowest of its codes holding it (a strict < across tiles, which come
-//   in ascending order). A lane keeps its own (best, code); the quad's lanes
-//   meet at the end, the two warps of a row and the blocks that split the
-//   codebook in one 64-bit atomicMin per row on a key with the
-//   order-preserving bits of the score above the index (smaller score
-//   first, then smaller index); the last block of a row tile to finish turns
-//   the keys into codes.
+//   in registers for the whole loop, and two accumulators alternate, so
+//   that a tile's products run on the tensor cores while the warp selects
+//   on the tile before; elsewhere the block's x tile stays in shared memory
+//   when it fits (D <= 256 in f32) and is split as it is read;
+// - the argmin is taken on the accumulator fragments: a thread folds its 32
+//   scores of a row with an fminf tree, the quad of lanes sharing the row
+//   folds the four minima, and only where that beats the row's best does a
+//   lane whose own minimum improves look for the lowest of its codes
+//   holding it (a strict < across tiles, which come in ascending order). A
+//   lane keeps its own (best, code); the quad's lanes meet at the end, the
+//   blocks that split the codebook in one 64-bit atomicMin per row on a key
+//   with the order-preserving bits of the score above the index (smaller
+//   score first, then smaller index); the last block of a row tile to finish
+//   turns the keys into codes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,17 +61,15 @@
 
 namespace {
 
-constexpr int WARPS_M = 4, WARPS_M_REG = 8;   // warps along rows: D > 8, D <= 8
-constexpr int WARPS_N = 2;                    // warps along codes
-constexpr int MT = 2, NT = 8;                 // a warp's 16-row and 8-code mma tiles
-constexpr int BM = WARPS_M * MT * 16;         // 128 rows per block at D > 8
-constexpr int BM_REG = WARPS_M_REG * MT * 16;  // 256 rows per block at D <= 8
-constexpr int BN = WARPS_N * NT * 8;          // 128 codes per codebook tile
-constexpr int THREADS = 32 * WARPS_M * WARPS_N, THREADS_REG = 32 * WARPS_M_REG * WARPS_N;
-constexpr int Q_TILE = BN * 2;                // floats of a tile's esq in C-fragment order
+constexpr int WGS = 2;                        // warpgroups per block
+constexpr int WARPS = 4 * WGS;                // warps that compute; one more issues the copies
+constexpr int THREADS = 32 * (WARPS + 1);
+constexpr int BM = 64 * WGS;                  // 128 rows per block
+constexpr int BN = 128;                       // codes per codebook tile: the wgmma's N
+constexpr int B_TILE = BN * 8;                // floats of one k-step's B tile (hi, lo or esq)
 constexpr int KC = 2;                         // k-steps of 8 dimensions per ring stage (D > 8)
 constexpr int STAGES_REG = 16, STAGES = 4;    // ring stages at D <= 8 and above
-constexpr int BAR_BYTES = 256;                // the ring's mbarriers and release counts
+constexpr int BAR_BYTES = 256;                // the ring's mbarriers: full, then empty
 
 template <typename T> constexpr bool is_f32 = sizeof(T) == 4;
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -84,24 +84,6 @@ __device__ __forceinline__ uint32_t tf32(float v) {
 __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
   hi = tf32(v);
   lo = tf32(v - __uint_as_float(hi));
-}
-
-// d = a . b + c (16 x 8 x 8, TF32 in, f32 out)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1, const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%10,%11,%12,%13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
-        "f"(c[2]), "f"(c[3]));
-}
-
-__device__ __forceinline__ void mma_acc(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                        uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -154,18 +136,9 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   }
 }
 
-// The warp is done reading a stage that all warps share: lane 0 counts it,
-// and returns true in the warp that counts last, which then issues the
-// stage's next copy (the fences order the warps' reads of the stage before
-// that copy's writes).
-__device__ __forceinline__ bool warp_release(unsigned* count, unsigned every, int lane) {
-  __syncwarp();
-  if (lane != 0) return false;
-  __threadfence_block();
-  if (atomicAdd(count, 1u) % every != every - 1) return false;
-  __threadfence_block();
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  return true;
+// one arrival on `bar` (a compute warp is done with a stage)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
 // smaller float <-> smaller unsigned key (-0.0 folded into +0.0 first)
@@ -175,6 +148,48 @@ __device__ __forceinline__ unsigned long long make_key(float s, int idx) {
   if ((u & 0x7fffffffu) == 0) u = 0;
   const uint32_t ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
   return ((unsigned long long)ord << 32) | (uint32_t)idx;
+}
+
+// B operand descriptor of a B_TILE at p: K-major core matrices of 8 codes x
+// 4 dimensions (128 bytes), the two dimension halves 128 bytes apart (LBO),
+// successive 8-code groups 256 bytes apart (SBO), no swizzle
+__device__ __forceinline__ uint64_t b_desc(const float* p) {
+  return (uint64_t)((smem_addr(p) >> 4) & 0x3fff) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+#define ACC8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+    "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (the warpgroup's 64 x 128 f32, 64 a thread) = a . b + (accumulate ? d : 0),
+// a: this warp's 16 x 8 fragment of the A operand in registers, b: a B tile
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "{%64,%65,%66,%67}, %68, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving an accumulator across an asynchronous wgmma
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // ---- shapes shared by the host and the kernels ----------------------------
@@ -187,7 +202,7 @@ __host__ __device__ inline int pitch(int dims, int size) {
 }
 
 struct Shape {
-  int N, K, D, KS, kc, n_chunks, KSp, k_tiles, row_tiles, Kp, ew, xsize;
+  int N, K, D, KS, kc, n_chunks, KSp, k_tiles, row_tiles, Kp, eblocks, xsize;
   bool reg;
 };
 
@@ -202,20 +217,21 @@ inline Shape make_shape(int N, int K, int D, int x_dtype, int e_dtype) {
   s.n_chunks = (s.KS + s.kc - 1) / s.kc;
   s.KSp = s.n_chunks * s.kc;
   s.k_tiles = (K + BN - 1) / BN;
-  s.row_tiles = (N + (s.reg ? BM_REG : BM) - 1) / (s.reg ? BM_REG : BM);
+  s.row_tiles = (N + BM - 1) / BM;
   s.Kp = s.k_tiles * BN;
-  s.ew = e_dtype == 0 ? 4 : 2;  // floats per lane per B fragment: hi pair (+ lo pair)
+  s.eblocks = e_dtype == 0 ? 2 : 1;  // B tiles per k-step: hi (+ lo)
   s.xsize = x_dtype == 0 ? 4 : 2;
   return s;
 }
 
 inline size_t round16(size_t b) { return (b + 15) / 16 * 16; }
 
-// bytes of one stage's B fragments, and of one packed x chunk
-inline int e_bytes(const Shape& s) { return (BN / 8) * s.kc * 32 * s.ew * 4; }
+// bytes of one stage's B tiles, and of one packed x chunk
+inline int e_bytes(const Shape& s) { return s.kc * s.eblocks * B_TILE * 4; }
 inline int xc_bytes(const Shape& s) { return BM * pitch(s.kc * 8, s.xsize) * s.xsize; }
 
-// workspace: keys (N x 8) | counters (row tiles x 4) | esq (Kp x 8) | split
+// workspace: keys (N x 8) | counters (row tiles x 4) | esq (a B tile per
+// codebook tile) | split
 // codebook (k_tiles x n_chunks stages) | packed x (row_tiles x n_chunks
 // chunks; only where x is not resident)
 struct Workspace {
@@ -227,14 +243,14 @@ inline Workspace carve(const Shape& s, bool x_res) {
   w.keys = 0;
   w.counters = round16((size_t)s.N * 8);
   w.esq = w.counters + round16((size_t)s.row_tiles * 4);
-  w.eb = w.esq + (size_t)s.Kp * 8;
+  w.eb = w.esq + (size_t)s.k_tiles * B_TILE * 4;
   w.xw = w.eb + (size_t)s.k_tiles * s.n_chunks * e_bytes(s);
   w.bytes = w.xw + (x_res ? 0 : (size_t)s.row_tiles * s.n_chunks * xc_bytes(s));
   return w;
 }
 
 inline int stage_bytes(const Shape& s, bool x_res) {
-  return e_bytes(s) + Q_TILE * 4 + (x_res ? 0 : xc_bytes(s));
+  return e_bytes(s) + B_TILE * 4 + (x_res ? 0 : xc_bytes(s));
 }
 
 inline int smem_bytes(const Shape& s, bool x_res) {
@@ -255,12 +271,13 @@ struct Prep {
   int N, K, D, KSp, kc, n_chunks, k_tiles, row_tiles, pack_x;
 };
 
-// A warp per 8-code n-tile writes its B fragments for every k-step (lane
-// (g, t) of k-step ks holds e[8 nt + g][8 ks + t] and [.. + t + 4], split)
-// and the n-tile's esq (in the order of an mma's C fragment); then keys,
-// counters and, where asked, packed x.
+// A warp per 8-code n-tile writes its B tiles for every k-step (lane (g, t)
+// of k-step ks holds e[8 nt + g][8 ks + t] and [.. + t + 4], split, at row g
+// of the n-tile's two core matrices) and its part of the esq B tile; then
+// keys, counters and, where asked, packed x.
 template <typename TX, typename TE>
 __global__ void prep_kernel(const Prep p) {
+  constexpr int EBL = is_f32<TE> ? 2 : 1;
   const TE* e = static_cast<const TE*>(p.e);
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const long long warps = (long long)gridDim.x * blockDim.x / 32;
@@ -276,23 +293,32 @@ __global__ void prep_kernel(const Prep p) {
       const float v1 = row && d0 + 4 < p.D ? to_f32(e[(size_t)code * p.D + d0 + 4]) : 0.f;
       s = fmaf(v1, v1, fmaf(v0, v0, s));
       const int c = ks / p.kc, kk = ks % p.kc;
-      const size_t unit = ((((size_t)t * p.n_chunks + c) * (BN / 8) + i) * p.kc + kk) * 32 + lane;
+      float* hi = p.eb + (((size_t)t * p.n_chunks + c) * p.kc + kk) * EBL * B_TILE + i * 64 + g * 4 + t4;
       if (is_f32<TE>) {
-        uint4 w;
-        split(v0, w.x, w.z);
-        split(v1, w.y, w.w);
-        reinterpret_cast<uint4*>(p.eb)[unit] = w;
+        uint32_t h0, l0, h1, l1;
+        split(v0, h0, l0);
+        split(v1, h1, l1);
+        hi[0] = __uint_as_float(h0);
+        hi[32] = __uint_as_float(h1);
+        hi[B_TILE] = __uint_as_float(l0);
+        hi[B_TILE + 32] = __uint_as_float(l1);
       } else {  // a widened bf16 is a TF32 value already
-        reinterpret_cast<float2*>(p.eb)[unit] = make_float2(v0, v1);
+        hi[0] = v0;
+        hi[32] = v1;
       }
     }
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
-    // esq in the order of an accumulator's C fragment: lane t of the n-tile
-    // holds {esq[2t], esq[2t + 1], esq[2t], esq[2t + 1]}; +inf past K
+    // esq as a B tile: dimensions 0, 1, 2 of code g hold its three TF32
+    // parts (hi + mid + lo = esq exactly), the rest 0; +inf past K
     const float q = row ? 0.5f * s : __int_as_float(0x7f800000);
-    const float q0 = __shfl_sync(0xffffffffu, q, (2 * t4) * 4), q1 = __shfl_sync(0xffffffffu, q, (2 * t4 + 1) * 4);
-    if (g == 0) reinterpret_cast<float4*>(p.esq)[nt * 4 + t4] = make_float4(q0, q1, q0, q1);
+    uint32_t hi, mid, lo, rest;
+    split(q, hi, rest);
+    split(q - __uint_as_float(hi), mid, lo);
+    const uint32_t part = t4 == 0 ? hi : t4 == 1 ? mid : t4 == 2 ? lo : 0u;
+    float* qt = p.esq + (size_t)t * B_TILE + i * 64 + g * 4 + t4;
+    qt[0] = row || t4 == 0 ? __uint_as_float(part) : 0.f;
+    qt[32] = 0.f;
   }
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -349,262 +375,240 @@ __device__ __forceinline__ void load_x(TX* dst, int p, const TX* x, int N, int D
   }
 }
 
-// the B fragments of one n-tile and k-step: hi pair, then lo pair (f32)
-template <bool ELO>
-__device__ __forceinline__ void frag_e(const float* b, uint32_t& h0, uint32_t& h1, uint32_t& l0,
-                                       uint32_t& l1) {
-  if (ELO) {
-    const uint4 w = *reinterpret_cast<const uint4*>(b);
-    h0 = w.x; h1 = w.y; l0 = w.z; l1 = w.w;
-  } else {
-    const uint2 w = *reinterpret_cast<const uint2*>(b);
-    h0 = w.x; h1 = w.y; l0 = l1 = 0;
+// Each row's best so far: the quad's (rbest), and this lane's over its own
+// codes (best, at code bidx). acc[4 j + 2 h + i] holds row h (g, g + 8) and
+// code cbase + 8 j + i, ascending in (j, i). Each row's minimum over the
+// lane's codes by an fminf tree and over the quad's by shuffles filters:
+// only where the tile improves the row does a lane whose own minimum
+// improves look for the lowest of its codes holding it.
+__device__ __forceinline__ void select_tile(const float (&acc)[64], int cbase, float (&rbest)[2],
+                                            float (&best)[2], int (&bidx)[2]) {
+  float m[2], qm[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = fminf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = fminf(v[i], v[i + 8]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = fminf(v[i], v[i + 4]);
+    m[h] = fminf(fminf(v[0], v[2]), fminf(v[1], v[3]));
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qm[h] = fminf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qm[h] = fminf(qm[h], __shfl_xor_sync(0xffffffffu, qm[h], 2));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (qm[h] < rbest[h]) {  // the same for the 4 lanes of the quad
+      rbest[h] = qm[h];
+      if (m[h] < best[h]) {
+        int idx = 0;
+#pragma unroll
+        for (int j = 15; j >= 0; --j) {
+          if (acc[4 * j + 2 * h + 1] == m[h]) idx = cbase + 8 * j + 1;
+          if (acc[4 * j + 2 * h] == m[h]) idx = cbase + 8 * j;
+        }
+        best[h] = m[h];
+        bidx[h] = idx;
+      }
+    }
   }
 }
 
 template <typename TX, typename TE, bool REG>
-__global__ void __launch_bounds__(REG ? THREADS_REG : THREADS, 1) nearest_tc_kernel(const Args a) {
+__global__ void __launch_bounds__(THREADS, 1) nearest_tc_kernel(const Args a) {
   constexpr bool XLO = is_f32<TX>, ELO = is_f32<TE>;
-  constexpr int EW = ELO ? 4 : 2;
+  constexpr int EBL = ELO ? 2 : 1;                  // B tiles per k-step: hi (+ lo)
   constexpr int KCE = REG ? 1 : KC;                 // k-steps per chunk
   constexpr int ST = REG ? STAGES_REG : STAGES;     // ring stages
-  constexpr int WARPS = (REG ? WARPS_M_REG : WARPS_M) * WARPS_N;
-  constexpr int ROWS = REG ? BM_REG : BM;           // rows per block
-  constexpr int E_STAGE = (BN / 8) * KCE * 32 * EW;  // floats of B fragments per stage
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int E_STAGE = KCE * EBL * B_TILE;       // floats of B tiles per stage
+  extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int s_last;
 
   const TX* x = static_cast<const TX*>(a.x);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int row0 = blockIdx.x * ROWS;
+  const int r0 = (warp >> 2) * 64 + (warp & 3) * 16 + g;  // this lane's rows: r0, r0 + 8
+  const int row0 = blockIdx.x * BM;
   const int t_begin = blockIdx.y * a.tiles_per_split;
   const int t_end = min(a.k_tiles, t_begin + a.tiles_per_split);
   const int iters = (t_end - t_begin) * a.n_chunks;
   const bool x_res = REG || a.x_res;
   const int xc = x_res ? 0 : BM * pitch(KCE * 8, sizeof(TX)) * (int)sizeof(TX);
   const int xp = pitch(x_res ? a.KSp * 8 : KCE * 8, sizeof(TX));
-  const int stage = (E_STAGE + Q_TILE) * 4 + xc;
-  const uint32_t full = smem_addr(smem);                         // ST mbarriers
-  unsigned* count = reinterpret_cast<unsigned*>(smem + 8 * ST);  // ST release counts
+  const int stage = (E_STAGE + B_TILE) * 4 + xc;
+  const uint32_t full = smem_addr(smem), empty = full + 8 * ST;  // ST mbarriers each
   unsigned char* ring = smem + BAR_BYTES;
   TX* xs = reinterpret_cast<TX*>(ring + ST * stage);  // the resident x tile
 
   auto st_e = [&](int s) { return reinterpret_cast<float*>(ring + s * stage); };
   auto st_q = [&](int s) { return st_e(s) + E_STAGE; };
-  auto st_x = [&](int s) { return reinterpret_cast<TX*>(st_q(s) + Q_TILE); };
+  auto st_x = [&](int s) { return reinterpret_cast<TX*>(st_q(s) + B_TILE); };
 
-  // iteration j = (tile, chunk) into stage j % ST: the chunk's B
-  // fragments, the tile's esq with its last chunk, x's chunk where x is
-  // not resident; one thread issues it
+  // iteration j = (tile, chunk) into stage j % ST: the chunk's B tiles, the
+  // tile's esq with its last chunk, x's chunk where x is not resident; the
+  // copy warp's lane 0 issues it
   auto issue = [&](int j) {
     const int s = j % ST, t = t_begin + j / a.n_chunks, c = j % a.n_chunks;
     const bool last = c == a.n_chunks - 1;
     const uint32_t bar = full + 8 * s;
-    mbar_expect_tx(bar, E_STAGE * 4 + (last ? Q_TILE * 4 : 0) + xc);
+    mbar_expect_tx(bar, E_STAGE * 4 + (last ? B_TILE * 4 : 0) + xc);
     bulk_copy(st_e(s), a.eb + ((size_t)t * a.n_chunks + c) * E_STAGE, E_STAGE * 4, bar);
-    if (last) bulk_copy(st_q(s), a.esq + (size_t)t * Q_TILE, Q_TILE * 4, bar);
+    if (last) bulk_copy(st_q(s), a.esq + (size_t)t * B_TILE, B_TILE * 4, bar);
     if (!x_res)
       bulk_copy(st_x(s), static_cast<const unsigned char*>(a.xw) + ((size_t)blockIdx.x * a.n_chunks + c) * xc,
                 xc, bar);
   };
 
-  // -x's fragments: rows r, r + 8 at columns t4 and t4 + 4 of a k-step
-  uint32_t ahi[MT][4], alo[MT][4];
+  // -x's fragment of a k-step: rows r0, r0 + 8 at columns t4 and t4 + 4
+  uint32_t ahi[4], alo[4];
   auto frag_x = [&](auto get) {
+    const float v[4] = {-get(r0, 0), -get(r0 + 8, 0), -get(r0, 4), -get(r0 + 8, 4)};
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int r = wm * MT * 16 + mt * 16 + g;
-      const float v[4] = {-get(r, 0), -get(r + 8, 0), -get(r, 4), -get(r + 8, 4)};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (XLO) split(v[q], ahi[mt][q], alo[mt][q]);
-        else ahi[mt][q] = __float_as_uint(v[q]);
-      }
+    for (int q = 0; q < 4; ++q) {
+      if (XLO) split(v[q], ahi[q], alo[q]);
+      else ahi[q] = __float_as_uint(v[q]);
+    }
+  };
+  // A operand of the esq pass: columns 0, 1, 2 of every row are 1, so that
+  // the pass adds the esq tile's three parts to every row's scores
+  const uint32_t ones[4] = {t4 < 3 ? 0x3f800000u : 0u, t4 < 3 ? 0x3f800000u : 0u, 0u, 0u};
+  // the passes of one k-step whose B tiles start at b: small products first
+  auto products = [&](float (&acc)[64], const float* b, int accumulate) {
+    if (XLO) {
+      wgmma_tf32(acc, alo, b_desc(b), accumulate);
+      if (ELO) wgmma_tf32(acc, ahi, b_desc(b + B_TILE), 1);
+      wgmma_tf32(acc, ahi, b_desc(b), 1);
+    } else if (ELO) {
+      wgmma_tf32(acc, ahi, b_desc(b + B_TILE), accumulate);
+      wgmma_tf32(acc, ahi, b_desc(b), 1);
+    } else {
+      wgmma_tf32(acc, ahi, b_desc(b), accumulate);
     }
   };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
       mbar_init(full + 8 * s, 1);
-      count[s] = 0;
+      mbar_init(empty + 8 * s, WARPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (REG) {  // one k-step: the fragments come from device memory, once
-    frag_x([&](int r, int dd) {
-      const int row = row0 + r, d = t4 + dd;
-      return row < a.N && d < a.D ? to_f32(x[(size_t)row * a.D + d]) : 0.f;
-    });
+    if (warp < WARPS)
+      frag_x([&](int r, int dd) {
+        const int row = row0 + r, d = t4 + dd;
+        return row < a.N && d < a.D ? to_f32(x[(size_t)row * a.D + d]) : 0.f;
+      });
   } else if (x_res) {
     load_x(xs, xp, x, a.N, a.D, row0, a.KSp * 8);
   }
   __syncthreads();
-  if (threadIdx.x == 0)
-    for (int j = 0; j < ST && j < iters; ++j) issue(j);
 
-  // each row's best so far: the quad's (rbest), and this lane's over its
-  // own codes (best, at code bidx)
-  float rbest[MT][2], best[MT][2];
-  int bidx[MT][2];
+  float rbest[2], best[2];
+  int bidx[2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rbest[mt][h] = best[mt][h] = __int_as_float(0x7f800000);
-      bidx[mt][h] = -1;
+  for (int h = 0; h < 2; ++h) {
+    rbest[h] = best[h] = __int_as_float(0x7f800000);
+    bidx[h] = -1;
+  }
+
+  if (warp == WARPS) {  // the copy warp: a stage is refilled once every compute warp left it
+    if (lane == 0)
+      for (int j = 0; j < iters; ++j) {
+        if (j >= ST) mbar_wait(empty + 8 * (j % ST), (j / ST - 1) & 1);
+        issue(j);
+      }
+  } else if (REG) {
+    // two accumulators alternate: tile j's products are in flight while the
+    // warp selects on tile j - 1
+    float acc0[64], acc1[64];
+    auto begin = [&](float (&acc)[64], int j) {  // the tile's products, then esq
+      const int s = j % ST;
+      mbar_wait(full + 8 * s, (j / ST) & 1);
+      fence_acc(acc);
+      wg_fence();
+      products(acc, st_e(s), 0);
+      wgmma_tf32(acc, ones, b_desc(st_q(s)), 1);
+      wg_commit();
+      fence_acc(acc);
+    };
+    auto finish = [&](float (&acc)[64], int j) {  // after the scores have landed
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * (j % ST));
+      select_tile(acc, (t_begin + j) * BN + 2 * t4, rbest, best, bidx);
+    };
+    int j = 0;
+    if (iters > 0) begin(acc0, 0);
+    for (; j + 1 < iters; j += 2) {
+      begin(acc1, j + 1);
+      wg_wait<1>();
+      finish(acc0, j);
+      if (j + 2 < iters) {
+        begin(acc0, j + 2);
+        wg_wait<1>();
+      } else {
+        wg_wait<0>();
+      }
+      finish(acc1, j + 1);
     }
-  float acc[MT][NT][4];
-
-  int t = t_begin, c = 0, s = 0, phase = 0;  // (tile, chunk, stage) and the stage's parity
-  for (int it = 0; it < iters; ++it) {
-    mbar_wait(full + 8 * s, phase);
-    const float* e = st_e(s) + (wn * NT * KCE * 32 + lane) * EW;
-    const float* q = st_q(s) + (wn * NT * 4 + t4) * 4;  // + 16 nt: n-tile nt's C fragment
-    const bool last = c == a.n_chunks - 1;
-
-    float m[MT][2];  // each row's minimum over this thread's codes of the tile
-    if (REG) {  // the minima fold in as the products land, n-tile by n-tile
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float4 q4 = *reinterpret_cast<const float4*>(q + nt * 16);
-        const float c0[4] = {q4.x, q4.y, q4.z, q4.w};
-        uint32_t bh0, bh1, bl0, bl1;
-        frag_e<ELO>(e + nt * 32 * EW, bh0, bh1, bl0, bl1);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {  // small products first, esq as C
-          if (XLO) {
-            mma(acc[mt][nt], alo[mt], bh0, bh1, c0);
-            if (ELO) mma_acc(acc[mt][nt], ahi[mt], bl0, bl1);
-            mma_acc(acc[mt][nt], ahi[mt], bh0, bh1);
-          } else if (ELO) {
-            mma(acc[mt][nt], ahi[mt], bl0, bl1, c0);
-            mma_acc(acc[mt][nt], ahi[mt], bh0, bh1);
-          } else {
-            mma(acc[mt][nt], ahi[mt], bh0, bh1, c0);
-          }
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float v = fminf(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-            m[mt][h] = nt == 0 ? v : fminf(m[mt][h], v);
-          }
-        }
-      }
-    } else {
-      if (c == 0) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-      }
+    if (j < iters) {
+      wg_wait<0>();
+      finish(acc0, j);
+    }
+  } else {
+    float acc[64];
+    int t = t_begin, c = 0;
+    for (int j = 0; j < iters; ++j) {
+      const int s = j % ST;
+      mbar_wait(full + 8 * s, (j / ST) & 1);
       const TX* xb = x_res ? xs + c * KCE * 8 : st_x(s);
 #pragma unroll
       for (int ks = 0; ks < KCE; ++ks) {
         frag_x([&](int r, int dd) { return to_f32(xb[r * xp + ks * 8 + t4 + dd]); });
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          uint32_t bh0, bh1, bl0, bl1;
-          frag_e<ELO>(e + (nt * KCE + ks) * 32 * EW, bh0, bh1, bl0, bl1);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            if (XLO) mma_acc(acc[mt][nt], alo[mt], bh0, bh1);
-            if (ELO) mma_acc(acc[mt][nt], ahi[mt], bl0, bl1);
-            mma_acc(acc[mt][nt], ahi[mt], bh0, bh1);
-          }
-        }
+        fence_acc(acc);
+        wg_fence();
+        products(acc, st_e(s) + ks * EBL * B_TILE, c > 0 || ks > 0);
+        wg_commit();
+        wg_wait<0>();  // the A registers change at the next k-step
+        fence_acc(acc);
       }
+      const bool last = c == a.n_chunks - 1;
       if (last) {
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const float4 q4 = *reinterpret_cast<const float4*>(q + nt * 16);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            acc[mt][nt][0] += q4.x; acc[mt][nt][1] += q4.y;
-            acc[mt][nt][2] += q4.z; acc[mt][nt][3] += q4.w;
-          }
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {  // an fminf tree over the tile's codes
-            float v[NT];
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) v[nt] = fminf(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-#pragma unroll
-            for (int w = NT / 2; w > 0; w /= 2)
-#pragma unroll
-              for (int i = 0; i < w; ++i) v[i] = fminf(v[i], v[i + w]);
-            m[mt][h] = v[0];
-          }
+        wg_fence();
+        wgmma_tf32(acc, ones, b_desc(st_q(s)), 1);
+        wg_commit();
+        wg_wait<0>();
+        fence_acc(acc);
       }
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+      if (last) select_tile(acc, t * BN + 2 * t4, rbest, best, bidx);
+      if (++c == a.n_chunks) { c = 0; ++t; }
     }
-    if (warp_release(count + s, WARPS, lane) && it + ST < iters) issue(it + ST);
-
-    if (last) {
-      // the tile's argmin per row: acc[.][nt][2h + j] holds code
-      // cbase + 8 nt + j, ascending in (nt, j). The quad's minimum of the
-      // row (shuffles, all rows at once) filters: only where the tile
-      // improves the row does a lane whose own minimum improves look for
-      // the lowest of its codes holding it. The quad's lanes meet at the end.
-      const int cbase = t * BN + wn * NT * 8 + 2 * t4;
-      float qm[MT][2];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) qm[mt][h] = fminf(m[mt][h], __shfl_xor_sync(0xffffffffu, m[mt][h], 1));
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) qm[mt][h] = fminf(qm[mt][h], __shfl_xor_sync(0xffffffffu, qm[mt][h], 2));
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (qm[mt][h] < rbest[mt][h]) {  // the same for the 4 lanes of the quad
-            rbest[mt][h] = qm[mt][h];
-            if (m[mt][h] < best[mt][h]) {
-              int idx = 0;
-#pragma unroll
-              for (int nt = NT - 1; nt >= 0; --nt) {
-                if (acc[mt][nt][2 * h + 1] == m[mt][h]) idx = cbase + nt * 8 + 1;
-                if (acc[mt][nt][2 * h] == m[mt][h]) idx = cbase + nt * 8;
-              }
-              best[mt][h] = m[mt][h];
-              bidx[mt][h] = idx;
-            }
-          }
-        }
-    }
-    if (++c == a.n_chunks) { c = 0; ++t; }
-    if (++s == ST) { s = 0; phase ^= 1; }
   }
 
-  // the quad's lanes meet in registers; the two warps of a row (wn = 0, 1)
-  // and the blocks splitting the codebook in the row's key. Rows of a
-  // quad: wm*32 + mt*16 + h*8 + g
+  // the quad's lanes meet in registers, the blocks splitting the codebook in
+  // the row's key
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int h = 0; h < 2; ++h) {
+    unsigned long long key = make_key(best[h], bidx[h]);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      unsigned long long key = make_key(best[mt][h], bidx[mt][h]);
-#pragma unroll
-      for (int off = 1; off < 4; off *= 2) {
-        const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, off);
-        key = other < key ? other : key;
-      }
-      const int row = row0 + wm * MT * 16 + mt * 16 + h * 8 + g;
-      if (t4 == 0 && row < a.N && key != ~0ull) atomicMin(&a.keys[row], key);
+    for (int off = 1; off < 4; off *= 2) {
+      const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, off);
+      key = other < key ? other : key;
     }
+    const int row = row0 + r0 + 8 * h;
+    if (t4 == 0 && warp < WARPS && row < a.N && key != ~0ull) atomicMin(&a.keys[row], key);
+  }
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) s_last = atomicAdd(&a.counters[blockIdx.x], 1) == (int)gridDim.y - 1;
   __syncthreads();
   if (s_last) {  // every split of this row tile has met in the keys
     __threadfence();
-    for (int i = threadIdx.x; i < ROWS && row0 + i < a.N; i += 32 * WARPS)
+    for (int i = threadIdx.x; i < BM && row0 + i < a.N; i += THREADS)
       a.codes[row0 + i] = (int32_t)(uint32_t)(__ldcg(&a.keys[row0 + i]) & 0xffffffffull);
   }
 }
@@ -614,7 +618,7 @@ int set_smem(int smem) {
   if (int err = (int)cudaFuncSetAttribute(nearest_tc_kernel<TX, TE, REG>,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return err;
-  // shared memory before L1, so that the blocks the launch bounds allow fit
+  // shared memory before L1, so that the ring fits
   return (int)cudaFuncSetAttribute(nearest_tc_kernel<TX, TE, REG>,
                                    cudaFuncAttributePreferredSharedMemoryCarveout,
                                    (int)cudaSharedmemCarveoutMaxShared);
@@ -624,8 +628,7 @@ template <typename TX, typename TE, bool REG>
 int run(const Args& args, const Shape& s, bool x_res, int splits, cudaStream_t stream) {
   const int smem = smem_bytes(s, x_res);
   if (int err = set_smem<TX, TE, REG>(smem)) return err;
-  nearest_tc_kernel<TX, TE, REG><<<dim3(s.row_tiles, splits), REG ? THREADS_REG : THREADS, smem,
-                                   stream>>>(args);
+  nearest_tc_kernel<TX, TE, REG><<<dim3(s.row_tiles, splits), THREADS, smem, stream>>>(args);
   return (int)cudaGetLastError();
 }
 
@@ -661,7 +664,7 @@ int occupancy(bool reg, int smem, int* blocks) {
   if (reg) {
     if (int err = set_smem<TX, TE, true>(smem)) return err;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, nearest_tc_kernel<TX, TE, true>,
-                                                              THREADS_REG, smem);
+                                                              THREADS, smem);
   }
   if (int err = set_smem<TX, TE, false>(smem)) return err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, nearest_tc_kernel<TX, TE, false>,

@@ -41,10 +41,10 @@ __all__ = [
     "vq_quantize",
 ]
 
-# the kernel's shape (csrc/vq_lookup.cu): rows per block (D > 8, D <= 8),
-# codes per codebook tile, 8-wide k-steps per ring stage (D > 8), ring
-# stages (D <= 8, D > 8), and the bytes of the ring's barriers
-_BM, _BM_REG, _BN, _KC, _STAGES_REG, _STAGES, _BAR = 128, 256, 128, 2, 16, 4, 256
+# the kernel's shape (csrc/vq_lookup.cu): rows per block (two warpgroups),
+# codes per codebook tile (the wgmma's N), 8-wide k-steps per ring stage
+# (D > 8), ring stages (D <= 8, D > 8), and the bytes of the ring's barriers
+_BM, _BN, _KC, _STAGES_REG, _STAGES, _BAR = 128, 128, 2, 16, 4, 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # two lookups may disagree only where the plain scores of both codes lie
 # within this fraction of max|score| of the row's best: f32 sums taken in
@@ -91,7 +91,7 @@ class LookupPlan(NamedTuple):
 
     k_steps: int  # D padded to a multiple of 8, over 8
     reg_x: bool  # one k-step: each warp holds its x fragments in registers
-    block_rows: int  # rows per block: 256 (16 warps) with reg_x, else 128 (8 warps)
+    block_rows: int  # rows per block: two warpgroups of 64
     x_resident: bool  # the block's x tile stays in shared memory for the whole loop
     row_tiles: int  # blocks along N (128 rows each)
     splits: int  # blocks along the codebook
@@ -125,17 +125,18 @@ def plan(n: int, k: int, d: int, x_bf16: bool, e_bf16: bool, sms: int,
     only, never from timing."""
     ks = -(-d // 8)
     reg = ks == 1
-    bm = _BM_REG if reg else _BM
+    bm = _BM
     k_tiles, row_tiles = -(-k // _BN), -(-n // bm)
     ew, xsize = (2 if e_bf16 else 4), (2 if x_bf16 else 4)
     kc = 1 if reg else _KC  # k-steps per ring stage
     ksp = -(-ks // kc) * kc  # whole chunks: the workspace's k-steps
-    e_stage = (_BN // 8) * kc * 32 * ew * 4  # B fragments of one (tile, chunk)
+    e_stage = kc * (2 if ew == 4 else 1) * _BN * 8 * 4  # B tiles (hi, lo) of one (tile, chunk)
     x_chunk = _BM * _pitch(8 * kc, xsize) * xsize
     x_tile = _BM * _pitch(8 * ksp, xsize) * xsize
     stages = _STAGES_REG if reg else _STAGES
-    x_res = reg or _BAR + stages * (e_stage + _BN * 8) + x_tile <= smem_block
-    stage = e_stage + _BN * 8 + (0 if x_res else x_chunk)
+    q_tile = _BN * 8 * 4  # esq as a B tile
+    x_res = reg or _BAR + stages * (e_stage + q_tile) + x_tile <= smem_block
+    stage = e_stage + q_tile + (0 if x_res else x_chunk)
     smem = _BAR + stages * stage + (x_tile if x_res and not reg else 0)
     blocks_per_sm = 1
     slots = sms * blocks_per_sm
@@ -149,7 +150,7 @@ def plan(n: int, k: int, d: int, x_bf16: bool, e_bf16: bool, sms: int,
             best = (fill, splits, per)
     _, splits, per = best
     kp = k_tiles * _BN
-    workspace = (_round16(n * 8) + _round16(row_tiles * 4) + kp * 8
+    workspace = (_round16(n * 8) + _round16(row_tiles * 4) + k_tiles * q_tile
                  + k_tiles * (ksp // kc) * e_stage + (0 if x_res else row_tiles * (ksp // kc) * x_chunk))
     return LookupPlan(ks, reg, bm, x_res, row_tiles, splits, per, blocks_per_sm, smem, workspace)
 

@@ -36,11 +36,12 @@ each through the same launch as the wrapper at path_f32, path_bf16 and
 flagship_d256: ``shipped``; ``no_branch`` (the row's index search never
 runs: fminf trees and quad shuffles stay); ``no_shuffle`` (also no quad
 shuffles); ``no_select`` (no selection at all; the products still run);
-``no_mma`` (each mma a copy of its C operand: esq or nothing);
+``no_mma`` (no wgmma: the accumulators keep what they held);
 ``no_mma_no_select`` (both: the loop's copies, waits and releases);
 ``stages8`` (a ring of 8 stages at D <= 8 in place of 16);
-``no_fence`` (a warp's release without its fences: unsafe, timing only);
-``skeleton_*`` (``no_mma_no_select`` without fences, or without copies); ``no_loads`` (no
+``no_esq`` (at D <= 8 no esq pass: wrong
+codes, timing only; also ``no_esq_no_select``); ``skeleton_no_loads``
+(``no_mma_no_select`` without copies); ``no_loads`` (no
 ring copies: products on whatever shared memory holds); ``prologue_only``
 (the main kernel returns at once); ``main_only`` (the prologue returns at
 once); ``empty`` (both). Also the main kernel's
@@ -103,24 +104,18 @@ def kernels_per_call(fn) -> list[str]:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-NO_BRANCH = [("if (qm[mt][h] < rbest[mt][h]) {", "if (qm[mt][h] < -3.0e38f) {")]
+NO_BRANCH = [("    if (qm[h] < rbest[h]) {", "    if (qm[h] < -3.0e38f) {")]
 NO_SHUFFLE = NO_BRANCH + [
-    ("qm[mt][h] = fminf(m[mt][h], __shfl_xor_sync(0xffffffffu, m[mt][h], 1));", "qm[mt][h] = m[mt][h];"),
-    ("qm[mt][h] = fminf(qm[mt][h], __shfl_xor_sync(0xffffffffu, qm[mt][h], 2));", "")]
-NO_SELECT = [("    if (last) {\n      // the tile's argmin", "    if (last && a.N < 0) {\n      // the tile's argmin")]
-NO_MMA = [
-    ("""  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%10,%11,%12,%13};\\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
-        "f"(c[2]), "f"(c[3]));""",
-     "d[0] = c[0]; d[1] = c[1]; d[2] = c[2]; d[3] = c[3];"),
-    ("""  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));""", ""),
-]
-NO_LOADS = [("mbar_expect_tx(bar, E_STAGE * 4 + (last ? Q_TILE * 4 : 0) + xc);", "mbar_expect_tx(bar, 0);"),
+    ("for (int h = 0; h < 2; ++h) qm[h] = fminf(m[h], __shfl_xor_sync(0xffffffffu, m[h], 1));",
+     "for (int h = 0; h < 2; ++h) qm[h] = m[h];"),
+    ("for (int h = 0; h < 2; ++h) qm[h] = fminf(qm[h], __shfl_xor_sync(0xffffffffu, qm[h], 2));", "")]
+NO_SELECT = [("      select_tile(acc, (t_begin + j) * BN + 2 * t4, rbest, best, bidx);",
+              "      if (a.N < 0) select_tile(acc, (t_begin + j) * BN + 2 * t4, rbest, best, bidx);"),
+             ("      if (last) select_tile(acc, t * BN + 2 * t4, rbest, best, bidx);",
+              "      if (last && a.N < 0) select_tile(acc, t * BN + 2 * t4, rbest, best, bidx);")]
+NO_MMA = [('  asm volatile(\n      "{\\n .reg .pred p;\\n setp.ne.b32 p, %69, 0;\\n"',
+           '  if (0) asm volatile(\n      "{\\n .reg .pred p;\\n setp.ne.b32 p, %69, 0;\\n"')]
+NO_LOADS = [("mbar_expect_tx(bar, E_STAGE * 4 + (last ? B_TILE * 4 : 0) + xc);", "mbar_expect_tx(bar, 0);"),
             ("    bulk_copy(st_e(s), a.eb", "    if (0) bulk_copy(st_e(s), a.eb"),
             ("if (last) bulk_copy(st_q(s)", "if (0) bulk_copy(st_q(s)"),
             ("    if (!x_res)\n      bulk_copy(st_x(s)", "    if (0)\n      bulk_copy(st_x(s)")]
@@ -129,12 +124,11 @@ NO_MAIN = [("  const TX* x = static_cast<const TX*>(a.x);\n  const int warp",
 NO_PROLOGUE = [("  const TE* e = static_cast<const TE*>(p.e);\n  const int lane",
                 "  if (p.K > 0) return;\n  const TE* e = static_cast<const TE*>(p.e);\n  const int lane")]
 STAGES8 = [("constexpr int STAGES_REG = 16, STAGES = 4;", "constexpr int STAGES_REG = 8, STAGES = 4;")]
-NO_FENCE = [("  __threadfence_block();\n  if (atomicAdd(count, 1u) % every != every - 1) return false;\n"
-             "  __threadfence_block();\n  asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: \"memory\");",
-             "  if (atomicAdd(count, 1u) % every != every - 1) return false;")]
+NO_ESQ = [("      wgmma_tf32(acc, ones, b_desc(st_q(s)), 1);\n      wg_commit();\n      fence_acc(acc);\n    };",
+           "      wg_commit();\n      fence_acc(acc);\n    };")]
 SKELETON = NO_MMA + NO_SELECT
-CUTS = {"shipped": [], "stages8": STAGES8, "no_fence": NO_FENCE,
-        "skeleton_no_fence": SKELETON + NO_FENCE, "skeleton_no_loads": SKELETON + NO_LOADS, "no_branch": NO_BRANCH, "no_shuffle": NO_SHUFFLE, "no_select": NO_SELECT,
+CUTS = {"shipped": [], "stages8": STAGES8, "no_esq": NO_ESQ,
+        "no_esq_no_select": NO_ESQ + NO_SELECT, "skeleton_no_loads": SKELETON + NO_LOADS, "no_branch": NO_BRANCH, "no_shuffle": NO_SHUFFLE, "no_select": NO_SELECT,
         "no_mma": NO_MMA, "no_mma_no_select": NO_MMA + NO_SELECT,
         "no_loads": NO_LOADS, "prologue_only": NO_MAIN, "main_only": NO_PROLOGUE,
         "empty": NO_MAIN + NO_PROLOGUE}
