@@ -11,7 +11,10 @@ resident blocks per SM at T = 257; for the paged attention's split kernel
 per (query, pool, head dim) type, its registers and spills, and at the
 serving shape its plan and resident blocks per SM; for the INT8 matmul's
 split-K and wide kernels, their registers, spills and static shared
-memory), then runs these phases, each printing one JSON line; any failure
+memory; for the lookup kernel per operand types and D variant, and its
+prologue, their registers, spills and static shared memory, with the
+lookup's dynamic shared memory and resident blocks per SM at the path
+shape), then runs these phases, each printing one JSON line; any failure
 exits non-zero:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
@@ -52,13 +55,19 @@ exits non-zero:
    finish with 256 codes in [0, 16384), every page must be freed, K3 and
    each K2 kernel that a serving shape's plan names must have launched,
    and no plain version may have run on a CUDA tensor.
-6. ``vq_lookup``: the nearest-code kernel against its plain version at
-   the tokenizer's shape N = K = 16384, D = 8 (f32 and bf16), the flagship
-   D = 256, a ragged 1000 x 777 x 40 (cosine), N = 1, and planted exact
-   ties (duplicated codebook rows). Codes may differ only as near-ties
-   (both codes' plain scores within 1e-5 * max|score| of the row's best:
-   f32 sums in another order); planted ties go to the lowest index
-   exactly. Device times at the tokenizer's shape; ``library_ms`` =
+6. ``vq_lookup``: the nearest-code kernel (TF32 wgmma, an f32 operand
+   split in two) against its plain version at the tokenizer's shape N = K
+   = 16384, D = 8 (f32 and bf16, Gaussian rows; f32 unit rows, what the
+   LlamaGen quantizer feeds), the flagship D = 256, a ragged 1000 x 777 x
+   40 (cosine), N = 1, and planted exact ties (duplicated codebook rows,
+   f32 and bf16). Codes may differ only as near-ties (both codes' plain
+   scores within 1e-5 * max|score| of the row's best: TF32 parts and f32
+   sums in another order); planted ties go to the lowest index exactly.
+   Each row carries the launch plan ``ops/vq_lookup.plan`` picked. Device
+   times (CUDA graph) at the path shapes and the flagship, each beside its
+   two bounds (``bound_ms``: this design's on the TF32 tensor cores;
+   ``bound_f32_cuda_cores_ms``: the same products on the f32 pipes), the
+   kernels one call launches (torch.profiler) and ``library_ms`` =
    ``argmin(addmm(esq/2, x, e^T, alpha=-1))``, which writes and reads the
    N x K matrix (not the same work).
 7. ``tokenizer``: the LlamaGen VQGAN (configs/llamagen/vqgan_imagenet_ddp.py,
@@ -287,6 +296,7 @@ def phase_build() -> None:
     from vector_quantization_tpu_torch.ops import flash_attention as fa
     from vector_quantization_tpu_torch.ops import int8_matmul as im
     from vector_quantization_tpu_torch.ops import paged_attention as pa
+    from vector_quantization_tpu_torch.ops import vq_lookup as vqk
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -311,7 +321,13 @@ def phase_build() -> None:
     mm = {kernel: entry for source, kernel in im.DESIGNS.values()
           for entry in ptxas_entries(logs[source], kernel, ()).values()}
     vq = ptxas_entries(logs["vq_lookup"], "nearest_tc_kernel", ("x", "e", "reg"))
-    vq_prep = ptxas_entries(logs["vq_lookup"], "prep_kernel", ("e",))
+    vq_prep = ptxas_entries(logs["vq_lookup"], "prep_kernel", ("x", "e"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for key, entry in vq.items():  # the plan and resident blocks at the path shape, this key's types
+        x_bf16, e_bf16, reg = key.startswith("xbf16"), "_ebf16" in key, key.endswith("reg1")
+        d = 8 if reg else 256
+        p = vqk.plan(TOKENIZER_BATCH * GRID * GRID, CODEBOOK, d, x_bf16, e_bf16, sms)
+        entry.update(at_d=d, smem_bytes=p.smem_bytes, blocks_per_sm=vqk.blocks_per_sm(p, x_bf16, e_bf16))
     if "w8a16_kernel" in mm:
         split = mm["w8a16_kernel"]
         split["blocks_per_sm"] = blocks_per_sm(split["registers"], 256, split["static_smem"])
@@ -321,7 +337,7 @@ def phase_build() -> None:
           "paged_attention_at_path": paged_path, "int8_matmul": mm,
           "vq_lookup": vq, "vq_lookup_prologue": vq_prep})
     if (not fwd or not dkv or not dq or "registers" not in paged_path or len(vq) != 8
-            or len(vq_prep) != 2
+            or len(vq_prep) != 4
             or {kernel for _, kernel in im.DESIGNS.values()} - set(mm)):
         raise SystemExit("build: a kernel's entry is missing from the ptxas log")
 

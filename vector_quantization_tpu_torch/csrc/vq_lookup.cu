@@ -26,17 +26,18 @@
 //   one more wgmma after the last k-step, its A operand 1 in three columns
 //   and its B tile esq's three TF32 parts (hi + mid + lo = esq exactly), so
 //   that the sums round at the size of x . e and the scores need no
-//   instruction outside the tensor cores (loading esq into the accumulator
-//   first took 23 us more at D = 8, adding it afterwards 34 us);
+//   instruction outside the tensor cores (on an H100 at D = 8, loading esq
+//   into the accumulator first took 23 us more a call, adding it after the
+//   products 34 us more);
 // - a prologue launch writes esq and the codebook's hi/lo split as wgmma B
 //   tiles (K-major 8 x 4 core matrices, no swizzle), one contiguous run per
-//   (codebook tile, D-chunk),
-//   fills the row keys and zeroes the per-row-tile counters (and, where x's
-//   tile does not fit in shared memory, packs x's D-chunks the same way);
+//   (codebook tile, D-chunk), fills the row keys and zeroes the
+//   per-row-tile counters (and, where x's tile does not fit in shared
+//   memory, packs x's D-chunks the same way);
 // - a block owns 128 rows (two warpgroups) and walks its run of 128-code
 //   tiles (the codebook is split across blocks, grid.y, by the wrapper's
 //   plan so that the grid fills the card). The tiles arrive by bulk copies
-//   (cp.async.bulk) into a ring of 16 stages (4 at D > 8) behind mbarriers,
+//   (cp.async.bulk) into a ring of 8 stages (4 at D > 8) behind mbarriers,
 //   issued by a ninth warp as soon as the eight compute warps have left a
 //   stage;
 // - x stays resident: at D <= 8 each warp keeps its split fragments of -x
@@ -68,8 +69,8 @@ constexpr int BM = 64 * WGS;                  // 128 rows per block
 constexpr int BN = 128;                       // codes per codebook tile: the wgmma's N
 constexpr int B_TILE = BN * 8;                // floats of one k-step's B tile (hi, lo or esq)
 constexpr int KC = 2;                         // k-steps of 8 dimensions per ring stage (D > 8)
-constexpr int STAGES_REG = 16, STAGES = 4;    // ring stages at D <= 8 and above
-constexpr int BAR_BYTES = 256;                // the ring's mbarriers: full, then empty
+constexpr int STAGES_REG = 8, STAGES = 4;     // ring stages at D <= 8 and above
+constexpr int BAR_BYTES = 16 * STAGES_REG;    // the ring's mbarriers: full, then empty
 
 template <typename T> constexpr bool is_f32 = sizeof(T) == 4;
 __device__ __forceinline__ float to_f32(float v) { return v; }

@@ -37,6 +37,7 @@ __all__ = [
     "lookup_scores",
     "nearest_codes",
     "nearest_codes_reference",
+    "blocks_per_sm",
     "plan",
     "vq_quantize",
 ]
@@ -44,7 +45,7 @@ __all__ = [
 # the kernel's shape (csrc/vq_lookup.cu): rows per block (two warpgroups),
 # codes per codebook tile (the wgmma's N), 8-wide k-steps per ring stage
 # (D > 8), ring stages (D <= 8, D > 8), and the bytes of the ring's barriers
-_BM, _BN, _KC, _STAGES_REG, _STAGES, _BAR = 128, 128, 2, 16, 4, 256
+_BM, _BN, _KC, _STAGES_REG, _STAGES, _BAR = 128, 128, 2, 8, 4, 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # two lookups may disagree only where the plain scores of both codes lie
 # within this fraction of max|score| of the row's best: f32 sums taken in
@@ -91,12 +92,10 @@ class LookupPlan(NamedTuple):
 
     k_steps: int  # D padded to a multiple of 8, over 8
     reg_x: bool  # one k-step: each warp holds its x fragments in registers
-    block_rows: int  # rows per block: two warpgroups of 64
     x_resident: bool  # the block's x tile stays in shared memory for the whole loop
     row_tiles: int  # blocks along N (128 rows each)
     splits: int  # blocks along the codebook
     tiles_per_split: int  # 128-code tiles each of those blocks walks
-    blocks_per_sm: int  # what the kernel's launch bounds allow
     smem_bytes: int  # dynamic shared memory per block
     workspace_bytes: int  # keys, counters, esq, the split codebook (and x's chunks)
 
@@ -125,8 +124,7 @@ def plan(n: int, k: int, d: int, x_bf16: bool, e_bf16: bool, sms: int,
     only, never from timing."""
     ks = -(-d // 8)
     reg = ks == 1
-    bm = _BM
-    k_tiles, row_tiles = -(-k // _BN), -(-n // bm)
+    k_tiles, row_tiles = -(-k // _BN), -(-n // _BM)
     ew, xsize = (2 if e_bf16 else 4), (2 if x_bf16 else 4)
     kc = 1 if reg else _KC  # k-steps per ring stage
     ksp = -(-ks // kc) * kc  # whole chunks: the workspace's k-steps
@@ -138,8 +136,7 @@ def plan(n: int, k: int, d: int, x_bf16: bool, e_bf16: bool, sms: int,
     x_res = reg or _BAR + stages * (e_stage + q_tile) + x_tile <= smem_block
     stage = e_stage + q_tile + (0 if x_res else x_chunk)
     smem = _BAR + stages * stage + (x_tile if x_res and not reg else 0)
-    blocks_per_sm = 1
-    slots = sms * blocks_per_sm
+    slots = sms  # one block an SM: its ring takes most of the shared memory
     best = None
     for s in range(1, min(k_tiles, 4 * -(-slots // row_tiles)) + 1):
         per = -(-k_tiles // s)
@@ -152,12 +149,26 @@ def plan(n: int, k: int, d: int, x_bf16: bool, e_bf16: bool, sms: int,
     kp = k_tiles * _BN
     workspace = (_round16(n * 8) + _round16(row_tiles * 4) + k_tiles * q_tile
                  + k_tiles * (ksp // kc) * e_stage + (0 if x_res else row_tiles * (ksp // kc) * x_chunk))
-    return LookupPlan(ks, reg, bm, x_res, row_tiles, splits, per, blocks_per_sm, smem, workspace)
+    return LookupPlan(ks, reg, x_res, row_tiles, splits, per, smem, workspace)
 
 
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def blocks_per_sm(p: LookupPlan, x_bf16: bool, e_bf16: bool) -> int:
+    """Resident blocks per SM of the lookup kernel launched under ``p`` with
+    these operand types, from the CUDA occupancy calculator (builds the
+    kernel; needs a GPU)."""
+    fn = _build.load("vq_lookup").vqt_nearest_blocks_per_sm
+    i = ctypes.c_int
+    fn.restype, fn.argtypes = i, [i, i, i, i, ctypes.POINTER(i)]
+    blocks = i(0)
+    err = fn(int(x_bf16), int(e_bf16), int(p.reg_x), p.smem_bytes, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"nearest_codes occupancy query failed: CUDA error {err}")
+    return blocks.value
 
 
 def _kernel():

@@ -33,20 +33,23 @@ With ``--cuts`` (the tensor-core kernel only), it then builds copies of
 ``csrc/vq_lookup.cu`` with parts cut out by text substitution
 (``flash_fwd_probe.cut``, which raises on a miss), all at once, and times
 each through the same launch as the wrapper at path_f32, path_bf16 and
-flagship_d256: ``shipped``; ``no_branch`` (the row's index search never
-runs: fminf trees and quad shuffles stay); ``no_shuffle`` (also no quad
-shuffles); ``no_select`` (no selection at all; the products still run);
-``no_mma`` (no wgmma: the accumulators keep what they held);
-``no_mma_no_select`` (both: the loop's copies, waits and releases);
-``stages8`` (a ring of 8 stages at D <= 8 in place of 16);
-``no_esq`` (at D <= 8 no esq pass: wrong
-codes, timing only; also ``no_esq_no_select``); ``skeleton_no_loads``
-(``no_mma_no_select`` without copies); ``no_loads`` (no
-ring copies: products on whatever shared memory holds); ``prologue_only``
-(the main kernel returns at once); ``main_only`` (the prologue returns at
-once); ``empty`` (both). Also the main kernel's
-resident blocks per SM (``vqt_nearest_blocks_per_sm``). The cut copies
-compute garbage; only their times mean anything.
+flagship_d256:
+
+- ``shipped``; ``stages16``: a ring of 16 stages at D <= 8 in place of 8;
+- ``no_branch``: the row's index search never runs (fminf trees and quad
+  shuffles stay); ``no_shuffle``: also no quad shuffles; ``no_select``: no
+  selection at all (the products still run);
+- ``no_mma``: no wgmma (the accumulators keep what they held);
+  ``no_esq``: at D <= 8 no esq pass; ``no_esq_no_select``: both;
+- ``no_mma_no_select``: the loop's copies, waits and releases alone;
+  ``skeleton_no_loads``: also without copies; ``no_loads``: no ring copies
+  (products on whatever shared memory holds);
+- ``prologue_only``: the main kernel returns at once; ``main_only``: the
+  prologue returns at once; ``empty``: both.
+
+It also prints the main kernel's resident blocks per SM
+(``vqt_nearest_blocks_per_sm``). The cut copies compute wrong codes; only
+their times mean anything.
 """
 
 from __future__ import annotations
@@ -123,15 +126,16 @@ NO_MAIN = [("  const TX* x = static_cast<const TX*>(a.x);\n  const int warp",
             "  if (a.N > 0) return;\n  const TX* x = static_cast<const TX*>(a.x);\n  const int warp")]
 NO_PROLOGUE = [("  const TE* e = static_cast<const TE*>(p.e);\n  const int lane",
                 "  if (p.K > 0) return;\n  const TE* e = static_cast<const TE*>(p.e);\n  const int lane")]
-STAGES8 = [("constexpr int STAGES_REG = 16, STAGES = 4;", "constexpr int STAGES_REG = 8, STAGES = 4;")]
-NO_ESQ = [("      wgmma_tf32(acc, ones, b_desc(st_q(s)), 1);\n      wg_commit();\n      fence_acc(acc);\n    };",
+STAGES16 = [("constexpr int STAGES_REG = 8, STAGES = 4;", "constexpr int STAGES_REG = 16, STAGES = 4;")]
+NO_ESQ = [("      wgmma_tf32(acc, ones, b_desc(st_q(s)), 1);\n      wg_commit();\n"
+           "      fence_acc(acc);\n    };",
            "      wg_commit();\n      fence_acc(acc);\n    };")]
 SKELETON = NO_MMA + NO_SELECT
-CUTS = {"shipped": [], "stages8": STAGES8, "no_esq": NO_ESQ,
-        "no_esq_no_select": NO_ESQ + NO_SELECT, "skeleton_no_loads": SKELETON + NO_LOADS, "no_branch": NO_BRANCH, "no_shuffle": NO_SHUFFLE, "no_select": NO_SELECT,
-        "no_mma": NO_MMA, "no_mma_no_select": NO_MMA + NO_SELECT,
-        "no_loads": NO_LOADS, "prologue_only": NO_MAIN, "main_only": NO_PROLOGUE,
-        "empty": NO_MAIN + NO_PROLOGUE}
+CUTS = {"shipped": [], "stages16": STAGES16, "no_branch": NO_BRANCH, "no_shuffle": NO_SHUFFLE,
+        "no_select": NO_SELECT, "no_mma": NO_MMA, "no_esq": NO_ESQ,
+        "no_esq_no_select": NO_ESQ + NO_SELECT, "no_mma_no_select": SKELETON,
+        "skeleton_no_loads": SKELETON + NO_LOADS, "no_loads": NO_LOADS,
+        "prologue_only": NO_MAIN, "main_only": NO_PROLOGUE, "empty": NO_MAIN + NO_PROLOGUE}
 
 
 def run_cuts(vq, root: Path, shapes, replays: int) -> None:
