@@ -322,11 +322,11 @@ def phase_build() -> None:
           for entry in ptxas_entries(logs[source], kernel, ()).values()}
     vq = ptxas_entries(logs["vq_lookup"], "nearest_tc_kernel", ("x", "e", "reg"))
     vq_prep = ptxas_entries(logs["vq_lookup"], "prep_kernel", ("x", "e"))
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gpu = im.card(torch.device("cuda", 0))
     for key, entry in vq.items():  # the plan and resident blocks at the path shape, this key's types
         x_bf16, e_bf16, reg = key.startswith("xbf16"), "_ebf16" in key, key.endswith("reg1")
         d = 8 if reg else 256
-        p = vqk.plan(TOKENIZER_BATCH * GRID * GRID, CODEBOOK, d, x_bf16, e_bf16, sms)
+        p = vqk.plan(TOKENIZER_BATCH * GRID * GRID, CODEBOOK, d, x_bf16, e_bf16, gpu)
         entry.update(at_d=d, smem_bytes=p.smem_bytes, blocks_per_sm=vqk.blocks_per_sm(p, x_bf16, e_bf16))
     if "w8a16_kernel" in mm:
         split = mm["w8a16_kernel"]
@@ -744,12 +744,12 @@ def kernels_per_call(fn) -> list[str]:
 
 
 def phase_vq_lookup(dev, gen) -> dict:
+    from vector_quantization_tpu_torch.ops.device import card
     from vector_quantization_tpu_torch.ops.vq_lookup import (
         NEAR_TIE_REL_TOL, compare_codes, nearest_codes, nearest_codes_reference, plan,
     )
 
     n_path = TOKENIZER_BATCH * GRID * GRID
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [  # (name, N, K, D, dtype, metric, rows, timed)
         ("path_f32", n_path, CODEBOOK, 8, torch.float32, "l2", "gaussian", True),
         ("path_bf16", n_path, CODEBOOK, 8, torch.bfloat16, "l2", "gaussian", True),
@@ -776,7 +776,7 @@ def phase_vq_lookup(dev, gen) -> dict:
         rep = compare_codes(x, e, got, want, metric)
         row = {"phase": "vq_lookup", "shape": name, "N": n, "K": k, "D": d,
                "dtype": str(dtype).removeprefix("torch."), "metric": metric, "rows": rows,
-               "plan": plan(n, k, d, dtype == torch.bfloat16, dtype == torch.bfloat16, sms)._asdict(),
+               "plan": plan(n, k, d, dtype == torch.bfloat16, dtype == torch.bfloat16, card(dev))._asdict(),
                "rows_differing": rep["differ"], "rows_excused_as_near_ties": rep["excused"],
                "near_tie_rows": rep["near_tie_rows"], "near_tie_abs_tol": rep["tol"],
                "near_tie_rel_tol": NEAR_TIE_REL_TOL, "max_score_gap": rep["max_score_gap"]}

@@ -16,6 +16,7 @@ from vector_quantization_tpu.ops.distances import pairwise_distance as jax_pairw
 from vector_quantization_tpu.ops.vq_lookup import nearest_codes as jax_nearest_codes
 from vector_quantization_tpu.ops.vq_lookup import vq_quantize as jax_vq_quantize
 from vector_quantization_tpu_torch.ops import losses
+from vector_quantization_tpu_torch.ops.device import H100, Card
 from vector_quantization_tpu_torch.ops.distances import normalize, pairwise_distance
 from vector_quantization_tpu_torch.ops.ste import ste
 from vector_quantization_tpu_torch.ops.vq_lookup import (
@@ -136,7 +137,7 @@ def test_k_splits_cover_the_codebook(n, k, d):
     # cover the codebook once, none is empty, and at N = 16384 the grid fills
     # a 132-SM card's block slots (>= 90% of one wave) where the codebook has
     # the tiles
-    p = plan(n, k, d, False, False, 132)
+    p = plan(n, k, d, False, False, H100)
     k_tiles = -(-k // 128)
     assert 1 <= p.tiles_per_split <= k_tiles
     assert (p.splits - 1) * p.tiles_per_split < k_tiles <= p.splits * p.tiles_per_split
@@ -155,14 +156,27 @@ def test_plan_fits_a_block(d, x_bf16, e_bf16):
     # memory while it fits beside the ring (every D up to 256 in f32), and
     # streams through the ring past that; a block never asks for more than
     # an H100 block's 232,448 bytes
-    p = plan(16384, 16384, d, x_bf16, e_bf16, 132)
+    p = plan(16384, 16384, d, x_bf16, e_bf16, H100)
     assert p.k_steps == -(-d // 8)
     assert p.reg_x == (d <= 8)
-    assert p.smem_bytes <= 232_448
+    assert p.smem_bytes <= H100.smem_block
     if d <= 256:
         assert p.x_resident
     assert p.x_resident or d > 256
     assert p.workspace_bytes >= 16384 * 8 + 16384 * 4 + 16384 * p.k_steps * 8 * (2 if e_bf16 else 4)
+
+
+@pytest.mark.parametrize("smem_block", [215_167, 160_000, 123_008])
+def test_plan_streams_x_past_the_block_limit(smem_block):
+    # at D = 256 in f32 the resident x tile and the ring take 215,168 bytes:
+    # a card whose blocks may take less streams x's chunks through the ring
+    # (123,008 bytes), with x's packed chunks in the workspace
+    small = Card(H100.sms, H100.smem_sm, smem_block)
+    resident = plan(16384, 16384, 256, False, False, H100)
+    streamed = plan(16384, 16384, 256, False, False, small)
+    assert resident.x_resident and resident.smem_bytes == 215_168
+    assert not streamed.x_resident and streamed.smem_bytes == 123_008 <= smem_block
+    assert streamed.workspace_bytes > resident.workspace_bytes
 
 
 def _tf32(v):
@@ -177,36 +191,71 @@ def _split(v):
     return hi, _tf32(v - hi)
 
 
-def _emulated_scores(x, e):
+def _to_f32(v, rounding):
+    # float64 -> float32, to nearest (even) or toward zero
+    v = np.asarray(v, np.float64)
+    r = v.astype(np.float32)
+    if rounding == "toward_zero":
+        away = np.abs(r.astype(np.float64)) > np.abs(v)
+        r[away] = np.nextafter(r[away], np.float32(0))
+    return r
+
+
+def _prologue_esq(e):
+    """The prologue's esq = 0.5 * ||e||^2 and its three TF32 parts: lane t
+    of a quad sums dimensions 8 ks + t and 8 ks + t + 4 by fmaf (one
+    rounding each), the quad adds its four sums by two shuffles, then
+    hi = tf32(esq), (mid, lo) = the split of esq - hi."""
+    k, d = e.shape
+    ep = np.zeros((k, -(-d // 8) * 8), np.float32)
+    ep[:, :d] = e
+
+    def fma(a, s):
+        return (a.astype(np.float64) * a + s).astype(np.float32)
+
+    lanes = []
+    for t in range(4):
+        s = np.zeros(k, np.float32)
+        for c in range(0, ep.shape[1], 8):
+            s = fma(ep[:, c + t + 4], fma(ep[:, c + t], s))
+        lanes.append(s)
+    esq = np.float32(0.5) * ((lanes[0] + lanes[1]) + (lanes[2] + lanes[3]))
+    hi = _tf32(esq)
+    mid, lo = _split(esq - hi)
+    return esq, hi, mid, lo
+
+
+def _emulated_scores(x, e, rounding):
     """The Hopper kernel's scores esq - x.e in numpy: A = -x and e split into
-    TF32 hi/lo, per 8-wide k-step the products x_lo.e_hi, x_hi.e_lo and
-    x_hi.e_hi (each exact in f32) summed by the tensor cores, each pass's sum
-    rounded to f32 once, from 0; then esq (the prologue's f32 sum of squares
-    over half) added once."""
+    TF32 hi/lo; per 8-wide k-step the passes x_lo.e_hi, x_hi.e_lo and
+    x_hi.e_hi (each product exact), then one more pass adding esq's three
+    TF32 parts (A = 1 in three columns). Each pass sums its products and
+    the accumulator exactly and rounds once to f32 (``rounding``: the
+    tensor cores' rounding is not documented, so both are held)."""
     n, d = x.shape
     dp = -(-d // 8) * 8
     xp = np.zeros((n, dp), np.float32)
     ep = np.zeros((e.shape[0], dp), np.float32)
     xp[:, :d], ep[:, :d] = -x, e
     (xh, xl), (eh, el) = _split(xp), _split(ep)
-    esq = np.zeros(e.shape[0], np.float32)
-    for j in range(d):
-        esq = (esq.astype(np.float64) + e[:, j].astype(np.float64) ** 2).astype(np.float32)
-    esq = (np.float32(0.5) * esq).astype(np.float32)
     acc = np.zeros((n, e.shape[0]), np.float32)
     for s in range(0, dp, 8):
         for a, b in ((xl, eh), (xh, el), (xh, eh)):
             prod = a[:, s:s + 8].astype(np.float64) @ b[:, s:s + 8].astype(np.float64).T
-            acc = (acc.astype(np.float64) + prod).astype(np.float32)
-    return (acc + esq[None, :]).astype(np.float32)
+            acc = _to_f32(acc + prod, rounding)
+    _, hi, mid, lo = _prologue_esq(e)
+    parts = hi.astype(np.float64) + mid + lo
+    return _to_f32(acc + parts[None, :], rounding)
 
 
+@pytest.mark.parametrize("rounding", ["nearest", "toward_zero"])
 @pytest.mark.parametrize("d", [8, 40, 256])
 @pytest.mark.parametrize("rows", ["gaussian", "unit"])
-def test_tf32_three_pass_scores_match_float64(d, rows):
+def test_tf32_three_pass_scores_match_float64(d, rows, rounding):
     # the design's arithmetic lies well inside the near-tie rule: every
     # emulated score within a tenth of NEAR_TIE_REL_TOL * max|score| of the
-    # float64 score; planted duplicate codes give bit-equal scores
+    # float64 score; esq's three TF32 parts add up to it exactly; planted
+    # duplicate codes give bit-equal scores
     rng = np.random.default_rng(d)
     x = rng.standard_normal((256, d), dtype=np.float32)
     e = rng.standard_normal((512, d), dtype=np.float32)
@@ -214,7 +263,10 @@ def test_tf32_three_pass_scores_match_float64(d, rows):
         x /= np.linalg.norm(x, axis=1, keepdims=True)
         e /= np.linalg.norm(e, axis=1, keepdims=True)
     e[1::2] = e[0::2]
-    got = _emulated_scores(x, e)
+    esq, hi, mid, lo = _prologue_esq(e)
+    np.testing.assert_array_equal(((hi + mid) + lo).view(np.uint32), esq.view(np.uint32))
+    np.testing.assert_array_equal(hi.astype(np.float64) + mid + lo, esq.astype(np.float64))
+    got = _emulated_scores(x, e, rounding)
     x64, e64 = x.astype(np.float64), e.astype(np.float64)
     want = 0.5 * (e64 * e64).sum(axis=1)[None, :] - x64 @ e64.T
     assert np.abs(got - want).max() <= 0.1 * NEAR_TIE_REL_TOL * np.abs(want).max()

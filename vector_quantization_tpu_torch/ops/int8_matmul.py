@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .device import H100, Card, card
 
 __all__ = [
     "DESIGNS", "H100", "Card", "Plan", "card", "int8_matmul", "int8_matmul_reference",
@@ -50,17 +51,6 @@ def int8_matmul_reference(
 
 int8_matmul_reference.cuda_calls = 0
 
-
-class Card(NamedTuple):
-    """What a plan reads of the card: its SM count, the shared memory of
-    one SM and the most of it one block may take (bytes)."""
-
-    sms: int
-    smem_sm: int
-    smem_block: int
-
-
-H100 = Card(132, 233_472, 232_448)  # NVIDIA H100 SXM (80GB HBM3), where the plans were tuned
 
 # each design's kernel: its source, csrc/<source>.cu (the name ``_build.load``
 # takes and the kernel's name in reports), and the kernel function in it
@@ -174,19 +164,6 @@ def plan(b: int, d: int, f: int, card: Card, aligned: bool) -> Plan:
     design where they are and its shares fit; the split-K design elsewhere
     (the lm head's F = 17385 among them)."""
     return (aligned and wide_plan(b, d, f, card)) or split_k_plan(b, d, f, card.sms)
-
-
-@functools.lru_cache(maxsize=None)
-def _card(index: int) -> Card:
-    props = torch.cuda.get_device_properties(index)
-    return Card(props.multi_processor_count, props.shared_memory_per_multiprocessor,
-                props.shared_memory_per_block_optin)
-
-
-def card(device: torch.device) -> Card:
-    """A CUDA device's :class:`Card`, read once."""
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    return _card(idx)
 
 
 def plan_for(x: torch.Tensor, w_int8: torch.Tensor) -> Plan:

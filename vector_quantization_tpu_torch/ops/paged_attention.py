@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .device import card
 from .paged_kv import PagedKVCache, paged_gather
 
 __all__ = ["DecodePlan", "decode_occupancy", "decode_plan", "paged_decode_attention",
@@ -165,11 +166,6 @@ def _check(q, k_pool, v_pool, page_table, lengths, layer, ksc, vsc):
             raise ValueError("pools must be contiguous and 16-byte aligned")
 
 
-@functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def decode_occupancy(plan: DecodePlan, q_dtype: torch.dtype, pool_dtype: torch.dtype,
                      dh: int) -> int:
     """Resident blocks per SM of the kernel under ``plan`` (the card's own
@@ -216,7 +212,7 @@ def paged_decode_attention(
     b, h, dh = q.shape
     _, num_pages, ps = k_pool.shape[:3]
     p_cap = page_table.shape[1]
-    plan = decode_plan(b, h, dh, p_cap, ps, k_pool.dtype, _num_sms(q.device.index))
+    plan = decode_plan(b, h, dh, p_cap, ps, k_pool.dtype, card(q.device).sms)
     q = q.contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty((b, h * dh), dtype=torch.float32, device=q.device)

@@ -13,10 +13,10 @@ in TF32, an f32 operand split into two TF32 parts (three passes for f32 x
 f32, one for bf16 x bf16), f32 sums, the argmin taken on the accumulators.
 Two launches per call: a prologue that writes ``‖e‖²/2`` and the split
 codebook into a workspace, then the lookup. :func:`plan` sizes the launch
-from the shapes and the card's SM count. A CPU tensor goes through the plain
-version :func:`nearest_codes_reference`. The device alone decides: the JAX
-package's choice between Pallas and XLA by code width was measured on a TPU
-and is not carried over.
+from the shapes, the card's SM count and a block's shared memory. A CPU
+tensor goes through the plain version :func:`nearest_codes_reference`. The
+device alone decides: the JAX package's choice between Pallas and XLA by
+code width was measured on a TPU and is not carried over.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .device import Card, card
 from .distances import normalize
 
 __all__ = [
@@ -112,10 +113,9 @@ def _pitch(dims: int, size: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(n: int, k: int, d: int, x_bf16: bool, e_bf16: bool, sms: int,
-         smem_block: int = 232_448) -> LookupPlan:
-    """The launch for (N, K, D) and the operands' types on a card of ``sms``
-    SMs whose blocks may take ``smem_block`` bytes of shared memory.
+def plan(n: int, k: int, d: int, x_bf16: bool, e_bf16: bool, card: Card) -> LookupPlan:
+    """The launch for (N, K, D) and the operands' types on ``card`` (its SM
+    count, and the shared memory one block may take).
 
     The codebook is split across blocks so that the grid (row tiles x
     splits) fills whole waves of the card's block slots best, the fewest
@@ -133,10 +133,10 @@ def plan(n: int, k: int, d: int, x_bf16: bool, e_bf16: bool, sms: int,
     x_tile = _BM * _pitch(8 * ksp, xsize) * xsize
     stages = _STAGES_REG if reg else _STAGES
     q_tile = _BN * 8 * 4  # esq as a B tile
-    x_res = reg or _BAR + stages * (e_stage + q_tile) + x_tile <= smem_block
+    x_res = reg or _BAR + stages * (e_stage + q_tile) + x_tile <= card.smem_block
     stage = e_stage + q_tile + (0 if x_res else x_chunk)
     smem = _BAR + stages * stage + (x_tile if x_res and not reg else 0)
-    slots = sms  # one block an SM: its ring takes most of the shared memory
+    slots = card.sms  # one block an SM: its ring takes most of the shared memory
     best = None
     for s in range(1, min(k_tiles, 4 * -(-slots // row_tiles)) + 1):
         per = -(-k_tiles // s)
@@ -150,11 +150,6 @@ def plan(n: int, k: int, d: int, x_bf16: bool, e_bf16: bool, sms: int,
     workspace = (_round16(n * 8) + _round16(row_tiles * 4) + k_tiles * q_tile
                  + k_tiles * (ksp // kc) * e_stage + (0 if x_res else row_tiles * (ksp // kc) * x_chunk))
     return LookupPlan(ks, reg, x_res, row_tiles, splits, per, smem, workspace)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def blocks_per_sm(p: LookupPlan, x_bf16: bool, e_bf16: bool) -> int:
@@ -195,8 +190,7 @@ def _launch(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"nearest_codes: sizes N={n}, K={k}, D={d} outside [1, 2^31)")
     x = x.contiguous()
     codebook = codebook.contiguous()
-    idx = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    p = plan(n, k, d, x.dtype == torch.bfloat16, codebook.dtype == torch.bfloat16, _sms(idx))
+    p = plan(n, k, d, x.dtype == torch.bfloat16, codebook.dtype == torch.bfloat16, card(x.device))
     workspace = torch.empty((p.workspace_bytes,), dtype=torch.uint8, device=x.device)
     codes = torch.empty((n,), dtype=torch.int32, device=x.device)
     err = _kernel()(

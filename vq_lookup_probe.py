@@ -18,11 +18,7 @@ and times by graph replay, in microseconds per call over three rounds:
 - ``whole``: ``nearest_codes(x, e)`` as a caller makes it;
 - ``library``: ``argmin(addmm(esq, x, e^T, alpha=-1))`` with ``esq`` made
   outside the graph (one PyTorch call's worth of the same function, which
-  writes and reads the N x K matrix);
-- for a tree whose wrapper computes ``0.5 ||e||^2`` in PyTorch and passes it
-  to the C entry (the CUDA-core kernel, before the tensor-core redesign):
-  ``half_sq_norms`` (those PyTorch passes alone) and ``c_entry`` (the C
-  entry's launches alone, ``esq``, keys and codes made outside the graph).
+  writes and reads the N x K matrix).
 
 It also counts the device kernels one call launches (``torch.profiler``) and
 prints their names. Prints one JSON line per shape, then the ``nvidia-smi``
@@ -63,6 +59,8 @@ from pathlib import Path
 
 import torch
 
+from chip_smoke import graph_ms, kernels_per_call
+
 SHAPES = [  # (name, N, K, D, dtype, unit rows)
     ("path_f32", 16384, 16384, 8, torch.float32, False),
     ("path_bf16", 16384, 16384, 8, torch.bfloat16, False),
@@ -72,39 +70,9 @@ SHAPES = [  # (name, N, K, D, dtype, unit rows)
 
 
 def graph_us(fn, replays: int) -> list[float]:
-    """Microseconds per call of ``fn`` captured once into a CUDA graph,
-    ``replays`` replays between CUDA events, in three rounds."""
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        fn()
-    g.replay()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(3):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(replays):
-            g.replay()
-        t1.record()
-        t1.synchronize()
-        out.append(round(1e3 * t0.elapsed_time(t1) / replays, 3))
-    return out
-
-
-def kernels_per_call(fn) -> list[str]:
-    """Names of the device kernels one call of ``fn`` launches."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name[:60] for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    """Microseconds per call of ``fn`` by CUDA-graph replay
+    (``chip_smoke.graph_ms``), in three rounds."""
+    return [round(1e3 * graph_ms([fn], replays), 3) for _ in range(3)]
 
 
 NO_BRANCH = [("    if (qm[h] < rbest[h]) {", "    if (qm[h] < -3.0e38f) {")]
@@ -141,10 +109,10 @@ CUTS = {"shipped": [], "stages16": STAGES16, "no_branch": NO_BRANCH, "no_shuffle
 def run_cuts(vq, root: Path, shapes, replays: int) -> None:
     """Time every copy of ``CUTS`` through the wrapper's own launch."""
     from flash_fwd_probe import build
+    from vector_quantization_tpu_torch.ops.device import card
 
     src = (root / "vector_quantization_tpu_torch" / "csrc" / "vq_lookup.cu").read_text()
     libs = build(src, CUTS, root / "vector_quantization_tpu_torch" / "_kernels_build" / "vq_probe")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     p, i = ctypes.c_void_p, ctypes.c_int
     for lib, _ in libs.values():
         lib.vqt_nearest_codes.restype = i
@@ -154,7 +122,7 @@ def run_cuts(vq, root: Path, shapes, replays: int) -> None:
     for name, x, e in shapes:
         (n, d), k = x.shape, e.shape[0]
         bf = x.dtype == torch.bfloat16
-        pl = vq.plan(n, k, d, bf, bf, sms)
+        pl = vq.plan(n, k, d, bf, bf, card(x.device))
         blocks = i(0)
         err = occ(int(bf), int(bf), int(pl.reg_x), pl.smem_bytes, ctypes.byref(blocks))
         ws = torch.empty((pl.workspace_bytes,), dtype=torch.uint8, device=x.device)
@@ -211,18 +179,6 @@ def main() -> int:
         xf, ef = x.float(), e.float()
         row["library_us"] = graph_us(
             lambda: torch.argmin(torch.addmm(esq, xf, ef.T, alpha=-1), dim=1), args.replays)
-        if hasattr(vq, "k_tiles_per_split"):  # the CUDA-core kernel's C entry
-            keys = torch.empty((n,), dtype=torch.int64, device=dev)
-            codes = torch.empty((n,), dtype=torch.int32, device=dev)
-            split = vq.k_tiles_per_split(n, k, torch.cuda.get_device_properties(0).multi_processor_count)
-            dt = vq._DTYPE_CODE[dtype]
-
-            def c_entry():
-                vq._kernel()(x.data_ptr(), dt, e.data_ptr(), dt, esq.data_ptr(), keys.data_ptr(),
-                             codes.data_ptr(), n, k, d, split, torch.cuda.current_stream().cuda_stream)
-
-            row["half_sq_norms_us"] = graph_us(lambda: vq._half_sq_norms(e), args.replays)
-            row["c_entry_us"] = graph_us(c_entry, args.replays)
         print(json.dumps(row), flush=True)
         if not rep["ok"]:
             print(f"vq_lookup_probe: {name}: codes disagree beyond near-ties", file=sys.stderr)
