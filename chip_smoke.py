@@ -55,7 +55,31 @@ exits non-zero:
    finish with 256 codes in [0, 16384), every page must be freed, K3 and
    each K2 kernel that a serving shape's plan names must have launched,
    and no plain version may have run on a CUDA tensor.
-6. ``vq_lookup``: the nearest-code kernel (TF32 wgmma, an f32 operand
+6. ``dense_vs_paged``: the model of phase 4 fed the same 127 prior steps of
+   the same tokens (B = 64) through the dense INT8 cache (scalar offset,
+   einsum attention) and the paged INT8 pool (K3); the 128th step's logits
+   within 5e-2 * max|ref| of the pool's, >= 90% of rows' argmax equal, 24
+   K3 launches a step, no plain version on the card. Then K2 against its
+   plain version (max relative error <= 1e-3) and timed as in phase 2 at
+   the dense path's new shapes: generate()'s gate/up (64, 1024, 2816) and
+   the INT8 cache-free forward's (8256, 1024, 2816).
+7. ``serving_dense``: ``ARServer()`` with its default engine (dense cache,
+   shared column) at bench.py's serving recipe: phase 4's model, 64 rows =
+   32 CFG streams, alpha 1.75, top-k 600, top-p 0.92, INT8 KV,
+   ``steps_per_sync`` 128 in ``sync_chunk``s of 64, 256 image tokens. Two
+   arrival patterns on one server: ``--requests`` up front (aligned), and
+   16 up front then 16 more after each sync (staggered). Every request
+   finishes with 256 codes in range, the shared column stays within its
+   cap, each K2 kernel of phase 5 launches, no plain version on the card;
+   effective tokens/s, images/min and the efficiency report per pattern.
+8. ``generate``: ``generate()`` as bench.py's ar section runs it: Llama-
+   medium bf16 with INT8 weights, unfused (7 K2 launches a layer and the
+   head: 169 a forward), B = 64 rows of class 0, 256 tokens, INT8 dense
+   cache grown 32 columns a segment, top-k 600, top-p 0.92. Codes (64,
+   256) in range, K2 launched 257 x 169 = 43,433 times in one call (the
+   prefill and 256 steps), no plain version on the card; tokens/s over the
+   median of 3 timed calls after the first.
+9. ``vq_lookup``: the nearest-code kernel (TF32 wgmma, an f32 operand
    split in two) against its plain version at the tokenizer's shape N = K
    = 16384, D = 8 (f32 and bf16, Gaussian rows; f32 unit rows, what the
    LlamaGen quantizer feeds), the flagship D = 256, a ragged 1000 x 777 x
@@ -70,7 +94,7 @@ exits non-zero:
    kernels one call launches (torch.profiler) and ``library_ms`` =
    ``argmin(addmm(esq/2, x, e^T, alpha=-1))``, which writes and reads the
    N x K matrix (not the same work).
-7. ``tokenizer``: the LlamaGen VQGAN (configs/llamagen/vqgan_imagenet_ddp.py,
+10. ``tokenizer``: the LlamaGen VQGAN (configs/llamagen/vqgan_imagenet_ddp.py,
    built through the port's config loader and registry; 69,593,227
    parameters, weights made from ``--seed`` with numpy in the flax layout
    and loaded through the bridge), f32. 64 images of 256 px: encode_to_quant
@@ -79,9 +103,9 @@ exits non-zero:
    decode_from_quant -> (64, 256, 256, 3), and the full forward on 8 images.
    Encode and decode images/s on the host clock (after a warm-up pass of
    the same batch), and the convolutions' and Linears' FLOPs per image.
-8. ``class_to_image``: the code grids of the requests that phase 5 served
+11. ``class_to_image``: the code grids of the requests that phase 5 served
    -> decode_from_quant -> pixel_decode -> uint8 (requests, 256, 256, 3).
-9. ``flash_attention``: K4-fwd, K4-dkv and K4-dq against their plain
+12. ``flash_attention``: K4-fwd, K4-dkv and K4-dq against their plain
    versions (both backward versions fed the kernel's o and lse), bf16, at
    the path shape (B, T, H, Dh) = (64, 257, 16, 64), ragged T in {1, 63,
    64, 65, 129, 256, 300} (the partial first tile at each length), 705
@@ -98,7 +122,7 @@ exits non-zero:
    attention (SDPA pinned to its FLASH_ATTENTION backend): its forward, and
    its backward alone (the aten flash backward on residuals made outside
    the graph); ``sdpa_fwd_bwd_ms`` both together.
-10. ``ar_train``: ``ARAlgorithm`` from configs/llamagen/c2i_medium_imagenet_ddp.py
+13. ``ar_train``: ``ARAlgorithm`` from configs/llamagen/c2i_medium_imagenet_ddp.py
    with ``transformer.flash=True`` through the port's config loader and
    registry (Llama-medium, bf16 over f32 params, full per-block remat, fused
    CE, AdamW with the config's warm-up schedule, weight decay 0.05, grad
@@ -109,7 +133,7 @@ exits non-zero:
    every transformer parameter changed and no tokenizer parameter, launches
    per step K4-fwd 48 (24 + 24 remat re-runs), dkv 24, dq 24, K1 once per
    image step, no plain version on the card.
-11. ``ar_flash_vs_einsum``: one step's loss and gradients on 64 rows of the
+14. ``ar_flash_vs_einsum``: one step's loss and gradients on 64 rows of the
    codes batch with the same weights through flash and through the einsum
    attention (``flash=False``): loss within 1e-2 relative, every
    parameter's gradient within 5e-2 relative L2 (bf16 attention rounds P at
@@ -117,17 +141,26 @@ exits non-zero:
    step on those 64 rows with each attention (einsum is what the shipped
    configs/ar/transformers/llama.py runs), median of 3 steps on the host
    clock after a warm-up.
-12. ``decode_profile``: the decode step of phase 4 on the host clock and,
+15. ``ar_generate``: class -> image through ``ARAlgorithm.generate_step``
+   on phase 13's model and state (CFG as the config sets it, alpha 1.75,
+   its top-k 600 / top-p 0.92 sampler), 8 classes, then phase 10's VQGAN
+   decoder: images (8, 256, 256, 3), finite; seconds per image.
+16. ``decode_profile``: the decode step of phase 4 on the host clock and,
    under torch.profiler, its device time; their ratio gives the device's
    idle share (run last: the profiler slows later host dispatch).
-13. ``tokenizer_profile``: one encode + decode of the 64 images of phase 7
+17. ``generate_profile``: one decode step of phase 8 at its midpoint (a
+   129-column INT8 cache) on the host clock and under torch.profiler:
+   device ms, idle share, K2's share.
+18. ``tokenizer_profile``: one encode + decode of the 64 images of phase 7
    under torch.profiler: device time by kernel and the idle share.
-14. ``ar_train_profile``: one codes train step under torch.profiler:
+19. ``ar_train_profile``: one codes train step under torch.profiler:
    device time by kernel and the idle share.
-15. ``kernels``: per kernel, launches in its path's run (phase 5 for the
+20. ``kernels``: per kernel, launches in its path's run (phase 5 for the
    server's: K2's kernels that the serving shapes' plans name, and K3;
-   phase 7 for the lookup, phase 10 for the three flash kernels), device
-   time per call, the bound, the plain version's and the yardstick's time.
+   phase 10 for the lookup, phase 13 for the three flash kernels; K2's
+   rows also give their launches in phases 7 and 8, and phase 6's times
+   at the dense path's shapes), device time per call, the bound, the plain
+   version's and the yardstick's time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
@@ -136,6 +169,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -157,6 +191,13 @@ MEDIUM = dict(hidden_size=1024, num_layers=24, num_heads=16, ffn_dim=2816)
 VOCAB = NUM_CATEGORIES + 1 + CODEBOOK
 SLOTS, IMAGE_TOKENS, STEPS_PER_SYNC, PAGE_SIZE = 64, 256, 64, 64
 P_SLOT = -(-(IMAGE_TOKENS + STEPS_PER_SYNC) // PAGE_SIZE)  # 5 pages per row
+# the dense server's recipe (bench.py serving_bench): 128 steps a sync in chunks of 64
+DENSE_STEPS_PER_SYNC, SYNC_CHUNK = 128, 64
+MEDIUM_MAX_LENGTH = 1 + IMAGE_TOKENS + DENSE_STEPS_PER_SYNC
+SAMPLER = {"temperature": 1.0, "top_k": 600, "top_p": 0.92}
+# generate() as bench.py's ar section runs it: Llama-medium INT8, unfused, B = 64
+GEN_BATCH, GEN_SEGMENT = 64, 32
+GEN_K2_PER_FORWARD = 7 * MEDIUM["num_layers"] + 1  # q, k, v, o, gate, up, down per layer + head
 # the LlamaGen VQGAN tokenizer: f16 at 256 px, 16384 x 8 codebook
 VQGAN_CONFIG = "configs/llamagen/vqgan_imagenet_ddp.py"
 VQGAN_PARAMS, IMAGE_SIZE, GRID, TOKENIZER_BATCH = 69_593_227, 256, 16, 64
@@ -408,7 +449,7 @@ def phase_int8_matmul(dev, gen) -> list[dict]:
         if not mine:
             continue
         kernels.append({
-            "name": source, "route": "cuda", "source": f"{CSRC}/{source}.cu",
+            "name": source, "design": design, "route": "cuda", "source": f"{CSRC}/{source}.cu",
             "replaces": "vector_quantization_tpu/ops/int8_matmul.py:54",
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": per_launch(mine, "ms"), "plain_ms": per_launch(mine, "plain_ms"),
@@ -540,17 +581,28 @@ def medium_flax_params(seed: int) -> dict:
     return params
 
 
-def make_medium(seed: int, dev):
-    """Llama-medium with INT8 weights and fused projections, weights made
-    from ``seed`` with numpy in the flax layout and loaded via the bridge."""
+@functools.lru_cache(maxsize=None)
+def medium_int8_params(seed: int) -> dict:
+    """:func:`medium_flax_params` with INT8 projections and head, unfused."""
+    from vector_quantization_tpu_torch.models.transformers.llama import quantize_params_int8
+
+    return quantize_params_int8(medium_flax_params(seed))
+
+
+def make_medium(seed: int, dev, fused: bool = True, max_length: int = MEDIUM_MAX_LENGTH):
+    """Llama-medium bf16 with INT8 weights (fused projections unless
+    ``fused=False``), weights made from ``seed`` with numpy in the flax
+    layout and loaded via the bridge."""
     from vector_quantization_tpu_torch.models.transformers.llama import (
-        LlamaTransformer, fuse_llama_params, quantize_params_int8,
+        LlamaTransformer, fuse_llama_params,
     )
     from vector_quantization_tpu_torch.utils.bridge import llama_params_from_flax
 
-    params = fuse_llama_params(quantize_params_int8(medium_flax_params(seed)))
-    model = LlamaTransformer(vocabulary_size=VOCAB, max_length=1 + IMAGE_TOKENS + STEPS_PER_SYNC,
-                             dtype="bfloat16", quantize=True, fused_qkv=True, **MEDIUM)
+    params = medium_int8_params(seed)
+    if fused:
+        params = fuse_llama_params(params)
+    model = LlamaTransformer(vocabulary_size=VOCAB, max_length=max_length, dtype="bfloat16",
+                             quantize=True, fused_qkv=fused, **MEDIUM)
     model.load_state_dict(llama_params_from_flax(params))
     return model.to(dev).eval()
 
@@ -708,6 +760,249 @@ def phase_serving(model, dev, seed: int, n_requests: int,
     if not ok:
         raise SystemExit("serving: a check failed (see the serving line)")
     return launches, done
+
+
+def k2_launches(launches: dict) -> int:
+    """K2's launches over both of its kernels."""
+    from vector_quantization_tpu_torch.ops.int8_matmul import DESIGNS
+
+    return sum(launches[source] for source, _ in DESIGNS.values())
+
+
+def int8_matmul_row(dev, gen, name: str, b: int, d: int, f: int) -> dict:
+    """K2 through ``int8_matmul`` (the plan's kernel) against its plain
+    version at one shape, and the three device times of phase
+    ``int8_matmul`` (weights rotated past the L2)."""
+    from vector_quantization_tpu_torch.ops import int8_matmul as im
+
+    x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+    ws = [torch.randint(-127, 128, (d, f), generator=gen, device=dev, dtype=torch.int8)
+          for _ in range(-(-150_000_000 // (d * f)))]
+    s = torch.rand((f,), generator=gen, device=dev) * 0.02 + 1e-3
+    got, want = im.int8_matmul(x, ws[0], s), im.int8_matmul_reference(x, ws[0], s)
+    torch.cuda.synchronize()
+    abs_err = float((got - want).abs().max())
+    p = im.plan_for(x, ws[0])
+    byts, ops = d * f + b * d * 2 + f * 4 + b * f * 4, 2 * b * d * f
+    row = {"phase": "int8_matmul", "shape": name, "B": b, "D": d, "F": f, "plan": p._asdict(),
+           "source": f"{CSRC}/{p.source}.cu", "max_abs_err": abs_err,
+           "max_rel_err": abs_err / float(want.abs().max()), "limit": 1e-3,
+           "weight_copies": len(ws), "bytes": byts, "ops": ops,
+           "bound_ms": 1e3 * max(byts / HBM_BYTES_PER_S, ops / BF16_FLOPS),
+           "bound_by": "bytes" if byts / HBM_BYTES_PER_S >= ops / BF16_FLOPS else "operations"}
+    if row["max_rel_err"] > 1e-3 or not torch.isfinite(got).all():
+        emit(row)
+        raise SystemExit(f"int8_matmul {name}: max_rel_err {row['max_rel_err']} > 1e-3")
+    wb = [w.to(torch.bfloat16) for w in ws]
+    row.update({
+        "ms": graph_ms([lambda w=w: im.int8_matmul(x, w, s) for w in ws]),
+        "plain_ms": graph_ms([lambda w=w: im.int8_matmul_reference(x, w, s) for w in ws], replays=3),
+        "library_ms": graph_ms([lambda w=w: torch.matmul(x, w) * s for w in wb], replays=3),
+    })
+    emit(row)
+    return row
+
+
+def phase_dense_vs_paged(model, dev, gen, seed: int) -> list[dict]:
+    """One decode step at full width (the fused INT8 model) over the dense
+    INT8 cache (einsum attention) and over the paged INT8 pool (K3), both
+    filled by the same 127 prior steps of the same tokens; then K2 at the
+    dense path's new shapes."""
+    b, n = SLOTS, 128
+    p_slot = -(-n // PAGE_SIZE)
+    toks = torch.from_numpy(np.random.default_rng(seed + 5).integers(
+        0, VOCAB, (n, b, 1)).astype(np.int32)).to(dev)
+    dense = model.init_cache(b, dtype=torch.int8, rows=n)
+    paged = model.init_paged_cache(b, 1 + b * p_slot, PAGE_SIZE, p_slot, dtype=torch.int8,
+                                   device=dev)
+    paged.page_table.copy_(torch.arange(1, 1 + b * p_slot, device=dev).reshape(b, p_slot))
+    zero_launches()
+    _, plain0 = read_launches()
+    with torch.inference_mode():
+        for i in range(n):
+            got, dense = model(toks[i], dense)
+            want, paged = model(toks[i], paged, slot_positions=torch.full(
+                (b,), i, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    launches, plain = read_launches()
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    row = {"phase": "dense_vs_paged", "B": b, "steps": n, "vocab": VOCAB, **MEDIUM,
+           "dense_cache_columns": dense.window, "paged_pages_per_row": p_slot,
+           "max_abs_err_over_max_ref": err, "limit": 5e-2, "argmax_agree_frac": agree,
+           "argmax_limit": 0.9, "ref": "paged pool through K3", "launches": launches,
+           "plain_runs_on_cuda": plain - plain0}
+    emit(row)
+    if (got.shape != (b, 1, VOCAB) or not torch.isfinite(got).all() or err > 5e-2 or agree < 0.9
+            or plain != plain0 or launches["paged_decode_attention"] != n * MEDIUM["num_layers"]):
+        raise SystemExit("dense_vs_paged: the dense and paged decode disagree (see its line)")
+    del dense, paged
+    d, f = MEDIUM["hidden_size"], MEDIUM["ffn_dim"]
+    return [int8_matmul_row(dev, gen, "generate_gate_up", GEN_BATCH, d, f),
+            int8_matmul_row(dev, gen, "int8_prefill_gate_up", GEN_BATCH * 129, d, f)]
+
+
+def phase_serving_dense(model, dev, seed: int, n_requests: int, k2_kernels: list[str]):
+    """``ARServer()`` with its default engine (dense, shared column) at the
+    bench recipe; two arrival patterns on one server: aligned (every
+    request up front) and staggered (16 up front, 16 more after each
+    sync)."""
+    from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook
+    from vector_quantization_tpu_torch.tasks.serving import ARServer
+
+    server = ARServer(
+        model, None, TokenCodebook(NUM_CATEGORIES + 1, CODEBOOK), image_tokens=IMAGE_TOKENS,
+        batch_slots=SLOTS, sampler=SAMPLER, cfg_alpha=1.75, uncond_token=NUM_CATEGORIES,
+        steps_per_sync=DENSE_STEPS_PER_SYNC, sync_chunk=SYNC_CHUNK, cache_dtype=torch.int8,
+        seed=seed, device=dev,
+    )
+    max_col = 0
+
+    def serve(staggered: bool):
+        nonlocal max_col
+        submitted = 0
+        for _ in range(min(16, n_requests) if staggered else n_requests):
+            server.submit(category=submitted % NUM_CATEGORIES)
+            submitted += 1
+        done = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while server.pending or submitted < n_requests:
+            done.extend(server.step())
+            max_col = max(max_col, server.col)
+            for _ in range(min(16, n_requests - submitted) if staggered else 0):
+                server.submit(category=submitted % NUM_CATEGORIES)
+                submitted += 1
+        torch.cuda.synchronize()
+        return dict(done), time.perf_counter() - t0
+
+    zero_launches()
+    _, plain0 = read_launches()
+    rows, ok = {}, server._shared_col
+    for pattern in ("aligned", "staggered"):
+        for key in server.stats:  # count each pattern's run alone
+            server.stats[key] = 0 if isinstance(server.stats[key], int) else 0.0
+        first = server._next_id
+        done, wall = serve(pattern == "staggered")
+        rows[pattern] = {"requests": n_requests, "finished": len(done), "wall_s": wall,
+                         "effective_tokens_per_s": n_requests * IMAGE_TOKENS / wall,
+                         "images_per_min": n_requests / wall * 60.0,
+                         "efficiency_report": server.efficiency_report()}
+        ok = ok and sorted(done) == list(range(first, first + n_requests)) and all(
+            c.shape == (IMAGE_TOKENS,) and (c >= 0).all() and (c < CODEBOOK).all()
+            for c in done.values())
+    launches, plain = read_launches()
+    row = {"phase": "serving_dense", "engine": "shared_column" if server._shared_col else "scatter",
+           "image_tokens": IMAGE_TOKENS, "batch_slots": SLOTS,
+           "steps_per_sync": DENSE_STEPS_PER_SYNC, "sync_chunk": SYNC_CHUNK, **rows,
+           "staggered_over_aligned": rows["staggered"]["effective_tokens_per_s"]
+           / rows["aligned"]["effective_tokens_per_s"],
+           "max_col": max_col, "sc_cap": server._sc_cap, "launches": launches,
+           "plain_runs_on_cuda": plain - plain0}
+    emit(row)
+    if not (ok and max_col <= server._sc_cap and all(launches[k] > 0 for k in k2_kernels)
+            and plain == plain0):
+        raise SystemExit("serving_dense: a check failed (see the serving_dense line)")
+    return launches
+
+
+def phase_generate(dev, seed: int):
+    """``generate()`` as bench.py's ar section runs it, through the port:
+    Llama-medium INT8 unfused, B = 64 rows of class 0, 256 tokens, INT8
+    dense cache grown 32 columns a segment, top-k 600 / top-p 0.92."""
+    from vector_quantization_tpu_torch.ops.int8_matmul import DESIGNS
+    from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook, generate
+
+    model = make_medium(seed, dev, fused=False, max_length=1 + IMAGE_TOKENS)
+    codebook = TokenCodebook(NUM_CATEGORIES + 1, CODEBOOK)
+    prefix = torch.zeros((GEN_BATCH, 1), dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def run():
+        return generate(model, prefix, IMAGE_TOKENS, codebook, gen, sampler=SAMPLER,
+                        cache_dtype=torch.int8, kv_segment=GEN_SEGMENT)
+
+    zero_launches()
+    _, plain0 = read_launches()
+    codes, first_s = _timed(run)
+    launches, plain = read_launches()
+    times = [_timed(run)[1] for _ in range(3)]
+    wall = float(np.median(times))
+    want_k2 = (1 + IMAGE_TOKENS) * GEN_K2_PER_FORWARD
+    row = {"phase": "generate", "B": GEN_BATCH, "tokens": IMAGE_TOKENS, "kv_segment": GEN_SEGMENT,
+           "cache": "int8", "weights": "int8, unfused", **MEDIUM, "sampler": SAMPLER,
+           "codes_shape": list(codes.shape), "first_call_s": first_s, "timed_calls_s": times,
+           "tokens_per_s": GEN_BATCH * IMAGE_TOKENS / wall,
+           "ms_per_token": 1e3 * wall / IMAGE_TOKENS, "launches": launches,
+           "k2_launches": k2_launches(launches), "k2_launches_expected": want_k2,
+           "plain_runs_on_cuda": plain - plain0}
+    emit(row)
+    if (codes.shape != (GEN_BATCH, IMAGE_TOKENS) or codes.dtype != torch.int32
+            or bool((codes < 0).any()) or bool((codes >= CODEBOOK).any())
+            or row["k2_launches"] != want_k2 or plain != plain0):
+        raise SystemExit("generate: a check failed (see the generate line)")
+
+    def profile_generate_step() -> None:
+        """One decode step of generate() at its midpoint (token 128: the
+        cache of 129 columns, the segment that holds it), on the host clock
+        and under torch.profiler: device ms, idle share, K2's share."""
+        from torch.profiler import ProfilerActivity, profile
+
+        rows, length = 1 + 128, 128
+        cache = model.init_cache(GEN_BATCH, dtype=torch.int8, rows=rows)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        for t in (*cache.k, *cache.v):
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g, device=dev, dtype=torch.int8))
+        for t in (*cache.k_scale, *cache.v_scale):
+            t.copy_(torch.rand(t.shape, generator=g, device=dev) * 0.02)
+        cache = cache._replace(length=length)
+        tok = torch.randint(0, VOCAB, (GEN_BATCH, 1), generator=g, device=dev, dtype=torch.int32)
+        with torch.inference_mode():
+            model(tok, cache)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                model(tok, cache)
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) / 3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    model(tok, cache)
+                torch.cuda.synchronize()
+        events = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
+        device_us = sum(e.self_device_time_total for e in events) / 3
+        if device_us <= 0:
+            raise SystemExit("generate_profile: the profiler recorded no device time")
+        k2_us = sum(e.self_device_time_total for e in events
+                    if any(kernel in e.key for _, kernel in DESIGNS.values())) / 3
+        emit({"phase": "generate_profile", "B": GEN_BATCH, "cache_columns": rows,
+              "step_ms_host_clock": 1e3 * host, "device_ms_per_step_profiler": device_us / 1e3,
+              "device_idle_frac": 1.0 - device_us / 1e6 / host, "k2_device_ms": k2_us / 1e3,
+              "k2_share_of_device": k2_us / device_us,
+              "top_kernels": [{"name": e.key[:90], "calls": e.count / 3,
+                               "ms_per_step": e.self_device_time_total / 3e3}
+                              for e in events[:10]]})
+
+    return launches, profile_generate_step
+
+
+def phase_ar_generate(algo, state, dev, seed: int) -> None:
+    """Class -> image through ``ARAlgorithm.generate_step``: the LlamaGen
+    C2I model of phase ``ar_train`` with CFG as its config sets it, 8
+    classes, the VQGAN decoder of phase ``tokenizer``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    category = torch.arange(0, NUM_CATEGORIES, NUM_CATEGORIES // 8, device=dev)[:8]
+    zero_launches()
+    images, wall = _timed(lambda: algo.generate_step(state, category, gen))
+    launches, _ = read_launches()
+    row = {"phase": "ar_generate", "classes": int(category.numel()), "cfg": algo.cfg,
+           "cfg_alpha": algo.cfg_alpha, "sampler": algo.sampler,
+           "transformer_dtype": str(algo.model.dtype).removeprefix("torch."),
+           "images_shape": list(images.shape), "wall_s": wall,
+           "s_per_image": wall / category.numel(), "launches": launches}
+    emit(row)
+    if images.shape != (8, IMAGE_SIZE, IMAGE_SIZE, 3) or not torch.isfinite(images).all():
+        raise SystemExit("ar_generate: the generated images are not (8, 256, 256, 3) and finite")
 
 
 TF32_FLOPS = 495e12  # dense tensor-core TF32
@@ -1320,8 +1615,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     model = make_medium(args.seed, dev)
     profile_step = phase_decode_step(model, dev, gen)
-    launches, done = phase_serving(model, dev, args.seed, args.requests,
-                                   [k["name"] for k in k_int8])
+    k2_kernels = [k["name"] for k in k_int8]
+    launches, done = phase_serving(model, dev, args.seed, args.requests, k2_kernels)
+    k2_dense_rows = phase_dense_vs_paged(model, dev, gen, args.seed)
+    dense_launches = phase_serving_dense(model, dev, args.seed, args.requests, k2_kernels)
+    del model
+    torch.cuda.empty_cache()
+    gen_launches, profile_generate = phase_generate(dev, args.seed)
     k_vq = phase_vq_lookup(dev, gen)
     torch.cuda.empty_cache()
     vqgan, vqgan_cfg = make_vqgan(args.seed, dev)
@@ -1332,11 +1632,20 @@ def main() -> int:
     algo, ar_cfg = make_ar_algorithm(args.seed, dev, vqgan)
     ar_launches, ar_state, codes_batch = phase_ar_train(algo, ar_cfg, dev, args.seed)
     phase_ar_flash_vs_einsum(algo, ar_state, codes_batch)
+    phase_ar_generate(algo, ar_state, dev, args.seed)
     profile_step()
+    profile_generate()
     profile_tokenizer()
     profile_ar_step(algo, ar_state, codes_batch)
-    for k in (*k_int8, k_attn):
+    for k in k_int8:
         k["launches"] = launches[k["name"]]
+        k["launches_by_path"] = {"serving": launches[k["name"]],
+                                 "generate": gen_launches[k["name"]],
+                                 "serving_dense": dense_launches[k["name"]]}
+        k["dense_path_shapes"] = [{key: r[key] for key in ("shape", "B", "D", "F", "ms", "plain_ms",
+                                                           "library_ms", "bound_ms", "max_abs_err")}
+                                  for r in k2_dense_rows if r["plan"]["design"] == k["design"]]
+    k_attn["launches"] = launches[k_attn["name"]]
     k_vq["launches"] = tok_launches["nearest_codes"]
     for k in k_flash:
         k["launches"] = ar_launches[k["name"]]

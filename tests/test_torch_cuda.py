@@ -496,3 +496,55 @@ def test_llama_flash_remat_launches_kernels_only(dev):
              fa.flash_attention_reference.cuda_calls, fa.flash_attention_bwd_reference.cuda_calls)
     assert tuple(a - b for a, b in zip(after, before)) == (6, 3, 3, 0, 0)
     assert torch.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("b,d,f", [(64, 1024, 2816), (8256, 1024, 2816)])
+def test_int8_matmul_dense_decode_shapes_match_plain(dev, b, d, f):
+    # generate()'s unfused gate/up at B = 64, and the INT8 cache-free
+    # forward (64 rows x 129 positions) at B * T = 8256
+    x, w, s = _int8_inputs(dev, b, d, f, seed=b)
+    before = int8_matmul.launches
+    got = int8_matmul(x, w, s)
+    want = int8_matmul_reference(x, w, s)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    assert _rel_err(got, want) <= 1e-3
+
+
+def test_dense_decode_step_kernels_match_plain(dev):
+    # a small-width INT8 model over the dense INT8 cache: prefill, then one
+    # step, through the kernels and through the plain versions on the card
+    from vector_quantization_tpu_torch.models.transformers import llama as llama_mod
+
+    torch.manual_seed(0)
+    model = LlamaTransformer(vocabulary_size=300, hidden_size=128, num_layers=2, num_heads=2,
+                             ffn_dim=256, max_length=40, dtype="bfloat16", quantize=True,
+                             fused_qkv=True).to(dev).eval()
+    with torch.no_grad():  # the INT8 head starts at zero
+        model.lm_head_int8.copy_(torch.randint(-127, 128, model.lm_head_int8.shape))
+        model.lm_head_scale.uniform_(1e-3, 2e-2)
+    rng = np.random.default_rng(0)
+    prefix = torch.from_numpy(rng.integers(0, 300, (8, 5)).astype(np.int32)).to(dev)
+    step = torch.from_numpy(rng.integers(0, 300, (8, 1)).astype(np.int32)).to(dev)
+
+    def run():
+        with torch.inference_mode():
+            cache = model.init_cache(8, dtype=torch.int8)
+            _, cache = model(prefix, cache)
+            return model(step, cache)[0]
+
+    before = (int8_matmul.launches, int8_matmul_reference.cuda_calls)
+    got = run()
+    torch.cuda.synchronize()
+    # 2 prefill/step forwards x (4 projections x 2 layers + the head)
+    assert (int8_matmul.launches - before[0], int8_matmul_reference.cuda_calls - before[1]) == (18, 0)
+    saved = llama_mod.int8_matmul
+    llama_mod.int8_matmul = int8_matmul_reference
+    try:
+        want = run()
+    finally:
+        llama_mod.int8_matmul = saved
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
+    assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= 0.9

@@ -108,30 +108,14 @@ def test_registry_builds_config_dict():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(quantize=True),  # no cache on an INT8 model: the INT8 prefill forward
-        dict(cache="dense"),
-        dict(row_starts=True),
         dict(remat_policy="dots"),  # no cache: selective checkpointing
     ],
 )
 def test_paths_of_later_slices_raise(kwargs):
-    model_kw = {k: v for k, v in kwargs.items() if k in ("quantize", "remat_policy")}
-    if "remat_policy" in model_kw:
-        model_kw["remat"] = True
-    tt = LlamaTransformer(**TINY, **model_kw)
+    tt = LlamaTransformer(**TINY, remat=True, **kwargs)
     tokens = torch.zeros((1, 1), dtype=torch.int32)
-    cache = tt.init_paged_cache(1, 3, 4, 2, dtype=torch.float32, device="cpu")
-    call = {}
-    if kwargs.get("cache") == "dense":
-        call["cache"] = (torch.zeros(1),)
-    elif kwargs.get("row_starts"):
-        call["cache"] = cache
-        call["slot_positions"] = torch.zeros(1, dtype=torch.int32)
-        call["row_starts"] = torch.zeros(1, dtype=torch.int32)
-    elif "remat_policy" in kwargs:
-        call["fused_ce_targets"] = tokens
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt(tokens, **call)
+        tt(tokens, fused_ce_targets=tokens)
 
 
 @pytest.mark.parametrize("kwargs", [dict(quantize_mode="w8a8"), dict(paged_kernel=False)])

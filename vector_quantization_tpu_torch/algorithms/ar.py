@@ -13,8 +13,11 @@ its weights never change, as the JAX package keeps its params in
 ``train_step``: tokens -> the fused-CE loss (or the dense head +
 ``next_token_ce``) -> gradients -> the optimizer, in place.
 ``eval_step``: the dense head's CE and the teacher-forced sampling
-accuracy. Generation (``generate_step``, ``half_generate_step``,
-``eval_generate``) needs the dense KV cache, a later slice: it raises.
+accuracy (with ``eval_generate``, also the generated images of the
+batch's classes). ``generate_step``: classes -> images through
+``tasks/sequence_modeling.generate`` (CFG as configured) and the
+tokenizer's decoder; ``half_generate_step``: the back half of each image
+regenerated from its ground-truth front half.
 
 The algorithm runs on CUDA unless built with ``device="cpu"``
 (``AlgorithmRegistry.build(cfg, device="cpu")``).
@@ -31,6 +34,7 @@ from ..registries import AlgorithmRegistry, ModelRegistry, TransformerRegistry
 from ..tasks.image_tokenization import model_device
 from ..tasks.sequence_modeling import (
     TokenCodebook,
+    generate,
     next_token_ce,
     pack_c2i_tokens,
     teacher_forced_sample,
@@ -39,8 +43,6 @@ from ..training.state import TrainState
 from .base import Algorithm
 
 __all__ = ["ARAlgorithm"]
-
-_DENSE_SLICE = "ROADMAP.md queue A: the dense shared-column engine and generate()"
 
 
 @AlgorithmRegistry.register()
@@ -60,8 +62,9 @@ class ARAlgorithm(Algorithm):
         device: torch.device | str | None = None,
         **kwargs: Any,
     ) -> None:
-        if eval_generate:
-            raise NotImplementedError(f"eval_generate: {_DENSE_SLICE}")
+        # eval_generate: eval_step also generates the batch's classes
+        # (costly; off by default)
+        self.eval_generate = eval_generate
         self.device = model_device(device)
         self.fused_ce = fused_ce
         if isinstance(ir, nn.Module):
@@ -94,6 +97,11 @@ class ARAlgorithm(Algorithm):
         with torch.no_grad():
             return self.ir_model.encode_to_quant(image)
 
+    def decode_image_tokens(self, codes: torch.Tensor) -> torch.Tensor:
+        """code grids (B, h, w) -> pixels (B, H, W, 3) in [-1, 1]."""
+        with torch.no_grad():
+            return self.ir_model.decode_from_quant(codes)
+
     def _tokens(self, state: TrainState, batch, train: bool) -> torch.Tensor:
         if "codes" in batch:
             codes = batch["codes"].to(self.device)
@@ -125,8 +133,10 @@ class ARAlgorithm(Algorithm):
         return state, {"loss": loss.detach()}
 
     def eval_step(self, state: TrainState, batch, generator: torch.Generator | None = None) -> dict:
-        """Loss and token accuracy; the accuracy's draws use ``generator``
-        (default: one seeded with the state's step)."""
+        """Loss and token accuracy (and with ``eval_generate`` the images
+        generated for the batch's classes); the accuracy's draws and the
+        generation's use ``generator`` (default: one seeded with the
+        state's step)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(state.step)
         with torch.no_grad():
@@ -137,10 +147,29 @@ class ARAlgorithm(Algorithm):
                                             self.sampler)
             gt = tokens[:, 1:]
             accuracy = (sampled == gt).float().mean()
-        return {"loss": loss, "accuracy": accuracy, "codes": gt}
+        memo = {"loss": loss, "accuracy": accuracy, "codes": gt}
+        if self.eval_generate:
+            memo["generated_image"] = self.generate_step(state, batch["category"], generator)
+        return memo
 
-    def half_generate_step(self, state: TrainState, batch, rng):
-        raise NotImplementedError(f"half_generate_step: {_DENSE_SLICE}")
+    def half_generate_step(self, state: TrainState, batch, generator: torch.Generator):
+        """Regenerate the back half of each image from its ground-truth
+        front half: images (B, H, W, 3) in [-1, 1]."""
+        tokens = self._tokens(state, batch, train=False)
+        total = self.image_hw * self.image_hw
+        keep = total // 2
+        back = generate(state.model, tokens[:, : 1 + keep], total - keep, self.image_codebook,
+                        generator, sampler=self.sampler)
+        front = self.image_codebook.debias(tokens[:, 1 : 1 + keep])
+        codes = torch.cat([front, back], dim=1).reshape(-1, self.image_hw, self.image_hw)
+        return self.decode_image_tokens(codes)
 
-    def generate_step(self, state: TrainState, category, rng):
-        raise NotImplementedError(f"generate_step: {_DENSE_SLICE}")
+    def generate_step(self, state: TrainState, category, generator: torch.Generator):
+        """category (B,) -> images (B, H, W, 3) in [-1, 1]."""
+        cond = torch.as_tensor(category).to(self.device, torch.int32)
+        if self.cfg is not None:
+            cond = torch.cat([torch.full_like(cond, self.uncondition_token), cond])
+        codes = generate(state.model, cond[:, None], self.image_hw * self.image_hw,
+                         self.image_codebook, generator, sampler=self.sampler,
+                         cfg_alpha=self.cfg_alpha if self.cfg is not None else None)
+        return self.decode_image_tokens(codes.reshape(-1, self.image_hw, self.image_hw))

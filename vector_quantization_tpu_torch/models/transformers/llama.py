@@ -1,18 +1,27 @@
-"""Llama-style AR decoder: the training forward and the paged decode path.
+"""Llama-style AR decoder: the training forward and the decode paths.
 
 Port of ``vector_quantization_tpu/models/transformers/llama.py``: RMSNorm,
 rotate-half RoPE, SwiGLU FFN, no biases; float or INT8 weight-only
 projections (``Int8Dense``), optional fused qkv / gate+up projections,
 INT8 lm head.
 
-- The cache-free training forward: causal attention over the whole
-  sequence, either the einsum attention (f32 scores of the operands as
-  given, softmax in f32, probabilities cast to ``dtype`` before the product
-  with v) or, with ``flash=True`` and T > 1, the flash attention kernels
+- The cache-free forward: causal attention over the whole sequence, either
+  the einsum attention (f32 scores of the operands as given, softmax in
+  f32, probabilities cast to ``dtype`` before the product with v) or, with
+  ``flash=True`` and T > 1, the flash attention kernels
   (``ops/flash_attention.py``); per-block rematerialisation with
   ``torch.utils.checkpoint`` (``remat=True``); logits from the f32 (or
-  ``head_dtype``) head, or with ``fused_ce_targets`` the scalar
-  teacher-forced CE of the logits-free head (``ops/fused_ce.py``).
+  ``head_dtype``) head, the INT8 head (``quantize=True``), or with
+  ``fused_ce_targets`` the scalar teacher-forced CE of the logits-free head
+  (``ops/fused_ce.py``).
+- Decode over the dense per-layer cache (:class:`KVCache`): a scalar
+  offset (``cache.length``, prefill of T >= 1 tokens or one step), per-row
+  ``slot_positions`` (each row writes its own column), or ``row_starts``
+  (the shared-column serving engine: every row writes the shared column,
+  its reads masked to its own stream). The attention is the einsum form;
+  an INT8 cache applies its per-(position, head) scales after the score
+  product and on the probabilities. The cache's tensors are written in
+  place; the returned cache carries the new length.
 - Single-token decode with per-row ``slot_positions`` over a paged KV pool
   (``ops/paged_kv.py``) read by the paged decode attention kernel
   (``ops/paged_attention.py``).
@@ -20,14 +29,13 @@ INT8 lm head.
 Parameter names and layouts follow the flax module: projection weights are
 ``(in, out)`` (``kernel`` or ``w_int8`` + ``scale``), the embedding and
 norms are f32, so ``utils/bridge.py`` maps a flax param tree one to one.
-The dense KV cache, the shared-column decode, the INT8 cache-free forward
-and ``remat_policy="dots"`` are later slices: calls that need them raise
-``NotImplementedError``.
+``remat_policy="dots"`` and ``quantize_mode="w8a8"`` are later slices: calls
+that need them raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -38,10 +46,11 @@ from ...ops.flash_attention import flash_attention
 from ...ops.fused_ce import fused_next_token_ce
 from ...ops.int8_matmul import int8_matmul
 from ...ops.paged_attention import paged_decode_attention
-from ...ops.paged_kv import PagedKVCache, init_paged_cache, paged_update
+from ...ops.paged_kv import PagedKVCache, init_paged_cache, paged_update, quant_kv
 from ...registries import TransformerRegistry
 
 __all__ = [
+    "KVCache",
     "LlamaTransformer",
     "LlamaBlock",
     "Int8Dense",
@@ -49,11 +58,12 @@ __all__ = [
     "RMSNorm",
     "quantize_params_int8",
     "fuse_llama_params",
+    "make_dense_cache",
+    "resize_rows",
     "resolve_dtype",
 ]
 
 _REMAT_DOTS = "ROADMAP.md queue A: remat_policy='dots' (selective checkpointing)"
-_DENSE_SLICE = "ROADMAP.md queue A: the dense shared-column engine and generate()"
 _W8A8_SLICE = "ROADMAP.md queue A: int8_matmul_w8a8"
 _NEG_MASK = -1e9  # the reference's additive causal mask
 
@@ -68,6 +78,69 @@ def resolve_dtype(dtype: Any) -> torch.dtype | None:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {dtype!r}")
     return _DTYPES[name]
+
+
+class KVCache(NamedTuple):
+    """Dense decode cache: k/v are per-layer tuples of (B, S, H, Dh); with
+    ``k_scale``/``v_scale`` (per-layer (B, S, H) f32) k/v hold INT8 values
+    quantised per (position, head). ``length`` is a host int, the number of
+    columns written by scalar-offset decode: slicing by it needs no device
+    sync. Decode writes the tensors in place."""
+
+    k: tuple[torch.Tensor, ...]
+    v: tuple[torch.Tensor, ...]
+    length: int
+    k_scale: tuple[torch.Tensor, ...] | None = None
+    v_scale: tuple[torch.Tensor, ...] | None = None
+
+    @property
+    def window(self) -> int:
+        """Cache columns per row (the attention window)."""
+        return self.k[0].shape[1]
+
+    def map(self, fn) -> "KVCache":
+        """The cache with ``fn`` applied to every per-layer tensor (k, v and
+        the scales), its length kept."""
+        def each(ts):
+            return None if ts is None else tuple(fn(t) for t in ts)
+
+        return self._replace(k=each(self.k), v=each(self.v), k_scale=each(self.k_scale),
+                             v_scale=each(self.v_scale))
+
+
+def make_dense_cache(
+    num_layers: int,
+    batch: int,
+    rows: int,
+    num_heads: int,
+    head_dim: int,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cuda",
+) -> KVCache:
+    """Per-layer zeroed cache of ``rows`` columns per row (INT8 when ``dtype``
+    is ``torch.int8``: int8 values and f32 per-(position, head) scales)."""
+    shape = (batch, rows, num_heads, head_dim)
+
+    def zeros(shape, dt):
+        return tuple(torch.zeros(shape, dtype=dt, device=device) for _ in range(num_layers))
+
+    if dtype == torch.int8:
+        return KVCache(zeros(shape, torch.int8), zeros(shape, torch.int8), 0,
+                       zeros(shape[:-1], torch.float32), zeros(shape[:-1], torch.float32))
+    return KVCache(zeros(shape, dtype), zeros(shape, dtype), 0)
+
+
+def resize_rows(a: torch.Tensor, rows: int, shift: int = 0) -> torch.Tensor:
+    """A per-layer cache tensor (B, S, ...) re-windowed to columns
+    [shift, shift + rows): columns past S read as zeros (the JAX package's
+    pad-then-slice): a new contiguous tensor, or ``a`` itself when the
+    window does not change."""
+    if shift == 0 and rows == a.shape[1]:
+        return a
+    out = a.new_zeros((a.shape[0], rows, *a.shape[2:]))
+    n = max(0, min(a.shape[1] - shift, rows))
+    out[:, :n] = a[:, shift:shift + n]
+    return out
 
 
 class Int8Dense(nn.Module):
@@ -134,17 +207,66 @@ def _flash_train_attention(
     return flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
 
 
-def _einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dtype: torch.dtype):
-    """The reference's einsum attention: f32 scores of the operands as
-    given (exact products of bf16 values, f32 sums), divided by sqrt(Dh),
-    the additive causal mask, an f32 softmax, probabilities cast to
-    ``dtype`` before the product with v."""
+def _einsum_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dtype: torch.dtype,
+    mask: torch.Tensor | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The reference's einsum attention: f32 scores of the operands read as
+    ``dtype`` (exact products of bf16 values, f32 sums), divided by
+    sqrt(Dh), times the INT8 cache's key scales (B, S, H) where given, plus
+    the additive ``mask`` (the causal T x T one when None); an f32 softmax,
+    times the value scales where given; probabilities cast to ``dtype``
+    before the product with v. q (B, T, H, Dh); k, v (B, S, H, Dh)."""
     t, dh = q.shape[1], q.shape[-1]
-    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) / float(np.sqrt(dh))
-    i = torch.arange(t, device=q.device)
-    mask = torch.where(i[None, :] <= i[:, None], 0.0, _NEG_MASK)
-    probs = torch.softmax(scores + mask, dim=-1).to(dtype)
-    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+    def operand(a):  # a read as dtype, then widened; int8 values are exact in both
+        return a.float() if a.dtype == torch.int8 else a.to(dtype).float()
+
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), operand(k)) / float(np.sqrt(dh))
+    if k_scale is not None:
+        scores = scores * k_scale.transpose(1, 2)[:, :, None, :]
+    if mask is None:
+        i = torch.arange(t, device=q.device)
+        mask = torch.where(i[None, :] <= i[:, None], 0.0, _NEG_MASK)
+    probs = torch.softmax(scores + mask, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale.transpose(1, 2)[:, :, None, :]
+    return torch.einsum("bhts,bshd->bthd", probs.to(dtype), v.to(dtype))
+
+
+def _dense_cache_attention(q, k, v, layer, offset, mask, dtype):
+    """Write this step's k/v into one layer's dense cache ``layer`` ((k, v)
+    or (k, v, k_scale, v_scale), in place) at ``offset``, then attend over
+    the whole window under ``mask``. ``offset``: a host int (columns
+    [offset, offset + T) of every row) or a (B,) tensor (row b's column
+    offset[b], T == 1)."""
+    int8_kv = len(layer) == 4
+    if int8_kv:
+        k_all, v_all, ks_all, vs_all = layer
+        (k, ks), (v, vs) = quant_kv(k), quant_kv(v)
+    else:
+        (k_all, v_all), ks_all, vs_all = layer, None, None
+    if isinstance(offset, torch.Tensor):
+        idx = (torch.arange(q.shape[0], device=q.device), offset.long())
+        k, v = k[:, 0], v[:, 0]
+        if int8_kv:
+            ks, vs = ks[:, 0], vs[:, 0]
+    else:
+        if offset + q.shape[1] > k_all.shape[1]:
+            raise ValueError(f"cache window {k_all.shape[1]} cannot take columns "
+                             f"[{offset}, {offset + q.shape[1]})")
+        idx = (slice(None), slice(offset, offset + q.shape[1]))
+    k_all[idx] = k.to(k_all.dtype)
+    v_all[idx] = v.to(v_all.dtype)
+    if int8_kv:
+        ks_all[idx] = ks
+        vs_all[idx] = vs
+    return _einsum_attention(q, k_all, v_all, dtype, mask, ks_all, vs_all)
 
 
 class LlamaBlock(nn.Module):
@@ -203,14 +325,19 @@ class LlamaBlock(nn.Module):
         self,
         x: torch.Tensor,
         positions: torch.Tensor,
-        cache: PagedKVCache | None = None,
+        cache: PagedKVCache | tuple[torch.Tensor, ...] | None = None,
         layer_idx: int = 0,
-        offset: torch.Tensor | None = None,
+        offset: torch.Tensor | int | None = None,
+        mask: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """Without a cache: the training block, x (B, T, D), positions
         (B, T), causal attention over the sequence. With a paged cache:
         x (B, 1, D), positions (B, 1); writes this token's k/v into the
-        pool at (layer_idx, offset) in place, then attends over the pool."""
+        pool at (layer_idx, offset) in place, then attends over the pool.
+        With this layer's dense cache (a tuple, see
+        :func:`_dense_cache_attention`): writes at ``offset`` in place,
+        then attends over the window under the additive ``mask``
+        (B or 1, 1, T, S)."""
         b, t, d = x.shape
         q, k, v = self._qkv(x, positions)
         if cache is None:
@@ -218,21 +345,21 @@ class LlamaBlock(nn.Module):
                 attn = _flash_train_attention(q, k, v, self.dtype)
             else:
                 attn = _einsum_attention(q, k, v, self.dtype)
-            x = x + self.o_proj(attn.reshape(b, t, d))
-            return self._ffn(x)
-        paged_update(cache, layer_idx, offset, k[:, 0], v[:, 0])
-        attn = paged_decode_attention(
-            q[:, 0],
-            cache.k,
-            cache.v,
-            cache.page_table,
-            offset + 1,
-            layer_idx,
-            k_scale_pool=cache.k_scale,
-            v_scale_pool=cache.v_scale,
-        )
-        attn = attn.to(self.dtype).reshape(b, 1, d)
-        x = x + self.o_proj(attn)
+        elif isinstance(cache, PagedKVCache):
+            paged_update(cache, layer_idx, offset, k[:, 0], v[:, 0])
+            attn = paged_decode_attention(
+                q[:, 0],
+                cache.k,
+                cache.v,
+                cache.page_table,
+                offset + 1,
+                layer_idx,
+                k_scale_pool=cache.k_scale,
+                v_scale_pool=cache.v_scale,
+            ).to(self.dtype)
+        else:
+            attn = _dense_cache_attention(q, k, v, cache, offset, mask, self.dtype)
+        x = x + self.o_proj(attn.reshape(b, t, d))
         return self._ffn(x)
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
@@ -251,6 +378,9 @@ class LlamaTransformer(nn.Module):
     ``forward(tokens (B, T))`` is the training forward: logits (B, T, V)
     float32, or with ``fused_ce_targets`` (B, T) the scalar teacher-forced
     CE (position t predicts targets[:, t+1]) without the logits.
+    ``forward(tokens (B, T), cache=KVCache[, slot_positions | row_starts])``
+    decodes over the dense cache (:meth:`init_cache`) and returns
+    ``(logits (B, T, V) float32, cache)``.
     ``forward(tokens (B, 1), cache=PagedKVCache, slot_positions=(B,))``
     returns ``(logits (B, 1, V) float32, cache)``; the pool is updated in
     place. The INT8 lm head (``quantize=True``) returns f32 logits; the
@@ -267,6 +397,9 @@ class LlamaTransformer(nn.Module):
 
     # the fused_ce_targets loss is wired into forward (ARAlgorithm checks)
     supports_fused_ce = True
+    # RoPE is relative, so the shared-column serving engine's recentred
+    # columns keep every row's logits (ARServer checks)
+    supports_shared_column = True
 
     def __init__(
         self,
@@ -351,7 +484,7 @@ class LlamaTransformer(nn.Module):
     def forward(
         self,
         tokens: torch.Tensor,
-        cache: PagedKVCache | None = None,
+        cache: KVCache | PagedKVCache | None = None,
         slot_positions: torch.Tensor | None = None,
         row_starts: torch.Tensor | None = None,
         fused_ce_targets: torch.Tensor | None = None,
@@ -362,40 +495,81 @@ class LlamaTransformer(nn.Module):
             return self._train_forward(tokens, fused_ce_targets)
         if fused_ce_targets is not None:
             raise ValueError("fused_ce_targets is a training-path loss (no cache)")
-        if not isinstance(cache, PagedKVCache):
-            raise NotImplementedError(f"the dense KV cache: {_DENSE_SLICE}")
-        if row_starts is not None:
-            raise NotImplementedError(f"row_starts (shared-column decode): {_DENSE_SLICE}")
-        if slot_positions is None:
+        if isinstance(cache, PagedKVCache):
+            return self._paged_forward(tokens, cache, slot_positions, row_starts)
+        return self._dense_forward(tokens, cache, slot_positions, row_starts)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Final hidden states (B, T, D) -> logits (B, T, V) float32: the
+        INT8 head through ``int8_matmul``, else the float head in
+        ``head_dtype`` (None = f32) with f32 sums."""
+        b, t = x.shape[:2]
+        if self.quantize:
+            xh = x.reshape(b * t, self.hidden_size).to(self.dtype)
+            logits = int8_matmul(xh, self.lm_head_int8, self.lm_head_scale)
+            return logits.reshape(b, t, self.vocabulary_size)
+        hd = self.head_dtype or torch.float32
+        return torch.matmul(x.to(hd).float(), self.lm_head.to(hd).float())
+
+    def _paged_forward(self, tokens, cache, slot_positions, row_starts):
+        if row_starts is not None or slot_positions is None:
             raise ValueError("a paged cache requires slot_positions decode")
         b, t = tokens.shape
         if t != 1:
             raise ValueError("slot_positions requires single-token decode")
-        x = self.embedding[tokens].to(self.dtype)
+        x = self.embedding[tokens.long()].to(self.dtype)
         positions = slot_positions[:, None]
         for i, block in enumerate(self.blocks()):
             x = block(x, positions, cache, i, slot_positions)
-        x = self.final_norm(x)
-        if self.quantize:
-            xh = x.reshape(b * t, self.hidden_size).to(self.dtype)
-            logits = int8_matmul(xh, self.lm_head_int8, self.lm_head_scale)
-            logits = logits.reshape(b, t, self.vocabulary_size)
+        return self._head(self.final_norm(x)), cache
+
+    def _dense_forward(self, tokens, cache, slot_positions, row_starts):
+        """Decode over the dense cache. Scalar offset ``cache.length``: the
+        T new tokens take columns [length, length + T) of every row and
+        attend causally to all columns up to their own; with ``row_starts``
+        (B,) row b also masks the columns before ``row_starts[b]`` (its
+        stream began there; RoPE rotates by the shared column, so the logits
+        equal the per-row path's up to rounding). ``slot_positions`` (B,),
+        T == 1: row b writes and reads at its own column. Returns (logits,
+        the cache with ``length + T``)."""
+        b, t = tokens.shape
+        col = torch.arange(cache.window, device=tokens.device)
+        if slot_positions is not None:
+            if row_starts is not None:
+                raise ValueError("row_starts requires the scalar-offset cache decode")
+            if t != 1:
+                raise ValueError("slot_positions requires single-token decode")
+            positions = slot_positions[:, None]
+            offset = slot_positions
+            mask = torch.where(col <= slot_positions[:, None, None, None], 0.0, _NEG_MASK)
         else:
-            hd = self.head_dtype or torch.float32
-            logits = torch.matmul(x.to(hd).float(), self.lm_head.to(hd).float())
-        return logits, cache
+            offset = cache.length
+            pos = torch.arange(t, device=tokens.device) + offset
+            positions = pos.expand(b, t)
+            mask = torch.where(col[None, :] <= pos[:, None], 0.0, _NEG_MASK)[None, None]
+            if row_starts is not None:
+                mask = torch.where(col >= row_starts[:, None, None, None], mask, _NEG_MASK)
+        int8_cache = cache.k_scale is not None
+        x = self.embedding[tokens.long()].to(self.dtype)
+        for i, block in enumerate(self.blocks()):
+            layer = (cache.k[i], cache.v[i])
+            if int8_cache:
+                layer += (cache.k_scale[i], cache.v_scale[i])
+            x = block(x, positions, layer, i, offset, mask)
+        logits = self._head(self.final_norm(x))
+        return logits, cache._replace(length=cache.length + t)
 
     def _train_forward(
         self, tokens: torch.Tensor, fused_ce_targets: torch.Tensor | None
     ) -> torch.Tensor:
-        if self.quantize:
-            raise NotImplementedError(f"the INT8 cache-free (prefill) forward: {_DENSE_SLICE}")
         b, t = tokens.shape
         x = self.embedding[tokens.long()].to(self.dtype)
         positions = torch.arange(t, device=tokens.device).expand(b, t)
         remat = self.remat and torch.is_grad_enabled()
         if remat and self.remat_policy == "dots":
             raise NotImplementedError(_REMAT_DOTS)
+        if fused_ce_targets is not None and self.quantize:
+            raise ValueError("fused_ce_targets is a training-path loss (float head)")
         for block in self.blocks():
             if remat:
                 # full per-block remat: only block inputs are kept; the
@@ -409,8 +583,22 @@ class LlamaTransformer(nn.Module):
             # the reference (a tiny vocabulary gets one narrow chunk)
             chunk = min(self.fused_ce_chunk, -(-self.vocabulary_size // 128) * 128)
             return fused_next_token_ce(x, self.lm_head, fused_ce_targets, chunk)
-        hd = self.head_dtype or torch.float32
-        return torch.matmul(x.to(hd).float(), self.lm_head.to(hd).float())
+        return self._head(x)
+
+    def init_cache(
+        self,
+        batch: int,
+        dtype: torch.dtype = torch.bfloat16,
+        device: torch.device | str | None = None,
+        rows: int | None = None,
+    ) -> KVCache:
+        """A zeroed dense cache of ``rows`` (default ``max_length``) columns
+        per row on ``device`` (default: the embedding's)."""
+        dh = self.hidden_size // self.num_heads
+        return make_dense_cache(
+            self.num_layers, batch, self.max_length if rows is None else rows,
+            self.num_heads, dh, dtype, self.embedding.device if device is None else device,
+        )
 
     def init_paged_cache(
         self,

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["PagedKVCache", "init_paged_cache", "paged_update", "paged_gather"]
+__all__ = ["PagedKVCache", "init_paged_cache", "paged_update", "paged_gather", "quant_kv"]
 
 
 class PagedKVCache(NamedTuple):
@@ -68,9 +68,9 @@ def init_paged_cache(
     )
 
 
-def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(B, H, Dh) -> int8 values + per-(B, H) f32 max-abs scales (round half
-    to even, clipped to +-127)."""
+def quant_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., Dh) -> int8 values + per-(...) f32 max-abs scales (round half
+    to even, clipped to +-127): one scale per (position, head)."""
     xf = x.float()
     sc = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
     q = torch.clamp(torch.round(xf / sc[..., None]), -127, 127).to(torch.int8)
@@ -97,8 +97,8 @@ def paged_update(
     page = cache.page_table[rows, col].long()
     offset = pos % ps
     if cache.k_scale is not None:
-        k, k_sc = _quant_rows(k)
-        v, v_sc = _quant_rows(v)
+        k, k_sc = quant_kv(k)
+        v, v_sc = quant_kv(v)
         cache.k_scale[layer, page, offset] = k_sc
         cache.v_scale[layer, page, offset] = v_sc
     cache.k[layer, page, offset] = k.to(cache.k.dtype)
