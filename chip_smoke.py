@@ -82,7 +82,8 @@ exits non-zero:
 9. ``vq_lookup``: the nearest-code kernel (TF32 wgmma, an f32 operand
    split in two) against its plain version at the tokenizer's shape N = K
    = 16384, D = 8 (f32 and bf16, Gaussian rows; f32 unit rows, what the
-   LlamaGen quantizer feeds), the flagship D = 256, a ragged 1000 x 777 x
+   LlamaGen quantizer feeds), the VQGAN train step's 3072 x 16384 x 8 (f32
+   unit rows), the flagship D = 256, a ragged 1000 x 777 x
    40 (cosine), N = 1, and planted exact ties (duplicated codebook rows,
    f32 and bf16). Codes may differ only as near-ties (both codes' plain
    scores within 1e-5 * max|score| of the row's best: TF32 parts and f32
@@ -105,7 +106,35 @@ exits non-zero:
    the same batch), and the convolutions' and Linears' FLOPs per image.
 11. ``class_to_image``: the code grids of the requests that phase 5 served
    -> decode_from_quant -> pixel_decode -> uint8 (requests, 256, 256, 3).
-12. ``flash_attention``: K4-fwd, K4-dkv and K4-dq against their plain
+12. ``vqgan_train``: ``VQGANAlgorithm`` from configs/llamagen/vqgan_imagenet_ddp.py
+   through the port's config loader and registry, at full width, f32
+   (cuDNN's TF32 off, as for the whole run): the 69,593,227-parameter
+   generator (weights made from ``--seed`` in the flax layout), the
+   16384 x 8 spherical codebook re-normalised after each update, the
+   PatchGAN discriminator (width 64, depth 3) and LPIPS at random init (no
+   weights are in the repository), recon ``l1`` + ``lpips``, Adam (0.5,
+   0.9) at 1e-4 for both, ``aglw_gain`` 0.8, ``discriminator_start``
+   20,000. Batch 12 (the config's 96 over its 8-way data parallelism) of
+   random 256 px images from ``--seed``: 3 steps from step 0 (recon +
+   quantizer only) and 3 with the state's step set to 20,000 (the GAN
+   term, the adaptive weight and the discriminator's phase on). Gates:
+   losses and ``aglw`` finite; every generator tensor moved in both
+   parts; the discriminator's weights and BatchNorm statistics unchanged
+   in the first part and all moved in the second; codebook rows of unit
+   norm after each step (within 1e-5 + 1e-12 / 2n², n the smallest row
+   norm before the step: normalize's epsilon; the random init's rows have
+   n² ~ 1e-8); K1 launched once per step and no
+   plain version on the card; then the step's features looked up by the
+   kernel and by the plain version (codes equal except near-ties). Median
+   step ms on the host clock per part, images/s, peak GiB.
+13. ``vqgan_anchor``: configs/regression/train_anchor.py as it defines it:
+   2000 steps at batch 16 on the port's ``SyntheticDataset`` (128 images of
+   32 px, shuffled each epoch), seed 3407, the discriminator from step
+   1500; then the validator's six metrics on its 32-image split, beside
+   BASELINE.json's ``self_trained_2k``. Gate: PSNR >= 15 (the anchor's own
+   bar; the RNG and data order differ from the JAX run's, so a band, not
+   bits). The phase's wall time.
+14. ``flash_attention``: K4-fwd, K4-dkv and K4-dq against their plain
    versions (both backward versions fed the kernel's o and lse), bf16, at
    the path shape (B, T, H, Dh) = (64, 257, 16, 64), ragged T in {1, 63,
    64, 65, 129, 256, 300} (the partial first tile at each length), 705
@@ -122,18 +151,18 @@ exits non-zero:
    attention (SDPA pinned to its FLASH_ATTENTION backend): its forward, and
    its backward alone (the aten flash backward on residuals made outside
    the graph); ``sdpa_fwd_bwd_ms`` both together.
-13. ``ar_train``: ``ARAlgorithm`` from configs/llamagen/c2i_medium_imagenet_ddp.py
+15. ``ar_train``: ``ARAlgorithm`` from configs/llamagen/c2i_medium_imagenet_ddp.py
    with ``transformer.flash=True`` through the port's config loader and
    registry (Llama-medium, bf16 over f32 params, full per-block remat, fused
    CE, AdamW with the config's warm-up schedule, weight decay 0.05, grad
    clip 1.0), weights made from ``--seed`` (non-zero lm head), the tokenizer
-   of phase 7: 3 steps on 64 random 256 px images (K1 -> pack -> K4 -> fused
+   of phase 10: 3 steps on 64 random 256 px images (K1 -> pack -> K4 -> fused
    CE -> AdamW), then 5 on a batch of 128 code grids (median step time,
    tokens/s, model FLOPs from the config over 989 TFLOP/s). Losses finite,
    every transformer parameter changed and no tokenizer parameter, launches
    per step K4-fwd 48 (24 + 24 remat re-runs), dkv 24, dq 24, K1 once per
    image step, no plain version on the card.
-14. ``ar_flash_vs_einsum``: one step's loss and gradients on 64 rows of the
+16. ``ar_flash_vs_einsum``: one step's loss and gradients on 64 rows of the
    codes batch with the same weights through flash and through the einsum
    attention (``flash=False``): loss within 1e-2 relative, every
    parameter's gradient within 5e-2 relative L2 (bf16 attention rounds P at
@@ -141,23 +170,29 @@ exits non-zero:
    step on those 64 rows with each attention (einsum is what the shipped
    configs/ar/transformers/llama.py runs), median of 3 steps on the host
    clock after a warm-up.
-15. ``ar_generate``: class -> image through ``ARAlgorithm.generate_step``
-   on phase 13's model and state (CFG as the config sets it, alpha 1.75,
+17. ``ar_generate``: class -> image through ``ARAlgorithm.generate_step``
+   on phase 15's model and state (CFG as the config sets it, alpha 1.75,
    its top-k 600 / top-p 0.92 sampler), 8 classes, then phase 10's VQGAN
    decoder: images (8, 256, 256, 3), finite; seconds per image.
-16. ``decode_profile``: the decode step of phase 4 on the host clock and,
+18. ``decode_profile``: the decode step of phase 4 on the host clock and,
    under torch.profiler, its device time; their ratio gives the device's
    idle share (run last: the profiler slows later host dispatch).
-17. ``generate_profile``: one decode step of phase 8 at its midpoint (a
+19. ``generate_profile``: one decode step of phase 8 at its midpoint (a
    129-column INT8 cache) on the host clock and under torch.profiler:
    device ms, idle share, K2's share.
-18. ``tokenizer_profile``: one encode + decode of the 64 images of phase 7
+20. ``tokenizer_profile``: one encode + decode of the 64 images of phase 10
    under torch.profiler: device time by kernel and the idle share.
-19. ``ar_train_profile``: one codes train step under torch.profiler:
+21. ``ar_train_profile``: one codes train step under torch.profiler:
    device time by kernel and the idle share.
-20. ``kernels``: per kernel, launches in its path's run (phase 5 for the
+22. ``vqgan_train_profile``: one GAN-on step of phase 12 under
+   torch.profiler: device ms (the kernels' sum), busy ms (the union of
+   their intervals: cuDNN's FFT convolutions overlap), the idle share of
+   the host clock from the busy time, and the shares of cuDNN's
+   convolutions, the elementwise passes, the GEMMs and K1.
+23. ``kernels``: per kernel, launches in its path's run (phase 5 for the
    server's: K2's kernels that the serving shapes' plans name, and K3;
-   phase 10 for the lookup, phase 13 for the three flash kernels; K2's
+   phase 10 for the lookup (and its launches in phases 12 and 15, and its
+   times at the train shape), phase 15 for the three flash kernels; K2's
    rows also give their launches in phases 7 and 8, and phase 6's times
    at the dense path's shapes), device time per call, the bound, the plain
    version's and the yardstick's time.
@@ -201,6 +236,11 @@ GEN_K2_PER_FORWARD = 7 * MEDIUM["num_layers"] + 1  # q, k, v, o, gate, up, down 
 # the LlamaGen VQGAN tokenizer: f16 at 256 px, 16384 x 8 codebook
 VQGAN_CONFIG = "configs/llamagen/vqgan_imagenet_ddp.py"
 VQGAN_PARAMS, IMAGE_SIZE, GRID, TOKENIZER_BATCH = 69_593_227, 256, 16, 64
+# its training: batch_size_in_total 96 over the config's 8-way data parallelism
+VQGAN_TRAIN_BATCH, VQGAN_TRAIN_STEPS, VQGAN_D_START = 12, 3, 20_000
+CODEBOOK_NORM_LIMIT = 1e-5  # |row norm - n / sqrt(n² + 1e-12)|, n its norm before normalize
+# the 2k-step regression anchor (BASELINE.json "self_trained_2k")
+ANCHOR_CONFIG, ANCHOR_SEED, ANCHOR_PSNR_BAR = "configs/regression/train_anchor.py", 3407, 15.0
 
 
 def emit(obj: dict) -> None:
@@ -1049,13 +1089,15 @@ def phase_vq_lookup(dev, gen) -> dict:
         ("path_f32", n_path, CODEBOOK, 8, torch.float32, "l2", "gaussian", True),
         ("path_bf16", n_path, CODEBOOK, 8, torch.bfloat16, "l2", "gaussian", True),
         ("path_normalized", n_path, CODEBOOK, 8, torch.float32, "l2", "unit", True),
+        ("vqgan_train_f32", VQGAN_TRAIN_BATCH * GRID * GRID, CODEBOOK, 8, torch.float32, "l2", "unit",
+         True),
         ("flagship_d256", 16384, 16384, 256, torch.float32, "l2", "gaussian", True),
         ("ragged_cosine", 1000, 777, 40, torch.float32, "cosine", "gaussian", False),
         ("n1", 1, CODEBOOK, 8, torch.float32, "l2", "gaussian", False),
         ("planted_ties", 4096, 1000, 8, torch.float32, "l2", "ties", False),
         ("planted_ties_bf16", 4096, 1000, 8, torch.bfloat16, "l2", "ties", False),
     ]
-    kernel_row = None
+    kernel_row = train_row = None
     for name, n, k, d, dtype, metric, rows, timed in cases:
         x = torch.randn((n, d), generator=gen, device=dev)
         e = torch.randn((k, d), generator=gen, device=dev)
@@ -1098,6 +1140,8 @@ def phase_vq_lookup(dev, gen) -> dict:
             })
             if name == "path_f32":
                 kernel_row = row
+            if name == "vqgan_train_f32":
+                train_row = row
             del xf, ef, esq_half
         emit(row)
         del x, e, got, want
@@ -1112,22 +1156,36 @@ def phase_vq_lookup(dev, gen) -> dict:
         "note": (f"N = K = 16384, D = 8, f32; bound_ms is the tensor-core bound (3 TF32 passes); "
                  f"max_abs_err is the largest plain-score gap "
                  f"between the kernel's code and the row's best ({kernel_row['rows_differing']} "
-                 f"rows differ, all near-ties); library_ms writes the N x K matrix"),
+                 f"rows differ, all near-ties); library_ms writes the N x K matrix; train_shape: "
+                 f"the VQGAN train step's lookup (unit rows)"),
+        "train_shape": {key: train_row[key] for key in (
+            "N", "K", "D", "ms", "plain_ms", "library_ms", "bound_ms", "bound_f32_cuda_cores_ms",
+            "max_score_gap", "plan")},
     }
 
 
 def make_vqgan(seed: int, dev):
     """The LlamaGen VQGAN through the port's config loader and registry,
-    weights made from ``seed`` with numpy in the flax layout (conv and
-    Dense kernels N(0, 1/fan_in), GroupNorm scale 1 and bias 0, the
-    codebook uniform(-1/K, 1/K)) and loaded through the bridge."""
+    with :func:`load_random_flax_weights` from ``seed``."""
     from vector_quantization_tpu_torch.registries import ModelRegistry
-    from vector_quantization_tpu_torch.utils.bridge import flax_param_shapes, state_dict_from_flax
     from vector_quantization_tpu_torch.utils.config import Config
 
     path = Path(__file__).resolve().parent / VQGAN_CONFIG
     cfg = Config.load(str(path))["trainer"]["algorithm"]["model"]
     model = ModelRegistry.build(cfg, device=dev)
+    load_random_flax_weights(model, seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != VQGAN_PARAMS:
+        raise SystemExit(f"tokenizer: {n_params} parameters, the config gives {VQGAN_PARAMS}")
+    return model.eval(), cfg
+
+
+def load_random_flax_weights(model, seed: int) -> None:
+    """Weights made from ``seed`` with numpy in the flax layout (conv and
+    Dense kernels N(0, 1/fan_in), GroupNorm scale 1 and bias 0, the
+    codebook uniform(-1/K, 1/K)), loaded into ``model`` through the bridge."""
+    from vector_quantization_tpu_torch.utils.bridge import flax_param_shapes, state_dict_from_flax
+
     rng = np.random.default_rng(seed)
 
     def make(tree, leaf=None):
@@ -1141,10 +1199,6 @@ def make_vqgan(seed: int, dev):
         return (np.ones if leaf == "scale" else np.zeros)(tree, np.float32)
 
     model.load_state_dict(state_dict_from_flax(model, make(flax_param_shapes(model))))
-    n_params = sum(p.numel() for p in model.parameters())
-    if n_params != VQGAN_PARAMS:
-        raise SystemExit(f"tokenizer: {n_params} parameters, the config gives {VQGAN_PARAMS}")
-    return model.eval(), cfg
 
 
 def _timed(fn):
@@ -1179,10 +1233,30 @@ def conv_linear_flops(model, fn) -> int:
     return total
 
 
-def phase_tokenizer(model, cfg, dev, seed: int):
-    from vector_quantization_tpu_torch.data.base import pixel_encode
+def codes_vs_plain(model, images) -> dict:
+    """``images``' lookup by the kernel and by its plain version (swapped
+    in) on the same features, held against each other by ``compare_codes``."""
     from vector_quantization_tpu_torch.ops import vq_lookup
     from vector_quantization_tpu_torch.ops.distances import normalize
+
+    q = model.quantizer
+    with torch.no_grad():
+        feat = model.encode(images).reshape(-1, q.embedding_dim)
+        codes = q.encode(feat)
+        saved = vq_lookup.nearest_codes
+        vq_lookup.nearest_codes = vq_lookup.nearest_codes_reference
+        try:
+            plain_codes = q.encode(feat)
+        finally:
+            vq_lookup.nearest_codes = saved
+        x = normalize(feat) if q.normalize_inputs else feat
+        rep = vq_lookup.compare_codes(x, q.effective_codebook(), codes, plain_codes, q.distance)
+    rep["shape"] = [*x.shape[:1], q.effective_codebook().shape[0], x.shape[1]]
+    return rep
+
+
+def phase_tokenizer(model, cfg, dev, seed: int):
+    from vector_quantization_tpu_torch.data.base import pixel_encode
 
     rng = np.random.default_rng(seed + 1)
     u8 = rng.integers(0, 256, (TOKENIZER_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)
@@ -1198,16 +1272,7 @@ def phase_tokenizer(model, cfg, dev, seed: int):
         pixels, dec_s = _timed(lambda: model.decode_from_quant(codes))
         launches, plain = read_launches()
         plain_runs = plain - plain0
-        # the same features through the plain lookup, swapped in
-        feat = model.encode(x).reshape(-1, cfg["quantizer"]["embedding_dim"])
-        saved = vq_lookup.nearest_codes
-        vq_lookup.nearest_codes = vq_lookup.nearest_codes_reference
-        try:
-            plain_codes = model.quantizer.encode(feat)
-        finally:
-            vq_lookup.nearest_codes = saved
-        rep = vq_lookup.compare_codes(normalize(feat), model.quantizer.effective_codebook(),
-                                      codes, plain_codes)
+        rep = codes_vs_plain(model, x)
         out = model(x[:8])
     torch.cuda.synchronize()
     q = out["quantizer"]
@@ -1275,6 +1340,223 @@ def phase_class_to_image(model, done: dict, dev) -> None:
     emit(row)
     if images.dtype != torch.uint8 or images.shape != (len(done), IMAGE_SIZE, IMAGE_SIZE, 3):
         raise SystemExit("class_to_image: the served codes did not become uint8 images")
+
+
+# VQGAN training (configs/llamagen/vqgan_imagenet_ddp.py; configs/regression/train_anchor.py)
+PROFILE_GROUPS = {  # kernel name fragments -> group, first match wins
+    "k1": ("nearest_tc_kernel", "prep_kernel"),
+    "cudnn_conv": ("cudnn", "conv", "implicit_gemm", "fft", "winograd", "dgrad", "wgrad", "fprop",
+                   "cf32"),  # cf32: the complex GEMM of cuDNN's FFT convolution
+    "gemm": ("gemm", "nvjet", "cutlass"),  # cuBLAS (its sm80_xmma_gemm_* too)
+    "elementwise": ("elementwise", "foreach"),
+    "reduce": ("reduce",),
+}
+
+
+def profile_group(kernel: str) -> str:
+    name = kernel.lower()
+    return next((g for g, marks in PROFILE_GROUPS.items() if any(m in name for m in marks)), "other")
+
+
+def make_vqgan_algorithm(cfg_path: str, seed: int, dev):
+    """``VQGANAlgorithm`` from ``cfg_path`` through the port's config loader
+    and registry; the generator's weights from :func:`load_random_flax_weights`,
+    the discriminator's and LPIPS's from their own init under
+    ``torch.manual_seed(seed)``."""
+    from vector_quantization_tpu_torch.registries import AlgorithmRegistry
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    cfg = Config.load(str(Path(__file__).resolve().parent / cfg_path))
+    torch.manual_seed(seed)
+    algo = AlgorithmRegistry.build(cfg["trainer"]["algorithm"], device=dev)
+    load_random_flax_weights(algo.model, seed)
+    return algo, cfg
+
+
+def snapshot(module) -> dict:
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def moved(module, before: dict) -> list[str]:
+    """Names of ``module``'s tensors (parameters and buffers) that differ
+    from ``before``."""
+    return [k for k, v in module.state_dict().items() if not torch.equal(v, before[k])]
+
+
+def phase_vqgan_train(algo, dev, seed: int):
+    from vector_quantization_tpu_torch.data.base import pixel_encode
+
+    model, disc = algo.model, algo.discriminator
+    # the codebook's row norms as the step's normalize finds them (after the
+    # generator's update): normalize's e·rsqrt(‖e‖² + 1e-12) leaves a row of
+    # norm n at n / sqrt(n² + 1e-12), short of 1 where n is small (the
+    # random init's rows have n² ~ 1e-8)
+    pre_normalize = {}
+    codebook_update = algo._codebook_update
+
+    def spied_codebook_update(state):
+        pre_normalize["n"] = torch.linalg.vector_norm(model.quantizer.codebook.detach().double(), dim=1)
+        codebook_update(state)
+
+    algo._codebook_update = spied_codebook_update
+    rng = np.random.default_rng(seed + 4)
+    u8 = rng.integers(0, 256, (VQGAN_TRAIN_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)
+    batch = {"image": pixel_encode(torch.from_numpy(u8).to(dev))}
+    state = algo.init_state(seed)
+    n_g, n_d = len(model.state_dict()), len(disc.state_dict())
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    _, plain0 = read_launches()
+    parts, ok = {}, True
+    for part, start in (("gates_off", 0), ("gan_on", VQGAN_D_START)):
+        state.step = start
+        g_before, d_before = snapshot(model), snapshot(disc)
+        rows = []
+        for _ in range(VQGAN_TRAIN_STEPS):
+            k1_before = read_launches()[0]["nearest_codes"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = algo.train_step(state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}  # synchronises
+            seconds = time.perf_counter() - t0
+            norms = torch.linalg.vector_norm(model.quantizer.codebook.detach().double(), dim=1)
+            n = pre_normalize.pop("n")
+            rows.append({"step": state.step - 1, "ms": 1e3 * seconds, "metrics": metrics,
+                         "k1_launches": read_launches()[0]["nearest_codes"] - k1_before,
+                         "codebook_norm_max_dev_from_1": float((norms - 1).abs().max()),
+                         "codebook_norm_max_dev": float((norms - n * torch.rsqrt(n**2 + 1e-12))
+                                                        .abs().max())})
+        g_moved, d_moved = moved(model, g_before), moved(disc, d_before)
+        del g_before, d_before
+        step_ms = float(np.median([r["ms"] for r in rows]))
+        parts[part] = {"start_step": start, "steps": rows, "step_ms_median": step_ms,
+                       "images_per_s": VQGAN_TRAIN_BATCH / step_ms * 1e3,
+                       "generator_tensors_moved": len(g_moved), "generator_tensors": n_g,
+                       "discriminator_tensors_moved": len(d_moved), "discriminator_tensors": n_d}
+        gan = part == "gan_on"
+        ok = ok and all(np.isfinite(list(r["metrics"].values())).all() and r["k1_launches"] == 1
+                        and r["codebook_norm_max_dev"] <= CODEBOOK_NORM_LIMIT for r in rows)
+        ok = ok and len(g_moved) == n_g and len(d_moved) == (n_d if gan else 0)
+        ok = ok and all((r["metrics"]["g_loss"] != 0) == gan and (r["metrics"]["d_loss"] != 0) == gan
+                        and (abs(r["metrics"]["aglw"] - algo.aglw_gain) > 1e-6) == gan for r in rows)
+    algo._codebook_update = codebook_update
+    launches, plain = read_launches()
+    plain_runs = plain - plain0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rep = codes_vs_plain(model, batch["image"])  # the step's lookup, on the same features
+    ok = (ok and plain_runs == 0 and launches["nearest_codes"] == 2 * VQGAN_TRAIN_STEPS and rep["ok"]
+          and sum(p.numel() for p in model.parameters()) == VQGAN_PARAMS)
+    row = {"phase": "vqgan_train", "config": VQGAN_CONFIG, "dtype": "float32",
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "generator_params": sum(p.numel() for p in model.parameters()),
+           "discriminator_params": sum(p.numel() for p in disc.parameters()),
+           "lpips_params": sum(p.numel() for p in algo.lpips_module.parameters()),
+           "batch": VQGAN_TRAIN_BATCH, "image_size": IMAGE_SIZE, "parts": parts,
+           "peak_memory_gib": peak_gib, "launches": launches, "plain_runs_on_cuda": plain_runs,
+           "codebook_norm_limit": CODEBOOK_NORM_LIMIT,
+           "codes_vs_plain": {k: rep[k] for k in ("shape", "rows", "differ", "excused", "near_tie_rows",
+                                                  "tol")}}
+    emit(row)
+    if not ok:
+        raise SystemExit("vqgan_train: a check failed (see the vqgan_train line)")
+
+    def profile_vqgan_step() -> None:
+        """One GAN-on step under torch.profiler: device time by group and
+        kernel, and the device's idle share against the host clock."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, wall = _timed(lambda: algo.train_step(state, batch))
+        events = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
+        device_us = sum(e.self_device_time_total for e in events)
+        if device_us <= 0:
+            raise SystemExit("vqgan_train_profile: the profiler recorded no device time")
+        # busy time: the union of the device intervals (the sum above counts
+        # kernels that run at the same time twice)
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy_us, end = 0.0, float("-inf")
+        for a, b in spans:
+            busy_us += max(0.0, b - max(a, end))
+            end = max(end, b)
+        by_group = dict.fromkeys([*PROFILE_GROUPS, "other"], 0.0)
+        for e in events:
+            by_group[profile_group(e.key)] += e.self_device_time_total / 1e3
+        emit({"phase": "vqgan_train_profile", "batch": VQGAN_TRAIN_BATCH, "step": state.step - 1,
+              "host_ms": 1e3 * wall, "device_ms": device_us / 1e3, "device_busy_ms": busy_us / 1e3,
+              "device_idle_frac": 1.0 - busy_us / 1e6 / wall,
+              "device_ms_by_group": by_group,
+              "share_by_group": {g: ms * 1e3 / device_us for g, ms in by_group.items()},
+              "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                               "ms": e.self_device_time_total / 1e3,
+                               "share": e.self_device_time_total / device_us,
+                              "group": profile_group(e.key)}
+                              for e in events[:12]]})
+
+    return launches, profile_vqgan_step
+
+
+def phase_vqgan_anchor(dev) -> None:
+    """configs/regression/train_anchor.py: its trainer's steps on its
+    dataset (all 128 images on the card, a permutation per epoch from the
+    seed), then its validator's metrics on its split."""
+    from vector_quantization_tpu_torch.data.datasets import collate
+    from vector_quantization_tpu_torch.registries import DatasetRegistry, MetricRegistry
+
+    t_start = time.perf_counter()
+    algo, cfg = make_vqgan_algorithm(ANCHOR_CONFIG, ANCHOR_SEED, dev)
+    trainer, validator = cfg["trainer"], cfg["validator"]
+    train = DatasetRegistry.build(trainer["dataset"])
+    images = torch.from_numpy(collate([train[i] for i in range(len(train))])["image"]).to(dev)
+    batch_size, steps = trainer["dataloader"]["batch_size"], trainer["max_iters"]
+    per_epoch = len(train) // batch_size
+    rng = np.random.default_rng(ANCHOR_SEED)
+    state = algo.init_state(ANCHOR_SEED)
+    zero_launches()
+    _, plain0 = read_launches()
+    logged = {}
+    t_train = time.perf_counter()
+    for it in range(steps):
+        if it % per_epoch == 0:
+            order = torch.from_numpy(rng.permutation(len(train))).to(dev)
+        idx = order[(it % per_epoch) * batch_size:(it % per_epoch + 1) * batch_size]
+        state, metrics = algo.train_step(state, {"image": images[idx]})
+        if (it + 1) % 500 == 0:
+            logged[it + 1] = {k: float(v) for k, v in metrics.items()}
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t_train
+    train_launches = read_launches()[0]["nearest_codes"]
+    val = DatasetRegistry.build(validator["dataset"])
+    metrics = {name: MetricRegistry.build(m) for name, m in validator["metrics"].items()}
+    vb = validator["dataloader"]["batch_size"]
+    eval_batches = -(-len(val) // vb)
+    for lo in range(0, len(val), vb):
+        batch = collate([val[i] for i in range(lo, min(lo + vb, len(val)))])
+        memo = algo.eval_step(state, {"image": torch.from_numpy(batch["image"]).to(dev)})
+        memo["batch"] = batch
+        for m in metrics.values():
+            m.update(memo)
+    got = {name: m.summary(name)[name] for name, m in metrics.items()}
+    launches, plain = read_launches()
+    rep = codes_vs_plain(state.model, images[:batch_size])  # the step's lookup, its shape
+    recorded = json.loads((Path(__file__).resolve().parent / "BASELINE.json").read_text())
+    want = recorded["published"]["self_trained_2k"]["metrics"]
+    row = {"phase": "vqgan_anchor", "config": ANCHOR_CONFIG, "seed": ANCHOR_SEED, "steps": steps,
+           "batch": batch_size, "train_images": len(train), "val_images": len(val),
+           "discriminator_start": algo.d_start, "losses_every_500": logged,
+           "metrics": got, "baseline_self_trained_2k": want, "psnr_bar": ANCHOR_PSNR_BAR,
+           "k1_launches_train": train_launches, "eval_batches": eval_batches,
+           "k1_launches_eval": launches["nearest_codes"] - train_launches,
+           "plain_runs_on_cuda": plain - plain0,
+           "codes_vs_plain": {k: rep[k] for k in ("shape", "rows", "differ", "excused", "near_tie_rows",
+                                                  "tol")},
+           "train_s": train_s, "ms_per_step": 1e3 * train_s / steps,
+           "wall_s": time.perf_counter() - t_start}
+    emit(row)
+    if not (got["psnr"] >= ANCHOR_PSNR_BAR and row["plain_runs_on_cuda"] == 0
+            and train_launches == steps and row["k1_launches_eval"] == eval_batches and rep["ok"]
+            and all(np.isfinite(list(got.values())))):
+        raise SystemExit("vqgan_anchor: below the anchor's PSNR bar or a check failed")
 
 
 # AR training (configs/llamagen/c2i_medium_imagenet_ddp.py with flash on)
@@ -1627,6 +1909,12 @@ def main() -> int:
     vqgan, vqgan_cfg = make_vqgan(args.seed, dev)
     tok_launches, profile_tokenizer = phase_tokenizer(vqgan, vqgan_cfg, dev, args.seed)
     phase_class_to_image(vqgan, done, dev)
+    torch.cuda.empty_cache()
+    vqgan_algo, _ = make_vqgan_algorithm(VQGAN_CONFIG, args.seed, dev)
+    vqgan_launches, profile_vqgan = phase_vqgan_train(vqgan_algo, dev, args.seed)
+    torch.cuda.empty_cache()
+    phase_vqgan_anchor(dev)
+    torch.cuda.empty_cache()
     k_flash = phase_flash_attention(dev, gen)
     torch.cuda.empty_cache()
     algo, ar_cfg = make_ar_algorithm(args.seed, dev, vqgan)
@@ -1637,6 +1925,7 @@ def main() -> int:
     profile_generate()
     profile_tokenizer()
     profile_ar_step(algo, ar_state, codes_batch)
+    profile_vqgan()
     for k in k_int8:
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = {"serving": launches[k["name"]],
@@ -1647,6 +1936,9 @@ def main() -> int:
                                   for r in k2_dense_rows if r["plan"]["design"] == k["design"]]
     k_attn["launches"] = launches[k_attn["name"]]
     k_vq["launches"] = tok_launches["nearest_codes"]
+    k_vq["launches_by_path"] = {"tokenizer": tok_launches["nearest_codes"],
+                                "vqgan_train": vqgan_launches["nearest_codes"],
+                                "ar_train": ar_launches["nearest_codes"]}
     for k in k_flash:
         k["launches"] = ar_launches[k["name"]]
     emit({"kernels": [*k_int8, k_attn, k_vq, *k_flash]})

@@ -301,6 +301,9 @@ _F32, _BF16 = torch.float32, torch.bfloat16
         (16384, 16384, 8, _F32, _F32, "l2", "gaussian"),  # the tokenizer's lookup
         (16384, 16384, 8, _BF16, _BF16, "l2", "gaussian"),
         (16384, 16384, 8, _F32, _F32, "l2", "unit"),  # what the LlamaGen quantizer feeds
+        (3072, 16384, 8, _F32, _F32, "l2", "unit"),  # the LlamaGen VQGAN train step's (batch 12)
+        (3072, 16384, 8, _F32, _BF16, "l2", "unit"),  # the same with a bf16 codebook
+        (4096, 256, 32, _F32, _F32, "l2", "gaussian"),  # the regression train anchor's (batch 16, 32 px)
         (16384, 16384, 256, _F32, _F32, "l2", "gaussian"),
         (1000, 777, 40, _F32, _F32, "cosine", "gaussian"),
         (1, 16384, 8, _F32, _F32, "l2", "gaussian"),
@@ -548,3 +551,47 @@ def test_dense_decode_step_kernels_match_plain(dev):
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
     assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= 0.9
+
+
+def test_vqgan_gan_step_on_card_matches_cpu(dev):
+    # a small-width VQGANAlgorithm (the smoke anchor's widths, l1 + LPIPS,
+    # the spherical codebook re-normalised) with the GAN on: one train step
+    # on the card against the same step with device="cpu", cuDNN's TF32
+    # off (the fixture): losses within 1e-3 relative, the lookup's codes
+    # equal except near-ties
+    from pathlib import Path
+
+    from vector_quantization_tpu_torch.ops.distances import normalize
+    from vector_quantization_tpu_torch.registries import AlgorithmRegistry
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    cfg = Config.load(str(Path(__file__).resolve().parents[1] / "configs/regression/smoke_anchor.py"))
+    cfg = cfg["trainer"]["algorithm"]
+    cfg.update(recon_losses=dict(l1=dict(), lpips=dict(weight=1.0)), codebook_update=dict(type="normalize"),
+               discriminator_start=10)
+    cfg["model"]["quantizer"]["normalize_inputs"] = True
+    torch.manual_seed(0)
+    cpu = AlgorithmRegistry.build(cfg, device="cpu")
+    card = AlgorithmRegistry.build(cfg, device=dev)
+    for a, b in ((cpu.model, card.model), (cpu.discriminator, card.discriminator),
+                 (cpu.lpips_module, card.lpips_module)):
+        b.load_state_dict(a.state_dict())
+    image = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32))
+    with torch.no_grad():
+        feat = cpu.model.encode(image).reshape(-1, 16)
+        want = cpu.model.encode_to_quant(image)
+        got = card.model.encode_to_quant(image.to(dev)).cpu()
+    rep = compare_codes(normalize(feat), cpu.model.quantizer.effective_codebook(), got, want)
+    assert rep["ok"], rep
+    s_cpu, s_card = cpu.init_state(0), card.init_state(0)
+    s_cpu.step = s_card.step = 10
+    before = (nearest_codes.launches, nearest_codes_reference.cuda_calls)
+    _, m_cpu = cpu.train_step(s_cpu, {"image": image})
+    _, m_card = card.train_step(s_card, {"image": image.to(dev)})
+    torch.cuda.synchronize()
+    assert (nearest_codes.launches - before[0], nearest_codes_reference.cuda_calls - before[1]) == (1, 0)
+    assert set(m_cpu) == set(m_card)
+    for name, want_v in m_cpu.items():
+        w, g = float(want_v), float(m_card[name])
+        assert np.isfinite(g) and abs(g - w) <= 1e-3 * abs(w), (name, g, w)
+    assert float(m_card["d_loss"]) > 0 and float(m_card["aglw"]) != 0.8

@@ -77,6 +77,14 @@ def test_all_submodules_listed():
         "vector_quantization_tpu_torch.training.state",
         "vector_quantization_tpu_torch.algorithms.base",
         "vector_quantization_tpu_torch.algorithms.ar",
+        "vector_quantization_tpu_torch.algorithms.vqgan",
+        "vector_quantization_tpu_torch.models.losses.recon",
+        "vector_quantization_tpu_torch.models.losses.gan",
+        "vector_quantization_tpu_torch.models.losses.lpips",
+        "vector_quantization_tpu_torch.models.discriminators.patchgan",
+        "vector_quantization_tpu_torch.training.metrics",
+        "vector_quantization_tpu_torch.data.datasets",
+        "vector_quantization_tpu_torch.utils.converters",
     } <= names
 
 
@@ -109,6 +117,17 @@ def test_ar_algorithm_defaults_to_cuda(monkeypatch):
     algo = AlgorithmRegistry.build(cfg, device="cpu")
     devices = {p.device.type for p in [*algo.model.parameters(), *algo.ir_model.parameters()]}
     assert devices == {"cpu"}
+
+
+def test_vqgan_algorithm_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config.load(str(REPO / "configs/regression/smoke_anchor.py"))["trainer"]["algorithm"]
+    cfg["recon_losses"] = dict(l1=dict(), lpips=dict(weight=1.0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AlgorithmRegistry.build(cfg)
+    algo = AlgorithmRegistry.build(cfg, device="cpu")
+    modules = (algo.model, algo.discriminator, algo.lpips_module)
+    assert {t.device.type for m in modules for t in [*m.parameters(), *m.buffers()]} == {"cpu"}
 
 
 def test_cpu_calls_never_count_launches():

@@ -18,16 +18,24 @@ Covered so far:
 - AR training of the class-conditional prior (``algorithms.ar.ARAlgorithm``:
   tokenize, the Llama training forward with per-block remat, the
   logits-free fused CE, optax-equivalent AdamW), with the flash attention
-  kernels, forward and backward (``ops.flash_attention``).
+  kernels, forward and backward (``ops.flash_attention``);
+- VQGAN tokenizer training (``algorithms.vqgan.VQGANAlgorithm``,
+  ``algorithms.base.ReconstructionAlgorithm``: recon losses with LPIPS,
+  the PatchGAN discriminator, the adaptive GAN weight, R1, the codebook
+  re-normalisation, EMA), with the validation metrics
+  (``training.metrics``) and ``data.datasets.SyntheticDataset``.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 from . import registries  # noqa: F401
 # importing these registers their classes under the configs' type names
 from .algorithms import ar as _ar  # noqa: F401
+from .algorithms import vqgan as _vqgan_algorithm  # noqa: F401
+from .data import datasets as _datasets  # noqa: F401
 from .models import connectors as _connectors  # noqa: F401
 from .models.autoencoders import vqgan as _vqgan  # noqa: F401
 from .models.quantizers import vq as _vq  # noqa: F401
 from .models.transformers import llama as _llama  # noqa: F401
 from .tasks import image_reconstruction as _image_reconstruction  # noqa: F401
+from .training import metrics as _metrics  # noqa: F401

@@ -1,11 +1,14 @@
-"""Algorithm layer (port of ``vector_quantization_tpu/algorithms/base.py``,
-the ``Algorithm`` base; ``ReconstructionAlgorithm`` belongs to the VQGAN
-training slice).
+"""Algorithm layer (port of ``vector_quantization_tpu/algorithms/base.py``):
+the ``Algorithm`` base with its EMA shadow, ``ReconstructionAlgorithm``
+(the autoencoder's recon + quantizer losses and the codebook update after
+the gradient step) and ``apply_codebook_update``.
 
 An algorithm owns the trained model and the optimizer config and exposes
 ``init_state``, ``train_step`` and ``eval_step``. Where the JAX package's
 steps are pure functions that return a new state, the port's update the
-state's parameters and optimizer moments in place and return it.
+state's parameters, optimizer moments and ``extra`` in place and return
+it. Algorithms built from a config run on CUDA unless built with
+``device="cpu"`` (``AlgorithmRegistry.build(cfg, device="cpu")``).
 """
 
 from __future__ import annotations
@@ -15,16 +18,39 @@ from typing import Any, Mapping
 import torch
 from torch import nn
 
+from ..models.losses.lpips import LPIPS
+from ..models.losses.recon import cosine_loss, l1_loss, mse_loss
+from ..ops.distances import normalize
+from ..registries import AlgorithmRegistry, ModelRegistry
+from ..tasks.image_tokenization import model_device
 from ..training.optim import Optimizer, build_optimizer
 from ..training.state import TrainState
 
-__all__ = ["Algorithm"]
+__all__ = ["Algorithm", "ReconstructionAlgorithm", "apply_codebook_update"]
 
-_EMA = "ROADMAP.md queue A: EMA weights (ema_decay)"
+RECON_LOSSES = {"l1": l1_loss, "mse": mse_loss, "cosine": cosine_loss}
+_TOKENIZERS = "ROADMAP.md queue A: The remaining tokenizers"
+
+
+@torch.no_grad()
+def apply_codebook_update(cfg: Mapping[str, Any], codebook: torch.Tensor) -> None:
+    """The configured non-gradient codebook update, applied to the
+    ``codebook`` parameter in place. ``{"type": "normalize"}``: the
+    spherical re-projection ``e · rsqrt(Σ e² + 1e-12)`` of every row. The
+    updates that keep statistics in the state's ``extra`` (``kmeans``,
+    ``cvq``) are not ported yet."""
+    kind = cfg["type"]
+    if kind == "normalize":
+        codebook.copy_(normalize(codebook).to(codebook.dtype))
+    elif kind in ("kmeans", "cvq"):
+        raise NotImplementedError(f"codebook update {kind!r}: {_TOKENIZERS}")
+    else:
+        raise ValueError(f"unknown codebook update {kind!r}")
 
 
 class Algorithm:
-    """Base: owns model + optimizer; subclasses define the loss."""
+    """Base: owns model + optimizer (+ an EMA shadow of the model's
+    parameters when ``ema_decay`` is set); subclasses define the loss."""
 
     def __init__(
         self,
@@ -33,11 +59,27 @@ class Algorithm:
         optimizer: Mapping[str, Any] | None = None,
         ema_decay: float | None = None,
     ) -> None:
-        if ema_decay is not None:
-            raise NotImplementedError(_EMA)
         self.model = model
         self.optimizer_cfg = dict(optimizer or {"type": "adam", "lr": 1e-4})
         self._tx: Optimizer | None = None
+        self.ema_decay = ema_decay
+
+    def maybe_init_ema(self, extra: dict[str, Any], model: nn.Module) -> dict[str, Any]:
+        """``extra["ema_params"]``: a copy of ``model``'s parameters by name."""
+        if self.ema_decay is not None:
+            extra["ema_params"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        return extra
+
+    @torch.no_grad()
+    def maybe_update_ema(self, extra: dict[str, Any], model: nn.Module) -> dict[str, Any]:
+        """``e = d·e + (1 − d)·p`` for every parameter, in place."""
+        if self.ema_decay is not None:
+            d = self.ema_decay
+            ema = extra["ema_params"]
+            for name, p in model.named_parameters():
+                e = ema[name]
+                e.copy_(d * e + (1.0 - d) * p)
+        return extra
 
     def tx(self) -> Optimizer:
         if self._tx is None:
@@ -61,3 +103,99 @@ class Algorithm:
 
     def eval_step(self, state: TrainState, batch) -> dict:
         raise NotImplementedError
+
+
+@AlgorithmRegistry.register()
+class ReconstructionAlgorithm(Algorithm):
+    """Autoencoder training: recon losses + quantizer loss (+ the codebook
+    update). ``model`` is a config (built on ``device``) or a module."""
+
+    codebook_name = "quantizer.codebook"
+
+    def __init__(
+        self,
+        *,
+        model: Mapping[str, Any] | nn.Module,
+        recon_losses: Mapping[str, Mapping[str, Any]] | None = None,
+        codebook_update: Mapping[str, Any] | None = None,
+        lazy_kmeans_init: Mapping[str, Any] | None = None,
+        device: torch.device | str | None = None,
+        **kwargs: Any,
+    ) -> None:
+        if lazy_kmeans_init is not None:
+            raise NotImplementedError(f"lazy_kmeans_init: {_TOKENIZERS}")
+        if codebook_update and codebook_update["type"] in ("kmeans", "cvq"):
+            raise NotImplementedError(f"codebook update {codebook_update['type']!r}: {_TOKENIZERS}")
+        self.device = model_device(device)
+        if not isinstance(model, nn.Module):
+            model = ModelRegistry.build(model, device=self.device)
+        super().__init__(model=model.to(self.device), **kwargs)
+        self.recon_losses = dict(recon_losses or {"l1": {}, "mse": {}})
+        self.codebook_update = dict(codebook_update) if codebook_update else None
+        self.lpips_module = LPIPS().to(self.device) if "lpips" in self.recon_losses else None
+
+    def _zero(self) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def _init_lpips(self, extra: dict[str, Any]) -> dict[str, Any]:
+        """``extra["lpips_params"]``: the frozen LPIPS weights by name (the
+        module's own; random init: no converted VGG weights are ported)."""
+        if self.lpips_module is not None:
+            extra["lpips_params"] = dict(self.lpips_module.named_parameters())
+        return extra
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        state = super().init_state(seed)
+        state.extra = self.maybe_init_ema(self._init_lpips({}), state.model)
+        return state
+
+    # -- loss --------------------------------------------------------------
+
+    def _recon_target(self, out, batch, extra) -> torch.Tensor | None:
+        """What the decoder reconstructs; None: no reconstruction term."""
+        return batch["image"] if "pred" in out else None
+
+    def _recon(self, name: str, cfg: Mapping[str, Any], pred, target) -> torch.Tensor:
+        if name == "lpips":
+            return cfg.get("weight", 1.0) * self.lpips_module(pred, target)
+        return RECON_LOSSES[name](pred, target, **cfg)
+
+    def _losses(self, out, batch, extra=None) -> dict[str, torch.Tensor]:
+        losses = dict(out["quantizer"].losses)
+        if out["quantizer"].loss.dim() == 0 and not losses:
+            losses["loss_quantizer"] = out["quantizer"].loss
+        target = self._recon_target(out, batch, extra or {})
+        if target is not None:
+            for name, cfg in self.recon_losses.items():
+                losses[f"loss_{name}"] = self._recon(name, cfg, out["pred"], target)
+        return losses
+
+    def _codebook_update(self, state: TrainState) -> None:
+        if self.codebook_update is not None:
+            apply_codebook_update(self.codebook_update, state.model.get_parameter(self.codebook_name))
+
+    # -- steps -------------------------------------------------------------
+
+    def train_step(self, state: TrainState, batch) -> tuple[TrainState, dict]:
+        image = batch["image"].to(self.device)
+        out = state.model(image, train=True)
+        losses = self._losses(out, {**batch, "image": image}, state.extra)
+        total = sum(losses.values(), self._zero())
+        if not out["quantizer"].losses:
+            total = total + out["quantizer"].loss
+        params = state.params()
+        grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
+        self.tx().step(params, list(grads), state.opt_state)
+        self._codebook_update(state)
+        self.maybe_update_ema(state.extra, state.model)
+        state.step += 1
+        return state, {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch) -> dict:
+        image = batch["image"].to(self.device)
+        out = state.model(image, train=False)
+        memo = {"codes": out["quantizer"].codes, **self._losses(out, {**batch, "image": image}, state.extra)}
+        if "pred" in out:
+            memo["pred"] = out["pred"]
+        return memo

@@ -153,5 +153,14 @@ class VQGANDecoder(nn.Module):
             resample="up",
         )
 
+    @staticmethod
+    def last_parameter_name() -> str:
+        """The projector conv's weight: the ``last`` of the adaptive GAN
+        weight (the JAX decoder's ``last_parameter_path()``)."""
+        return "backbone.proj_out.weight"
+
+    def last_parameter(self) -> nn.Parameter:
+        return self.get_parameter(self.last_parameter_name())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.backbone(x)

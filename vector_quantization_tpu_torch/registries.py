@@ -8,10 +8,13 @@ from .utils.registry import Registry
 
 VQRegistry = Registry("VQ")
 
+DatasetRegistry = VQRegistry.child("datasets")
 ModelRegistry = VQRegistry.child("models")
 AlgorithmRegistry = VQRegistry.child("algorithms")
 EncoderRegistry = ModelRegistry.child("encoders")
 DecoderRegistry = ModelRegistry.child("decoders")
 QuantizerRegistry = ModelRegistry.child("quantizers")
 ConnectorRegistry = ModelRegistry.child("connectors")
+DiscriminatorRegistry = ModelRegistry.child("discriminators")
 TransformerRegistry = ModelRegistry.child("transformers")
+MetricRegistry = VQRegistry.child("metrics")  # a child of "runners" in JAX; no runner yet

@@ -1,8 +1,13 @@
-"""Flax params -> the port's state dicts.
+"""Flax params -> the port's state dicts, and back.
 
 The JAX package maps torch checkpoints to flax (``utils/converters.py``);
 this goes the other way, so the port loads the same weights as the JAX
-model it is held against.
+model it is held against: the tokenizer, the discriminator (``params`` and
+``batch_stats``) and LPIPS through :func:`state_dict_from_flax`, Llama
+through :func:`llama_params_from_flax`. :func:`params_to_flax` and
+:func:`batch_stats_to_flax` read the port's tensors back in flax's layout,
+for holding updated weights, optimizer moments and EMA shadows against
+the JAX package's.
 """
 
 from __future__ import annotations
@@ -18,7 +23,9 @@ from ..models.connectors import ConvConnector
 from ..models.layers import AttnBlock, Downsample, ResBlock, Upsample
 
 __all__ = [
+    "batch_stats_to_flax",
     "flax_param_shapes",
+    "params_to_flax",
     "llama_params_from_flax",
     "llama_params_to_flax",
     "load_ar_from_flax",
@@ -91,9 +98,11 @@ def load_ar_from_flax(
 
 
 def _flax_leaves(module: nn.Module) -> Iterator[tuple[str, tuple[str, ...], str]]:
-    """(port parameter name, flax leaf path, layout) for every parameter of
-    ``module``: layout ``conv`` (flax HWIO, port OIHW), ``dense`` (flax
-    (in, out), port (out, in)) or ``same``."""
+    """(port tensor name, flax leaf path, layout) for every parameter and
+    persistent buffer of ``module``: layout ``conv`` (flax HWIO, port
+    OIHW), ``dense`` (flax (in, out), port (out, in)), ``same``, or
+    ``stats`` (a buffer: a leaf of flax's ``batch_stats``, e.g. BatchNorm's
+    ``mean`` and ``var``)."""
 
     def visit(mod: nn.Module, path: tuple[str, ...], prefix: str):
         if isinstance(mod, nn.GroupNorm):
@@ -107,6 +116,9 @@ def _flax_leaves(module: nn.Module) -> Iterator[tuple[str, tuple[str, ...], str]
             return
         for name, _ in mod.named_parameters(recurse=False):
             yield prefix + name, path + (name,), "same"
+        for name, _ in mod.named_buffers(recurse=False):
+            if name not in mod._non_persistent_buffers_set:
+                yield prefix + name, path + (name,), "stats"
         renames = _FLAX_CHILD.get(type(mod), {})
         for name, child in mod.named_children():
             yield from visit(child, path + (renames.get(name, name),), f"{prefix}{name}.")
@@ -118,10 +130,13 @@ _TO_PORT = {"conv": (3, 2, 0, 1), "dense": (1, 0)}  # axes of np.transpose
 _TO_FLAX = {"conv": (2, 3, 1, 0), "dense": (1, 0)}
 
 
-def state_dict_from_flax(module: nn.Module, params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """The flax params (the ``params`` collection, numpy or JAX arrays) of a
-    tokenizer model or any of its parts -> a state dict for ``module``, the
-    port's module of the same configuration.
+def state_dict_from_flax(
+    module: nn.Module, params: Mapping[str, Any], batch_stats: Mapping[str, Any] | None = None
+) -> dict[str, torch.Tensor]:
+    """The flax params (the ``params`` collection, numpy or JAX arrays; and
+    the ``batch_stats`` collection where the module has running statistics)
+    of a tokenizer model or any of its parts, a discriminator or LPIPS -> a
+    state dict for ``module``, the port's module of the same configuration.
 
     Walks the port's module tree beside flax's names (auto-generated ones
     included: ``GroupNorm32_0/GroupNorm_0`` in each block, the ``Conv_0`` of
@@ -135,19 +150,19 @@ def state_dict_from_flax(module: nn.Module, params: Mapping[str, Any]) -> dict[s
     out: dict[str, torch.Tensor] = {}
     used: set[str] = set()
     for name, path, layout in _flax_leaves(module):
-        node: Any = params
+        node: Any = batch_stats if layout == "stats" else params
         for part in path:
             if not isinstance(node, Mapping) or part not in node:
-                raise KeyError(f"flax params have no {'/'.join(path)}")
+                raise KeyError(f"flax {'batch_stats' if layout == 'stats' else 'params'} have no {'/'.join(path)}")
             node = node[part]
-        used.add(".".join(path))
+        used.add(("batch_stats." if layout == "stats" else "") + ".".join(path))
         value = np.array(node, dtype=np.float32)
-        if layout != "same":
+        if layout in _TO_PORT:
             value = value.transpose(_TO_PORT[layout])
         if tuple(want[name].shape) != value.shape:
             raise ValueError(f"{name}: flax gives {value.shape}, the port has {tuple(want[name].shape)}")
         out[name] = torch.from_numpy(np.ascontiguousarray(value))
-    unused = set(_flatten(params)) - used
+    unused = (set(_flatten(params)) | {f"batch_stats.{k}" for k in _flatten(batch_stats or {})}) - used
     if unused:
         raise ValueError(f"flax leaves not consumed: {sorted(unused)}")
     if want.keys() - out.keys():
@@ -155,17 +170,46 @@ def state_dict_from_flax(module: nn.Module, params: Mapping[str, Any]) -> dict[s
     return out
 
 
+def _to_flax_tree(module: nn.Module, tensors: Mapping[str, Any], stats: bool, leaf) -> dict[str, Any]:
+    tree: dict[str, Any] = {}
+    for name, path, layout in _flax_leaves(module):
+        if (layout == "stats") != stats:
+            continue
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf(tensors[name], layout)
+    return tree
+
+
 def flax_param_shapes(module: nn.Module) -> dict[str, Any]:
     """The nested flax params tree (leaf: shape tuple) that
     :func:`state_dict_from_flax` takes for ``module``: for making weights
     in the flax layout without JAX."""
-    tree: dict[str, Any] = {}
-    for name, path, layout in _flax_leaves(module):
-        shape = tuple(module.get_parameter(name).shape)
-        if layout != "same":
-            shape = tuple(shape[a] for a in _TO_FLAX[layout])
-        node = tree
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = shape
-    return tree
+    return _to_flax_tree(
+        module, dict(module.named_parameters()), False,
+        lambda p, layout: tuple(p.shape[a] for a in _TO_FLAX[layout]) if layout in _TO_FLAX
+        else tuple(p.shape),
+    )
+
+
+def _numpy_leaf(t: torch.Tensor, layout: str) -> np.ndarray:
+    value = t.detach().cpu().numpy().copy()
+    return value.transpose(_TO_FLAX[layout]) if layout in _TO_FLAX else value
+
+
+def params_to_flax(module: nn.Module, tensors: Mapping[str, torch.Tensor] | None = None) -> dict[str, Any]:
+    """The reverse of :func:`state_dict_from_flax` for the parameters:
+    ``tensors`` (by the module's parameter names, in its layouts; default
+    the module's own parameters, else e.g. an EMA shadow or an optimizer's
+    moments) -> the nested flax ``params`` tree of numpy arrays."""
+    return _to_flax_tree(module, dict(module.named_parameters()) if tensors is None else tensors,
+                         False, _numpy_leaf)
+
+
+def batch_stats_to_flax(module: nn.Module,
+                        tensors: Mapping[str, torch.Tensor] | None = None) -> dict[str, Any]:
+    """The running statistics (by the module's buffer names; default the
+    module's own buffers) -> flax's ``batch_stats`` tree."""
+    return _to_flax_tree(module, dict(module.named_buffers()) if tensors is None else tensors,
+                         True, _numpy_leaf)
