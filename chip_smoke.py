@@ -83,14 +83,16 @@ exits non-zero:
    split in two) against its plain version at the tokenizer's shape N = K
    = 16384, D = 8 (f32 and bf16, Gaussian rows; f32 unit rows, what the
    LlamaGen quantizer feeds), the VQGAN train step's 3072 x 16384 x 8 (f32
-   unit rows), the flagship D = 256, a ragged 1000 x 777 x
+   unit rows), VQ-KD's 12544 x 8192 x 32 (cosine, and l2 as its lazy
+   k-means init looks up; unit rows), Cluster's 12544 x 8192 x 768 (f32,
+   x streamed through the ring), the flagship D = 256, a ragged 1000 x 777 x
    40 (cosine), N = 1, and planted exact ties (duplicated codebook rows,
    f32 and bf16). Codes may differ only as near-ties (both codes' plain
    scores within 1e-5 * max|score| of the row's best: TF32 parts and f32
    sums in another order); planted ties go to the lowest index exactly.
    Each row carries the launch plan ``ops/vq_lookup.plan`` picked. Device
-   times (CUDA graph) at the path shapes and the flagship, each beside its
-   two bounds (``bound_ms``: this design's on the TF32 tensor cores;
+   times (CUDA graph, each case with its metric) at the path shapes and
+   the flagship, each beside its two bounds (``bound_ms``: this design's on the TF32 tensor cores;
    ``bound_f32_cuda_cores_ms``: the same products on the f32 pipes), the
    kernels one call launches (torch.profiler) and ``library_ms`` =
    ``argmin(addmm(esq/2, x, e^T, alpha=-1))``, which writes and reads the
@@ -134,7 +136,39 @@ exits non-zero:
    BASELINE.json's ``self_trained_2k``. Gate: PSNR >= 15 (the anchor's own
    bar; the RNG and data order differ from the JAX run's, so a band, not
    bits). The phase's wall time.
-14. ``flash_attention``: K4-fwd, K4-dkv and K4-dq against their plain
+14. ``vqkd_train``: ``VQKDAlgorithm`` from configs/vqkd/clip_8192_imagenet_ddp.py
+   through the port's config loader and registry, at full width, f32
+   (TF32 off): the ViT-B/16 encoder (768 wide, 12 blocks, 224 px ->
+   (B, 14, 14, 32)), the 8192 x 32 cosine codebook (normalised inputs,
+   commitment loss), the 1x1 conv connector, the 3-block ViT decoder to
+   512 features, and the frozen CLIP ViT-B/16 teacher (quick-GELU,
+   ``ln_pre``, 512 projection), all at their own random init under
+   ``--seed`` (no weights are in the repository); AdamW 2e-4 with the
+   config's cosine warm-up and weight decay 1e-4, the codebook excluded;
+   EMA k-means (decay 0.99) after each step and the lazy k-means init (10
+   iterations) on the first. Batch 64 (bench.py's vqkd_224px per chip) of
+   random uint8 images from ``--seed``: 1 + 3 steps, then one
+   ``eval_step`` with the validator's metrics (usage, PPL, ``LossMetric``
+   on ``loss_cosine``). Gates: K1 launched 11 times on the first step (the
+   init's 10 lookups, l2 on unit rows, and the step's) and once on each
+   other step and on eval; no plain version on the card; the teacher's
+   tensors bit-identical after the steps; every codebook row of unit norm
+   (within 1e-5) after each step; the codebook moved; finite losses and
+   metrics; the step's features looked up by the kernel and by the plain
+   version (codes equal except near-ties). Median step ms on the host
+   clock (steps 2-4; the first, with the init, apart), images/s, the
+   step's GFLOP per image (``torch.utils.flop_counter`` on the forwards)
+   and the rate it implies, peak GiB.
+15. ``cluster_train``: ``ClusterAlgorithm`` from
+   configs/cluster/clip_8192_imagenet_ddp.py likewise: the CLIP ViT-B/16
+   teacher without projection (``ln_post`` on) as ``ClusterEncoder``,
+   excluded from Adam (1e-4), the 8192 x 768 l2 codebook with the codebook
+   loss, CVQ with the nearest anchors after each step (the squared l2
+   distances over the updated codebook, (12544, 8192) f32). Batch 64: 1 +
+   3 steps. Gates: K1 once a step, no plain version on the card, the
+   encoder's tensors bit-identical, the codebook moved, finite losses, and
+   codes against the plain lookup at (12544, 8192, 768).
+16. ``flash_attention``: K4-fwd, K4-dkv and K4-dq against their plain
    versions (both backward versions fed the kernel's o and lse), bf16, at
    the path shape (B, T, H, Dh) = (64, 257, 16, 64), ragged T in {1, 63,
    64, 65, 129, 256, 300} (the partial first tile at each length), 705
@@ -151,7 +185,7 @@ exits non-zero:
    attention (SDPA pinned to its FLASH_ATTENTION backend): its forward, and
    its backward alone (the aten flash backward on residuals made outside
    the graph); ``sdpa_fwd_bwd_ms`` both together.
-15. ``ar_train``: ``ARAlgorithm`` from configs/llamagen/c2i_medium_imagenet_ddp.py
+17. ``ar_train``: ``ARAlgorithm`` from configs/llamagen/c2i_medium_imagenet_ddp.py
    with ``transformer.flash=True`` through the port's config loader and
    registry (Llama-medium, bf16 over f32 params, full per-block remat, fused
    CE, AdamW with the config's warm-up schedule, weight decay 0.05, grad
@@ -162,7 +196,7 @@ exits non-zero:
    every transformer parameter changed and no tokenizer parameter, launches
    per step K4-fwd 48 (24 + 24 remat re-runs), dkv 24, dq 24, K1 once per
    image step, no plain version on the card.
-16. ``ar_flash_vs_einsum``: one step's loss and gradients on 64 rows of the
+18. ``ar_flash_vs_einsum``: one step's loss and gradients on 64 rows of the
    codes batch with the same weights through flash and through the einsum
    attention (``flash=False``): loss within 1e-2 relative, every
    parameter's gradient within 5e-2 relative L2 (bf16 attention rounds P at
@@ -170,29 +204,33 @@ exits non-zero:
    step on those 64 rows with each attention (einsum is what the shipped
    configs/ar/transformers/llama.py runs), median of 3 steps on the host
    clock after a warm-up.
-17. ``ar_generate``: class -> image through ``ARAlgorithm.generate_step``
-   on phase 15's model and state (CFG as the config sets it, alpha 1.75,
+19. ``ar_generate``: class -> image through ``ARAlgorithm.generate_step``
+   on phase 17's model and state (CFG as the config sets it, alpha 1.75,
    its top-k 600 / top-p 0.92 sampler), 8 classes, then phase 10's VQGAN
    decoder: images (8, 256, 256, 3), finite; seconds per image.
-18. ``decode_profile``: the decode step of phase 4 on the host clock and,
+20. ``decode_profile``: the decode step of phase 4 on the host clock and,
    under torch.profiler, its device time; their ratio gives the device's
    idle share (run last: the profiler slows later host dispatch).
-19. ``generate_profile``: one decode step of phase 8 at its midpoint (a
+21. ``generate_profile``: one decode step of phase 8 at its midpoint (a
    129-column INT8 cache) on the host clock and under torch.profiler:
    device ms, idle share, K2's share.
-20. ``tokenizer_profile``: one encode + decode of the 64 images of phase 10
+22. ``tokenizer_profile``: one encode + decode of the 64 images of phase 10
    under torch.profiler: device time by kernel and the idle share.
-21. ``ar_train_profile``: one codes train step under torch.profiler:
+23. ``ar_train_profile``: one codes train step under torch.profiler:
    device time by kernel and the idle share.
-22. ``vqgan_train_profile``: one GAN-on step of phase 12 under
+24. ``vqgan_train_profile``: one GAN-on step of phase 12 under
    torch.profiler: device ms (the kernels' sum), busy ms (the union of
    their intervals: cuDNN's FFT convolutions overlap), the idle share of
    the host clock from the busy time, and the shares of cuDNN's
    convolutions, the elementwise passes, the GEMMs and K1.
-23. ``kernels``: per kernel, launches in its path's run (phase 5 for the
+25. ``vqkd_train_profile``, 26. ``cluster_train_profile``: one step of
+   phases 14 and 15 under torch.profiler, as phase 24 (their kernels by
+   family: K1, SDPA's attention kernels, cuBLAS's GEMMs, elementwise,
+   reductions).
+27. ``kernels``: per kernel, launches in its path's run (phase 5 for the
    server's: K2's kernels that the serving shapes' plans name, and K3;
-   phase 10 for the lookup (and its launches in phases 12 and 15, and its
-   times at the train shape), phase 15 for the three flash kernels; K2's
+   phase 10 for the lookup (and its launches in phases 12, 14, 15 and 17,
+   and its times at the train shapes), phase 17 for the three flash kernels; K2's
    rows also give their launches in phases 7 and 8, and phase 6's times
    at the dense path's shapes), device time per call, the bound, the plain
    version's and the yardstick's time.
@@ -1078,6 +1116,10 @@ def kernels_per_call(fn) -> list[str]:
     return [e.name[:60] for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+SHAPE_KEYS = ("N", "K", "D", "ms", "plain_ms", "library_ms", "bound_ms", "bound_f32_cuda_cores_ms",
+              "max_score_gap", "plan")
+
+
 def phase_vq_lookup(dev, gen) -> dict:
     from vector_quantization_tpu_torch.ops.device import card
     from vector_quantization_tpu_torch.ops.vq_lookup import (
@@ -1092,12 +1134,18 @@ def phase_vq_lookup(dev, gen) -> dict:
         ("vqgan_train_f32", VQGAN_TRAIN_BATCH * GRID * GRID, CODEBOOK, 8, torch.float32, "l2", "unit",
          True),
         ("flagship_d256", 16384, 16384, 256, torch.float32, "l2", "gaussian", True),
+        # VQ-KD's step (cosine, unit rows) and its lazy k-means init (l2 on
+        # unit rows); Cluster's step at D = 768 (x streamed through the ring)
+        ("vqkd_cosine", TEACHER_N, 8192, 32, torch.float32, "cosine", "unit", True),
+        ("vqkd_init_l2", TEACHER_N, 8192, 32, torch.float32, "l2", "unit", True),
+        ("cluster_d768", TEACHER_N, 8192, 768, torch.float32, "l2", "gaussian", True),
         ("ragged_cosine", 1000, 777, 40, torch.float32, "cosine", "gaussian", False),
         ("n1", 1, CODEBOOK, 8, torch.float32, "l2", "gaussian", False),
         ("planted_ties", 4096, 1000, 8, torch.float32, "l2", "ties", False),
         ("planted_ties_bf16", 4096, 1000, 8, torch.bfloat16, "l2", "ties", False),
     ]
     kernel_row = train_row = None
+    teacher_rows = {}
     for name, n, k, d, dtype, metric, rows, timed in cases:
         x = torch.randn((n, d), generator=gen, device=dev)
         e = torch.randn((k, d), generator=gen, device=dev)
@@ -1129,10 +1177,10 @@ def phase_vq_lookup(dev, gen) -> dict:
         if timed:
             xf, ef = x.float(), e.float()
             esq_half = 0.5 * (ef * ef).sum(dim=1)
-            launched = kernels_per_call(lambda: nearest_codes(x, e))
+            launched = kernels_per_call(lambda: nearest_codes(x, e, metric))
             row.update({
-                "ms": graph_ms([lambda: nearest_codes(x, e)]),
-                "plain_ms": graph_ms([lambda: nearest_codes_reference(x, e)], replays=3),
+                "ms": graph_ms([lambda: nearest_codes(x, e, metric)]),
+                "plain_ms": graph_ms([lambda: nearest_codes_reference(x, e, metric)], replays=3),
                 "library_ms": graph_ms([lambda: torch.argmin(
                     torch.addmm(esq_half, xf, ef.T, alpha=-1), dim=1)], replays=3),
                 "launches_per_call": len(launched), "kernels_per_call": launched,
@@ -1142,6 +1190,8 @@ def phase_vq_lookup(dev, gen) -> dict:
                 kernel_row = row
             if name == "vqgan_train_f32":
                 train_row = row
+            if name in ("vqkd_cosine", "vqkd_init_l2", "cluster_d768"):
+                teacher_rows[name] = row
             del xf, ef, esq_half
         emit(row)
         del x, e, got, want
@@ -1158,9 +1208,9 @@ def phase_vq_lookup(dev, gen) -> dict:
                  f"between the kernel's code and the row's best ({kernel_row['rows_differing']} "
                  f"rows differ, all near-ties); library_ms writes the N x K matrix; train_shape: "
                  f"the VQGAN train step's lookup (unit rows)"),
-        "train_shape": {key: train_row[key] for key in (
-            "N", "K", "D", "ms", "plain_ms", "library_ms", "bound_ms", "bound_f32_cuda_cores_ms",
-            "max_score_gap", "plan")},
+        "train_shape": {key: train_row[key] for key in SHAPE_KEYS},
+        "teacher_shapes": {name: {key: r[key] for key in (*SHAPE_KEYS, "metric")}
+                           for name, r in teacher_rows.items()},
     }
 
 
@@ -1345,6 +1395,7 @@ def phase_class_to_image(model, done: dict, dev) -> None:
 # VQGAN training (configs/llamagen/vqgan_imagenet_ddp.py; configs/regression/train_anchor.py)
 PROFILE_GROUPS = {  # kernel name fragments -> group, first match wins
     "k1": ("nearest_tc_kernel", "prep_kernel"),
+    "sdpa": ("fmha", "attention"),  # F.scaled_dot_product_attention's kernels (the ViTs)
     "cudnn_conv": ("cudnn", "conv", "implicit_gemm", "fft", "winograd", "dgrad", "wgrad", "fprop",
                    "cf32"),  # cf32: the complex GEMM of cuDNN's FFT convolution
     "gemm": ("gemm", "nvjet", "cutlass"),  # cuBLAS (its sm80_xmma_gemm_* too)
@@ -1356,6 +1407,41 @@ PROFILE_GROUPS = {  # kernel name fragments -> group, first match wins
 def profile_group(kernel: str) -> str:
     name = kernel.lower()
     return next((g for g, marks in PROFILE_GROUPS.items() if any(m in name for m in marks)), "other")
+
+
+def profile_train_step(phase: str, run, **fields) -> None:
+    """``run()`` (one train step) under torch.profiler: device time by
+    group and kernel, and the device's idle share against the host clock.
+    Busy time is the union of the kernels' intervals (the sum of their
+    times counts kernels that run at once twice, as cuDNN's FFT
+    convolutions do)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed(run)
+    events = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
+    device_us = sum(e.self_device_time_total for e in events)
+    if device_us <= 0:
+        raise SystemExit(f"{phase}: the profiler recorded no device time")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_group = dict.fromkeys([*PROFILE_GROUPS, "other"], 0.0)
+    for e in events:
+        by_group[profile_group(e.key)] += e.self_device_time_total / 1e3
+    emit({"phase": phase, **fields,
+          "host_ms": 1e3 * wall, "device_ms": device_us / 1e3, "device_busy_ms": busy_us / 1e3,
+          "device_idle_frac": 1.0 - busy_us / 1e6 / wall,
+          "device_ms_by_group": by_group,
+          "share_by_group": {g: ms * 1e3 / device_us for g, ms in by_group.items()},
+          "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                           "ms": e.self_device_time_total / 1e3,
+                           "share": e.self_device_time_total / device_us,
+                           "group": profile_group(e.key)}
+                          for e in events[:12]]})
 
 
 def make_vqgan_algorithm(cfg_path: str, seed: int, dev):
@@ -1394,9 +1480,9 @@ def phase_vqgan_train(algo, dev, seed: int):
     pre_normalize = {}
     codebook_update = algo._codebook_update
 
-    def spied_codebook_update(state):
+    def spied_codebook_update(state, qout=None):
         pre_normalize["n"] = torch.linalg.vector_norm(model.quantizer.codebook.detach().double(), dim=1)
-        codebook_update(state)
+        codebook_update(state, qout)
 
     algo._codebook_update = spied_codebook_update
     rng = np.random.default_rng(seed + 4)
@@ -1461,37 +1547,9 @@ def phase_vqgan_train(algo, dev, seed: int):
         raise SystemExit("vqgan_train: a check failed (see the vqgan_train line)")
 
     def profile_vqgan_step() -> None:
-        """One GAN-on step under torch.profiler: device time by group and
-        kernel, and the device's idle share against the host clock."""
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, wall = _timed(lambda: algo.train_step(state, batch))
-        events = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
-        device_us = sum(e.self_device_time_total for e in events)
-        if device_us <= 0:
-            raise SystemExit("vqgan_train_profile: the profiler recorded no device time")
-        # busy time: the union of the device intervals (the sum above counts
-        # kernels that run at the same time twice)
-        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        busy_us, end = 0.0, float("-inf")
-        for a, b in spans:
-            busy_us += max(0.0, b - max(a, end))
-            end = max(end, b)
-        by_group = dict.fromkeys([*PROFILE_GROUPS, "other"], 0.0)
-        for e in events:
-            by_group[profile_group(e.key)] += e.self_device_time_total / 1e3
-        emit({"phase": "vqgan_train_profile", "batch": VQGAN_TRAIN_BATCH, "step": state.step - 1,
-              "host_ms": 1e3 * wall, "device_ms": device_us / 1e3, "device_busy_ms": busy_us / 1e3,
-              "device_idle_frac": 1.0 - busy_us / 1e6 / wall,
-              "device_ms_by_group": by_group,
-              "share_by_group": {g: ms * 1e3 / device_us for g, ms in by_group.items()},
-              "top_kernels": [{"name": e.key[:90], "calls": e.count,
-                               "ms": e.self_device_time_total / 1e3,
-                               "share": e.self_device_time_total / device_us,
-                              "group": profile_group(e.key)}
-                              for e in events[:12]]})
+        """One GAN-on step under torch.profiler."""
+        profile_train_step("vqgan_train_profile", lambda: algo.train_step(state, batch),
+                           batch=VQGAN_TRAIN_BATCH, step=state.step)
 
     return launches, profile_vqgan_step
 
@@ -1557,6 +1615,152 @@ def phase_vqgan_anchor(dev) -> None:
             and train_launches == steps and row["k1_launches_eval"] == eval_batches and rep["ok"]
             and all(np.isfinite(list(got.values())))):
         raise SystemExit("vqgan_anchor: below the anchor's PSNR bar or a check failed")
+
+
+# VQ-KD and Cluster training (configs/vqkd/clip_8192_imagenet_ddp.py,
+# configs/cluster/clip_8192_imagenet_ddp.py): batch 64 a card, as bench.py's
+# vqkd_224px times the step (the configs' 512 is the global batch)
+VQKD_CONFIG = "configs/vqkd/clip_8192_imagenet_ddp.py"
+CLUSTER_CONFIG = "configs/cluster/clip_8192_imagenet_ddp.py"
+TEACHER_BATCH, TEACHER_IMAGE, TEACHER_STEPS = 64, 224, 3  # 1 + 3 steps
+TEACHER_GRID = TEACHER_IMAGE // 16
+VQKD_PARAMS, CLUSTER_PARAMS = 109_092_416, 92_090_880
+TEACHER_N = TEACHER_BATCH * TEACHER_GRID**2  # 12544 rows a lookup
+UNIT_NORM_LIMIT = 1e-5  # |row norm - 1| after VQ-KD's k-means update (it ends in normalize)
+
+
+def make_teacher_algorithm(cfg_path: str, seed: int, dev):
+    """``VQKDAlgorithm`` or ``ClusterAlgorithm`` from ``cfg_path`` through
+    the port's config loader and registry, every module (the teacher too)
+    at its own random init under ``torch.manual_seed(seed)``: no teacher
+    weights are in the repository."""
+    from vector_quantization_tpu_torch.registries import AlgorithmRegistry
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    cfg = Config.load(str(Path(__file__).resolve().parent / cfg_path))
+    torch.manual_seed(seed)
+    return AlgorithmRegistry.build(cfg["trainer"]["algorithm"], device=dev), cfg
+
+
+def step_flops(algo, batch) -> dict:
+    """GFLOP per image, counted by ``torch.utils.flop_counter`` on forwards
+    under ``no_grad`` (matmuls, convolutions and the attention's products;
+    the norms, elementwise passes and the lookup's kernel not counted): the
+    trained model's forward, the frozen part's (VQ-KD's teacher; Cluster's
+    encoder, which is its teacher), and the step's estimate: VQ-KD's
+    trained forward 3x (forward and backward) plus the teacher's forward;
+    Cluster's teacher forward plus 2·N·K·D twice, the lookup's products and
+    CVQ's distance matrix."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    def counted(fn) -> int:
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            fn()
+        return counter.get_total_flops()
+
+    model = algo.model
+    n = batch["image"].shape[0]
+    if hasattr(algo, "teacher"):
+        trained = counted(lambda: model(batch["image"]))
+        frozen = counted(lambda: algo.teacher(batch["original_image"]))
+        step = 3 * trained + frozen
+    else:
+        trained, frozen = 0, counted(lambda: model.encode(batch["image"]))
+        k, d = model.quantizer.codebook.shape
+        step = frozen + 2 * (2 * n * TEACHER_GRID**2 * k * d)
+    return {"trained_fwd_gflop_per_image": trained / n / 1e9, "frozen_fwd_gflop_per_image": frozen / n / 1e9,
+            "step_gflop_per_image": step / n / 1e9}
+
+
+def phase_teacher_train(phase: str, algo, cfg, dev, seed: int):
+    """``phase`` is ``vqkd_train`` or ``cluster_train``: 1 + 3 train steps at
+    full width on one batch, then (VQ-KD) one ``eval_step`` with the
+    validator's metrics."""
+    from vector_quantization_tpu_torch.data.base import pixel_encode
+    from vector_quantization_tpu_torch.registries import MetricRegistry
+
+    vqkd = phase == "vqkd_train"
+    model = algo.model
+    teacher = algo.teacher if vqkd else model.encoder
+    rng = np.random.default_rng(seed + 5)
+    u8 = torch.from_numpy(rng.integers(0, 256, (TEACHER_BATCH, TEACHER_IMAGE, TEACHER_IMAGE, 3),
+                                       dtype=np.uint8)).to(dev)
+    batch = {"image": pixel_encode(u8), "original_image": u8}
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = step_flops(algo, batch)
+    state = algo.init_state(seed)
+    teacher_before = snapshot(teacher)
+    codebook_before = model.quantizer.codebook.detach().clone()
+    trained = [n for n, p in model.named_parameters() if p.requires_grad]
+    trained_before = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    _, plain0 = read_launches()
+    rows = []
+    for _ in range(1 + TEACHER_STEPS):
+        k1_before = read_launches()[0]["nearest_codes"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = algo.train_step(state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}  # synchronises
+        seconds = time.perf_counter() - t0
+        rows.append({"step": state.step - 1, "ms": 1e3 * seconds, "metrics": metrics,
+                     "k1_launches": read_launches()[0]["nearest_codes"] - k1_before})
+        if vqkd:  # a spherical codebook: unit rows after every step
+            norms = torch.linalg.vector_norm(model.quantizer.codebook.detach().double(), dim=1)
+            rows[-1]["codebook_norm_max_dev_from_1"] = float((norms - 1).abs().max())
+    train_launches = read_launches()[0]["nearest_codes"]
+    evaluated = {}
+    if vqkd:
+        metrics = {name: MetricRegistry.build(m) for name, m in cfg["validator"]["metrics"].items()}
+        memo = algo.eval_step(state, batch)
+        for m in metrics.values():
+            m.update(memo)
+        evaluated = {name: m.summary(name)[name] for name, m in metrics.items()}
+    launches, plain = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = float(np.median([r["ms"] for r in rows[1:]]))
+    rep = codes_vs_plain(model, batch["image"])  # the step's lookup, on the same features
+    want_k1 = [1 + algo.lazy_kmeans_init["iters"] if vqkd else 1] + [1] * TEACHER_STEPS
+    teacher_moved = moved(teacher, teacher_before)
+    trained_moved = [n for n, p in model.named_parameters() if n in trained_before
+                     and not torch.equal(p.detach(), trained_before[n])]
+    row = {"phase": phase, "config": VQKD_CONFIG if vqkd else CLUSTER_CONFIG, "dtype": "float32",
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "model_params": n_params, "trained_params": sum(p.numel() for p in trained_before.values()),
+           "teacher_params": sum(p.numel() for p in teacher.parameters()),
+           "batch": TEACHER_BATCH, "image_size": TEACHER_IMAGE, "steps": rows,
+           "first_step_ms": rows[0]["ms"], "step_ms_median": step_ms,
+           "images_per_s": TEACHER_BATCH / step_ms * 1e3, **flops,
+           "achieved_tflop_per_s": flops["step_gflop_per_image"] * TEACHER_BATCH / step_ms,
+           "peak_memory_gib": peak_gib, "k1_launches_per_step": [r["k1_launches"] for r in rows],
+           "k1_launches_expected": want_k1, "k1_launches_eval": launches["nearest_codes"] - train_launches,
+           "plain_runs_on_cuda": plain - plain0, "teacher_tensors_moved": len(teacher_moved),
+           "trained_tensors_moved": len(trained_moved), "trained_tensors": len(trained),
+           "eval_metrics": evaluated,
+           "codes_vs_plain": {k: rep[k] for k in ("shape", "rows", "differ", "excused", "near_tie_rows",
+                                                  "tol")}}
+    emit(row)
+    # the codebook moves in both (k-means or CVQ); VQ-KD's other weights move
+    # by the warm-up's lr (0 at the first step, 8e-9 at the second), which
+    # a LayerNorm scale of 1 does not resolve in f32: reported, not gated
+    ok = (row["k1_launches_per_step"] == want_k1 and row["plain_runs_on_cuda"] == 0 and rep["ok"]
+          and not teacher_moved and not torch.equal(model.quantizer.codebook.detach(), codebook_before)
+          and all(np.isfinite(list(r["metrics"].values())).all() for r in rows)
+          and n_params == (VQKD_PARAMS if vqkd else CLUSTER_PARAMS))
+    if vqkd:
+        ok = ok and row["k1_launches_eval"] == 1 and np.isfinite(list(evaluated.values())).all()
+        ok = ok and all(r["codebook_norm_max_dev_from_1"] <= UNIT_NORM_LIMIT for r in rows)
+        ok = ok and state.extra["initialized"] is True
+    if not ok:
+        raise SystemExit(f"{phase}: a check failed (see the {phase} line)")
+
+    def profile_step() -> None:
+        profile_train_step(f"{phase}_profile", lambda: algo.train_step(state, batch),
+                           batch=TEACHER_BATCH, step=state.step)
+
+    return launches, profile_step
 
 
 # AR training (configs/llamagen/c2i_medium_imagenet_ddp.py with flash on)
@@ -1915,6 +2119,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_vqgan_anchor(dev)
     torch.cuda.empty_cache()
+    vqkd_algo, vqkd_cfg = make_teacher_algorithm(VQKD_CONFIG, args.seed, dev)
+    vqkd_launches, profile_vqkd = phase_teacher_train("vqkd_train", vqkd_algo, vqkd_cfg, dev, args.seed)
+    torch.cuda.empty_cache()
+    cluster_algo, cluster_cfg = make_teacher_algorithm(CLUSTER_CONFIG, args.seed, dev)
+    cluster_launches, profile_cluster = phase_teacher_train("cluster_train", cluster_algo, cluster_cfg, dev,
+                                                            args.seed)
+    torch.cuda.empty_cache()
     k_flash = phase_flash_attention(dev, gen)
     torch.cuda.empty_cache()
     algo, ar_cfg = make_ar_algorithm(args.seed, dev, vqgan)
@@ -1926,6 +2137,8 @@ def main() -> int:
     profile_tokenizer()
     profile_ar_step(algo, ar_state, codes_batch)
     profile_vqgan()
+    profile_vqkd()
+    profile_cluster()
     for k in k_int8:
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = {"serving": launches[k["name"]],
@@ -1938,6 +2151,8 @@ def main() -> int:
     k_vq["launches"] = tok_launches["nearest_codes"]
     k_vq["launches_by_path"] = {"tokenizer": tok_launches["nearest_codes"],
                                 "vqgan_train": vqgan_launches["nearest_codes"],
+                                "vqkd_train": vqkd_launches["nearest_codes"],
+                                "cluster_train": cluster_launches["nearest_codes"],
                                 "ar_train": ar_launches["nearest_codes"]}
     for k in k_flash:
         k["launches"] = ar_launches[k["name"]]

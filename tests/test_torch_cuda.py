@@ -6,6 +6,8 @@ fixture, never at import). On a GPU machine without JAX run them with
 ``tests/conftest.py`` imports JAX).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -318,6 +320,9 @@ _F32, _BF16 = torch.float32, torch.bfloat16
         (4096, 1000, 40, _BF16, _F32, "l2", "ties"),
         (16384, 100, 8, _F32, _F32, "l2", "gaussian"),  # fewer code tiles than the grid wants splits
         (1000, 300, 512, _F32, _F32, "l2", "gaussian"),  # x streamed through the ring
+        (12544, 8192, 32, _F32, _F32, "cosine", "unit"),  # VQ-KD's step (batch 64 at 224 px)
+        (12544, 8192, 32, _F32, _F32, "l2", "unit"),  # VQ-KD's lazy k-means init
+        (12544, 8192, 768, _F32, _F32, "l2", "gaussian"),  # Cluster's step: x streamed
     ],
 )
 def test_nearest_codes_kernel_matches_plain(dev, n, k, d, dtype, e_dtype, metric, rows):
@@ -595,3 +600,51 @@ def test_vqgan_gan_step_on_card_matches_cpu(dev):
         w, g = float(want_v), float(m_card[name])
         assert np.isfinite(g) and abs(g - w) <= 1e-3 * abs(w), (name, g, w)
     assert float(m_card["d_loss"]) > 0 and float(m_card["aglw"]) != 0.8
+
+
+def test_vqkd_steps_on_card_match_cpu(dev, monkeypatch):
+    # a tiny VQ-KD (configs/vqkd/clip_8192_imagenet_ddp.py's algorithm, the
+    # models cut to img 32, patch 8, embed 32, depth 2, K 16, D 8; warm-up
+    # cut so the weights move) on the card against the same with
+    # device="cpu", the lazy k-means init fed one start: two steps, K1
+    # launched 1 + 10 times on the first (the init's 10 iterations) and once
+    # on the second, no plain lookup on the card; losses and the codebook
+    # within 1e-3
+    from pathlib import Path
+
+    from vector_quantization_tpu_torch.ops import codebook as cb
+    from vector_quantization_tpu_torch.registries import AlgorithmRegistry
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    cfg = Config.load(str(Path(__file__).resolve().parents[1] / "configs/vqkd/clip_8192_imagenet_ddp.py"))
+    cfg = cfg["trainer"]["algorithm"]
+    tiny = dict(embed_dim=32, depth=2, num_heads=2)
+    model = cfg["model"]
+    model["encoder"].update(img_size=32, patch_size=8, out_channels=8, **tiny)
+    model["quantizer"].update(codebook_size=16, embedding_dim=8)
+    model["pre_decode"].update(out_channels=8)
+    model["decoder"].update(img_size=4, in_channels=8, out_channels=16, **tiny)
+    cfg["teacher"].update(patch_size=8, proj_dim=16, img_size=32, **tiny)
+    cfg["optimizer"]["schedule"]["warmup"] = 0
+    start = torch.from_numpy(np.random.default_rng(1).permutation(64)[:16])
+    monkeypatch.setattr(cb, "kmeans_init", functools.partial(cb.kmeans_init, draw=lambda n, m: start))
+    torch.manual_seed(0)
+    cpu = AlgorithmRegistry.build(cfg, device="cpu")
+    card = AlgorithmRegistry.build(cfg, device=dev)
+    card.model.load_state_dict(cpu.model.state_dict())
+    card.teacher.load_state_dict(cpu.teacher.state_dict())
+    u8 = np.random.default_rng(0).integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)
+    batch = {"image": torch.from_numpy(u8.astype(np.float32) / 127.5 - 1.0), "original_image": torch.from_numpy(u8)}
+    s_cpu, s_card = cpu.init_state(0), card.init_state(0)
+    for want_k1 in (11, 1):
+        before = (nearest_codes.launches, nearest_codes_reference.cuda_calls)
+        _, m_cpu = cpu.train_step(s_cpu, batch)
+        _, m_card = card.train_step(s_card, {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        assert (nearest_codes.launches - before[0], nearest_codes_reference.cuda_calls - before[1]) == (want_k1, 0)
+        for name, want_v in m_cpu.items():
+            w, g = float(want_v), float(m_card[name])
+            assert np.isfinite(g) and abs(g - w) <= 1e-3 * max(abs(w), 1e-6), (name, g, w)
+        e_cpu, e_card = cpu.model.quantizer.codebook.detach(), card.model.quantizer.codebook.detach().cpu()
+        assert float((e_card - e_cpu).abs().max()) <= 1e-3
+    assert s_card.extra["initialized"] is True

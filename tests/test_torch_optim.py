@@ -89,5 +89,6 @@ def test_optimizer_matches_optax(cfg):
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="LARS"):
         build_optimizer(dict(type="lars", lr=0.1))
-    with pytest.raises(NotImplementedError, match="exclude"):
+    # exclude is ported (tests/test_torch_vqkd.py); like JAX's, it needs the parameters' names
+    with pytest.raises(ValueError, match="exclude mask needs"):
         build_optimizer(dict(type="adamw", lr=0.1, exclude="codebook"))

@@ -85,6 +85,13 @@ def test_all_submodules_listed():
         "vector_quantization_tpu_torch.training.metrics",
         "vector_quantization_tpu_torch.data.datasets",
         "vector_quantization_tpu_torch.utils.converters",
+        "vector_quantization_tpu_torch.utils.filters",
+        "vector_quantization_tpu_torch.ops.codebook",
+        "vector_quantization_tpu_torch.models.autoencoders.vit",
+        "vector_quantization_tpu_torch.models.teachers.base",
+        "vector_quantization_tpu_torch.models.teachers.vit",
+        "vector_quantization_tpu_torch.models.teachers.encoder",
+        "vector_quantization_tpu_torch.algorithms.vqkd",
     } <= names
 
 
@@ -128,6 +135,15 @@ def test_vqgan_algorithm_defaults_to_cuda(monkeypatch):
     algo = AlgorithmRegistry.build(cfg, device="cpu")
     modules = (algo.model, algo.discriminator, algo.lpips_module)
     assert {t.device.type for m in modules for t in [*m.parameters(), *m.buffers()]} == {"cpu"}
+
+
+@pytest.mark.parametrize("config", ["configs/vqkd/clip_8192_imagenet_ddp.py",
+                                    "configs/cluster/clip_8192_imagenet_ddp.py"])
+def test_vqkd_and_cluster_algorithms_default_to_cuda(monkeypatch, config):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config.load(str(REPO / config))["trainer"]["algorithm"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AlgorithmRegistry.build(cfg)
 
 
 def test_cpu_calls_never_count_launches():

@@ -23,18 +23,24 @@ Covered so far:
   ``algorithms.base.ReconstructionAlgorithm``: recon losses with LPIPS,
   the PatchGAN discriminator, the adaptive GAN weight, R1, the codebook
   re-normalisation, EMA), with the validation metrics
-  (``training.metrics``) and ``data.datasets.SyntheticDataset``.
+  (``training.metrics``) and ``data.datasets.SyntheticDataset``;
+- VQ-KD and Cluster tokenizer training (``algorithms.vqkd``: the ViT
+  encoder and decoder, the CLIP/ViT teachers, ``ClusterEncoder``, the EMA
+  k-means with its lazy init and CVQ in ``ops.codebook``, the optimizer's
+  ``exclude`` mask over flax paths, ``utils.filters``).
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 from . import registries  # noqa: F401
 # importing these registers their classes under the configs' type names
 from .algorithms import ar as _ar  # noqa: F401
 from .algorithms import vqgan as _vqgan_algorithm  # noqa: F401
+from .algorithms import vqkd as _vqkd  # noqa: F401
 from .data import datasets as _datasets  # noqa: F401
 from .models import connectors as _connectors  # noqa: F401
 from .models.autoencoders import vqgan as _vqgan  # noqa: F401
+from .models.autoencoders import vit as _vit  # noqa: F401
 from .models.quantizers import vq as _vq  # noqa: F401
 from .models.transformers import llama as _llama  # noqa: F401
 from .tasks import image_reconstruction as _image_reconstruction  # noqa: F401

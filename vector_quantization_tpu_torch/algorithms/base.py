@@ -1,7 +1,8 @@
 """Algorithm layer (port of ``vector_quantization_tpu/algorithms/base.py``):
 the ``Algorithm`` base with its EMA shadow, ``ReconstructionAlgorithm``
-(the autoencoder's recon + quantizer losses and the codebook update after
-the gradient step) and ``apply_codebook_update``.
+(the autoencoder's recon + quantizer losses, the lazy k-means init of the
+codebook and the codebook update after the gradient step) and
+``apply_codebook_update``.
 
 An algorithm owns the trained model and the optimizer config and exposes
 ``init_state``, ``train_step`` and ``eval_step``. Where the JAX package's
@@ -20,30 +21,56 @@ from torch import nn
 
 from ..models.losses.lpips import LPIPS
 from ..models.losses.recon import cosine_loss, l1_loss, mse_loss
-from ..ops.distances import normalize
+from ..ops import codebook as cb_ops
+from ..ops.distances import normalize, pairwise_distance
 from ..registries import AlgorithmRegistry, ModelRegistry
 from ..tasks.image_tokenization import model_device
 from ..training.optim import Optimizer, build_optimizer
 from ..training.state import TrainState
+from ..utils.bridge import flax_param_paths
 
 __all__ = ["Algorithm", "ReconstructionAlgorithm", "apply_codebook_update"]
 
 RECON_LOSSES = {"l1": l1_loss, "mse": mse_loss, "cosine": cosine_loss}
-_TOKENIZERS = "ROADMAP.md queue A: The remaining tokenizers"
+_TOKENIZERS = "ROADMAP.md queue A: The remaining tokenizers (CVQ-VAE and its other anchors)"
 
 
 @torch.no_grad()
-def apply_codebook_update(cfg: Mapping[str, Any], codebook: torch.Tensor) -> None:
+def apply_codebook_update(
+    cfg: Mapping[str, Any],
+    codebook: torch.Tensor,
+    x: torch.Tensor | None = None,
+    codes: torch.Tensor | None = None,
+    extra: dict[str, Any] | None = None,
+) -> None:
     """The configured non-gradient codebook update, applied to the
-    ``codebook`` parameter in place. ``{"type": "normalize"}``: the
-    spherical re-projection ``e · rsqrt(Σ e² + 1e-12)`` of every row. The
-    updates that keep statistics in the state's ``extra`` (``kmeans``,
-    ``cvq``) are not ported yet."""
+    ``codebook`` parameter (and ``extra``) in place, from the step's
+    quantizer features ``x`` (its ``aux["x"]``) and ``codes``:
+
+    - ``{"type": "normalize"}``: the spherical re-projection
+      ``e · rsqrt(Σ e² + 1e-12)`` of every row;
+    - ``{"type": "kmeans", "decay": 0.99}``: VQ-KD's EMA k-means
+      (:func:`...ops.codebook.kmeans_update`);
+    - ``{"type": "cvq", "ema_decay": 0.99, "anchor": "nearest"}``: CVQ's
+      anchor re-initialisation, with the squared l2 distances of ``x`` to
+      the codebook as it stands (after the gradient step); moves
+      ``extra["probability"]``. Other anchors are refused when the
+      algorithm is built.
+    """
     kind = cfg["type"]
     if kind == "normalize":
         codebook.copy_(normalize(codebook).to(codebook.dtype))
-    elif kind in ("kmeans", "cvq"):
-        raise NotImplementedError(f"codebook update {kind!r}: {_TOKENIZERS}")
+    elif kind == "kmeans":
+        codebook.copy_(cb_ops.kmeans_update(
+            codebook, x, codes, decay=cfg.get("decay", 0.99),
+            normalize_input=cfg.get("normalize_input", True), renormalize=cfg.get("renormalize", True)))
+    elif kind == "cvq":
+        x = x.reshape(-1, x.shape[-1])
+        new, p = cb_ops.cvq_update(
+            codebook, extra["probability"], x, pairwise_distance(x, codebook, "l2"), codes,
+            ema_decay=cfg.get("ema_decay", 0.99), eps=cfg.get("eps", 1e-3))
+        codebook.copy_(new)
+        extra["probability"] = p
     else:
         raise ValueError(f"unknown codebook update {kind!r}")
 
@@ -82,8 +109,18 @@ class Algorithm:
         return extra
 
     def tx(self) -> Optimizer:
+        """The optimizer, built on first use. Where the config ``exclude``s
+        parameters (matched on their flax paths), they are also frozen
+        (``requires_grad`` off), so a step takes no gradient for them."""
         if self._tx is None:
-            self._tx = build_optimizer(self.optimizer_cfg)
+            paths = None
+            if self.optimizer_cfg.get("exclude"):
+                flax = flax_param_paths(self.model)
+                paths = [flax[name] for name, _ in self.model.named_parameters()]
+            self._tx = build_optimizer(self.optimizer_cfg, paths)
+            for p, keep in zip(self.model.parameters(), self._tx.keep or ()):
+                if not keep:
+                    p.requires_grad_(False)
         return self._tx
 
     def init_state(self, seed: int = 0) -> TrainState:
@@ -122,16 +159,16 @@ class ReconstructionAlgorithm(Algorithm):
         device: torch.device | str | None = None,
         **kwargs: Any,
     ) -> None:
-        if lazy_kmeans_init is not None:
-            raise NotImplementedError(f"lazy_kmeans_init: {_TOKENIZERS}")
-        if codebook_update and codebook_update["type"] in ("kmeans", "cvq"):
-            raise NotImplementedError(f"codebook update {codebook_update['type']!r}: {_TOKENIZERS}")
+        if codebook_update and codebook_update["type"] == "cvq" and \
+                codebook_update.get("anchor", "nearest") != "nearest":
+            raise NotImplementedError(f"CVQ anchor {codebook_update['anchor']!r}: {_TOKENIZERS}")
         self.device = model_device(device)
         if not isinstance(model, nn.Module):
             model = ModelRegistry.build(model, device=self.device)
         super().__init__(model=model.to(self.device), **kwargs)
         self.recon_losses = dict(recon_losses or {"l1": {}, "mse": {}})
         self.codebook_update = dict(codebook_update) if codebook_update else None
+        self.lazy_kmeans_init = dict(lazy_kmeans_init) if lazy_kmeans_init is not None else None
         self.lpips_module = LPIPS().to(self.device) if "lpips" in self.recon_losses else None
 
     def _zero(self) -> torch.Tensor:
@@ -146,8 +183,20 @@ class ReconstructionAlgorithm(Algorithm):
 
     def init_state(self, seed: int = 0) -> TrainState:
         state = super().init_state(seed)
-        state.extra = self.maybe_init_ema(self._init_lpips({}), state.model)
+        state.extra = self.maybe_init_ema(self._init_lpips(self.init_extra()), state.model)
         return state
+
+    def init_extra(self) -> dict[str, Any]:
+        """The codebook update's state: CVQ's usage ``probability`` (K,)
+        and, with the lazy k-means init, ``initialized`` (a host bool: the
+        step reads it with no device sync)."""
+        extra: dict[str, Any] = {}
+        if self.codebook_update and self.codebook_update["type"] == "cvq":
+            cb = self.model.get_parameter(self.codebook_name)
+            extra["probability"] = torch.zeros(cb.shape[0], dtype=torch.float32, device=cb.device)
+        if self.lazy_kmeans_init is not None:
+            extra["initialized"] = False
+        return extra
 
     # -- loss --------------------------------------------------------------
 
@@ -170,23 +219,47 @@ class ReconstructionAlgorithm(Algorithm):
                 losses[f"loss_{name}"] = self._recon(name, cfg, out["pred"], target)
         return losses
 
-    def _codebook_update(self, state: TrainState) -> None:
+    def _codebook_update(self, state: TrainState, qout=None) -> None:
         if self.codebook_update is not None:
-            apply_codebook_update(self.codebook_update, state.model.get_parameter(self.codebook_name))
+            x, codes = (None, None) if qout is None else (qout.aux["x"], qout.codes)
+            apply_codebook_update(self.codebook_update, state.model.get_parameter(self.codebook_name),
+                                  x, codes, state.extra)
+
+    @torch.no_grad()
+    def _maybe_lazy_init(self, state: TrainState, image: torch.Tensor) -> None:
+        """On the first step: the codebook from k-means over this batch's
+        features (:func:`...ops.codebook.kmeans_init`, drawing from
+        ``state.rng``)."""
+        if state.extra["initialized"]:
+            return
+        cfg = self.lazy_kmeans_init
+        codebook = state.model.get_parameter(self.codebook_name)
+        feat = state.model.encode(image)
+        codebook.copy_(cb_ops.kmeans_init(
+            feat, codebook.shape[0], state.rng, iters=cfg.get("iters", 10),
+            normalize_input=cfg.get("normalize_input", True)).to(codebook.dtype))
+        state.extra["initialized"] = True
+
+    def _step_gradients(self, state: TrainState, total: torch.Tensor) -> None:
+        """The optimizer's step on ``total``'s gradient with respect to the
+        trained parameters."""
+        params, tx = state.params(), self.tx()
+        grads = torch.autograd.grad(total, tx.trained(params), allow_unused=True, materialize_grads=True)
+        tx.step(params, list(grads), state.opt_state)
 
     # -- steps -------------------------------------------------------------
 
     def train_step(self, state: TrainState, batch) -> tuple[TrainState, dict]:
         image = batch["image"].to(self.device)
+        if self.lazy_kmeans_init is not None:
+            self._maybe_lazy_init(state, image)
         out = state.model(image, train=True)
         losses = self._losses(out, {**batch, "image": image}, state.extra)
         total = sum(losses.values(), self._zero())
         if not out["quantizer"].losses:
             total = total + out["quantizer"].loss
-        params = state.params()
-        grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
-        self.tx().step(params, list(grads), state.opt_state)
-        self._codebook_update(state)
+        self._step_gradients(state, total)
+        self._codebook_update(state, out["quantizer"])
         self.maybe_update_ema(state.extra, state.model)
         state.step += 1
         return state, {"loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}

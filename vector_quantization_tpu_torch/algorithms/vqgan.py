@@ -148,10 +148,8 @@ class VQGANAlgorithm(ReconstructionAlgorithm):
         extra_losses = self._extra_generation_losses(model, out, batch, state.extra)
         total = total + sum(extra_losses.values(), self._zero())
         if with_g:
-            params = state.params()
-            grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
-            self.tx().step(params, list(grads), state.opt_state)
-        self._codebook_update(state)
+            self._step_gradients(state, total)
+        self._codebook_update(state, qout)
 
         # ---- discrimination ----
         d_loss = r1 = self._zero()

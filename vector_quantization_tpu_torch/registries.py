@@ -17,4 +17,5 @@ QuantizerRegistry = ModelRegistry.child("quantizers")
 ConnectorRegistry = ModelRegistry.child("connectors")
 DiscriminatorRegistry = ModelRegistry.child("discriminators")
 TransformerRegistry = ModelRegistry.child("transformers")
+TeacherRegistry = ModelRegistry.child("teachers")
 MetricRegistry = VQRegistry.child("metrics")  # a child of "runners" in JAX; no runner yet

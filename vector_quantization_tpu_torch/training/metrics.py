@@ -7,6 +7,8 @@
 - ``ImageLossMetric``: ``l1``, ``mse``, ``psnr`` or ``ssim`` of
   ``pixel_decode(pred) / 255`` against the batch's uint8
   ``original_image / 255``, one value per batch, averaged over the run.
+- ``LossMetric``: the mean over batches of a scalar memo entry (``key``,
+  e.g. VQ-KD's ``loss_cosine``).
 - ``FIDMetric`` is not ported: it needs the Inception network.
 
 A memo is what an ``eval_step`` returns plus ``memo["batch"]``, the batch.
@@ -25,7 +27,8 @@ from ..data.base import pixel_decode
 from ..models.losses.recon import psnr, ssim
 from ..registries import MetricRegistry
 
-__all__ = ["BaseMetric", "CodebookUsageMetric", "CodebookPPLMetric", "ImageLossMetric", "FIDMetric"]
+__all__ = ["BaseMetric", "CodebookUsageMetric", "CodebookPPLMetric", "ImageLossMetric", "LossMetric",
+           "FIDMetric"]
 
 _METRICS_CLI = "ROADMAP.md queue A: Metrics and CLI"
 
@@ -89,6 +92,19 @@ class ImageLossMetric(BaseMetric):
         else:
             value = ssim(pred01, gt01)
         self.values.append(float(value))
+
+    def summary(self, name: str) -> dict[str, float]:
+        return {name: float(np.mean(self.values)) if self.values else 0.0}
+
+
+@MetricRegistry.register()
+class LossMetric(BaseMetric):
+    def __init__(self, *, key: str) -> None:
+        self.key = key
+        self.values: list[float] = []
+
+    def update(self, memo: Mapping[str, Any]) -> None:
+        self.values.append(float(memo[self.key]))
 
     def summary(self, name: str) -> dict[str, float]:
         return {name: float(np.mean(self.values)) if self.values else 0.0}

@@ -18,9 +18,14 @@ move the same weights alike:
   scaled by the schedule's value (0 at the first warm-up step);
 - ``sgd``: optax ``trace`` momentum;
 - the schedule is read at the count of updates already applied (0 first),
-  as ``scale_by_learning_rate`` reads it.
+  as ``scale_by_learning_rate`` reads it;
+- ``exclude``: a :class:`...utils.filters.NamedParametersFilter` spec over
+  the parameters' flax paths (``build_optimizer``'s ``paths``). As in the
+  JAX package's ``optax.masked`` chain, an excluded parameter gets a zero
+  update, no weight decay and no moments, and ``grad_clip``'s global norm
+  runs over the kept parameters only.
 
-``lars`` and the ``exclude`` parameter mask are not ported yet and raise.
+``lars`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -30,10 +35,11 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
+from ..utils.filters import mask_tree
+
 __all__ = ["Optimizer", "build_optimizer", "build_schedule"]
 
 _LARS = "ROADMAP.md queue A: the LARS optimizer (linear probe)"
-_EXCLUDE = "ROADMAP.md queue A: the optimizer's exclude mask (frozen parameters)"
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -83,7 +89,10 @@ class Optimizer:
 
     ``init(params)`` returns the state (moments and the update count);
     ``step(params, grads, state)`` clips, updates the moments and moves the
-    parameters, all in place (grads are clipped in place too)."""
+    parameters, all in place (grads are clipped in place too). Both take
+    every parameter; with ``keep`` (one bool per parameter, False where
+    ``exclude`` matched) they act on the kept ones only, and ``grads``
+    holds one gradient per kept parameter (:meth:`trained`'s order)."""
 
     def __init__(
         self,
@@ -95,6 +104,7 @@ class Optimizer:
         eps: float = 1e-8,
         weight_decay: float | None = None,
         momentum: float | None = None,
+        keep: Sequence[bool] | None = None,
     ) -> None:
         if kind not in ("adam", "adamw", "sgd"):
             raise ValueError(f"unknown optimizer {kind!r}")
@@ -105,8 +115,18 @@ class Optimizer:
         # optax.adamw's default decay; adam and sgd have none
         self.weight_decay = (1e-4 if weight_decay is None else weight_decay) if kind == "adamw" else 0.0
         self.momentum = momentum
+        self.keep = None if keep is None else list(keep)
+
+    def trained(self, items: Sequence[Any]) -> list[Any]:
+        """The entries of ``items`` (one per parameter) that are not excluded."""
+        if self.keep is None:
+            return list(items)
+        if len(items) != len(self.keep):
+            raise ValueError(f"{len(items)} parameters, the exclude mask has {len(self.keep)}")
+        return [item for item, k in zip(items, self.keep) if k]
 
     def init(self, params: Sequence[torch.Tensor]) -> dict[str, Any]:
+        params = self.trained(params)
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
         if self.kind == "sgd":
             return {"count": 0, "trace": zeros() if self.momentum else None}
@@ -114,6 +134,9 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: dict) -> None:
+        params = self.trained(params)
+        if len(grads) != len(params):
+            raise ValueError(f"{len(grads)} gradients for {len(params)} trained parameters")
         if self.grad_clip:
             norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
             factor = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
@@ -145,17 +168,22 @@ class Optimizer:
         torch._foreach_add_(params, updates, alpha=-lr)
 
 
-def build_optimizer(cfg: Mapping[str, Any]) -> Optimizer:
+def build_optimizer(cfg: Mapping[str, Any], paths: Sequence[str] | None = None) -> Optimizer:
     """The optimizer a config names (``type`` adam | adamw | sgd, ``lr``,
-    ``schedule``, ``grad_clip``, ``betas`` or ``b1``/``b2``, and the kind's
-    own keywords)."""
+    ``schedule``, ``grad_clip``, ``exclude``, ``betas`` or ``b1``/``b2``,
+    and the kind's own keywords). ``paths``: the flax path of each
+    parameter the optimizer will be given, in order; ``exclude`` needs
+    them."""
     cfg = dict(cfg)
     kind = cfg.pop("type", "adam")
     lr = float(cfg.pop("lr", 1e-4))
     schedule = build_schedule(cfg.pop("schedule", None), lr)
     grad_clip = cfg.pop("grad_clip", None)
-    if cfg.pop("exclude", None):
-        raise NotImplementedError(_EXCLUDE)
+    exclude = cfg.pop("exclude", None)
+    if exclude:
+        if paths is None:
+            raise ValueError("exclude mask needs the parameters' flax paths")
+        cfg["keep"] = mask_tree(paths, exclude, value=False)
     betas = cfg.pop("betas", None)
     if betas is not None:
         cfg["b1"], cfg["b2"] = betas

@@ -8,10 +8,12 @@ model's device (train-time randomness such as CFG dropout),
 ``d_opt_state`` the second optimizer's (the GAN discriminator's; None
 elsewhere), and ``extra`` the algorithm's non-gradient state, by name:
 ``ema_params`` (the EMA shadow of the model's parameters, which the state
-owns) and, for VQGAN training, ``d_batch_stats`` and ``lpips_params``.
-Those two are the discriminator's BatchNorm buffers and LPIPS's frozen
-weights themselves, not copies: the modules own them and the step reads
-them through the modules; ``extra`` carries the same tensors under the JAX
+owns), CVQ's ``probability`` and the lazy k-means init's ``initialized``
+(a host bool), and, for VQGAN training, ``d_batch_stats`` and
+``lpips_params``, for VQ-KD ``teacher_params``. Those three are the
+discriminator's BatchNorm buffers and the frozen LPIPS and teacher weights
+themselves, not copies: the modules own them and the step reads them
+through the modules; ``extra`` carries the same tensors under the JAX
 state's names, for a reader of the whole state.
 """
 
@@ -36,5 +38,6 @@ class TrainState:
     extra: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def params(self) -> list[torch.Tensor]:
-        """The trained parameters, in the optimizer state's order."""
+        """The model's parameters in order, as the optimizer takes them (it
+        leaves out the ones its ``exclude`` matched)."""
         return list(self.model.parameters())

@@ -2,12 +2,16 @@
 
 The JAX package maps torch checkpoints to flax (``utils/converters.py``);
 this goes the other way, so the port loads the same weights as the JAX
-model it is held against: the tokenizer, the discriminator (``params`` and
-``batch_stats``) and LPIPS through :func:`state_dict_from_flax`, Llama
-through :func:`llama_params_from_flax`. :func:`params_to_flax` and
-:func:`batch_stats_to_flax` read the port's tensors back in flax's layout,
-for holding updated weights, optimizer moments and EMA shadows against
-the JAX package's.
+model it is held against: the tokenizers (VQGAN, the ViTs of VQ-KD, the
+teachers), the discriminator (``params`` and ``batch_stats``) and LPIPS
+through :func:`state_dict_from_flax`, Llama through
+:func:`llama_params_from_flax`, and a VQ-KD or Cluster state's ``extra``
+through :func:`extra_from_flax`. :func:`params_to_flax`,
+:func:`batch_stats_to_flax` and :func:`extra_to_flax` read the port's
+tensors back in flax's layout, for holding updated weights, optimizer
+moments, EMA shadows and codebook statistics against the JAX package's.
+:func:`flax_param_paths` names each parameter by its flax path, which the
+optimizer's ``exclude`` filter matches.
 """
 
 from __future__ import annotations
@@ -24,6 +28,9 @@ from ..models.layers import AttnBlock, Downsample, ResBlock, Upsample
 
 __all__ = [
     "batch_stats_to_flax",
+    "extra_from_flax",
+    "extra_to_flax",
+    "flax_param_paths",
     "flax_param_shapes",
     "params_to_flax",
     "llama_params_from_flax",
@@ -102,12 +109,18 @@ def _flax_leaves(module: nn.Module) -> Iterator[tuple[str, tuple[str, ...], str]
     persistent buffer of ``module``: layout ``conv`` (flax HWIO, port
     OIHW), ``dense`` (flax (in, out), port (out, in)), ``same``, or
     ``stats`` (a buffer: a leaf of flax's ``batch_stats``, e.g. BatchNorm's
-    ``mean`` and ``var``)."""
+    ``mean`` and ``var``). Modules that keep flax's own layouts (the
+    attention's ``qkv_kernel``, the teacher's ``query``/``key``/``value``/
+    ``out`` kernels and biases) are ``same``."""
 
     def visit(mod: nn.Module, path: tuple[str, ...], prefix: str):
         if isinstance(mod, nn.GroupNorm):
             yield prefix + "weight", path + ("GroupNorm_0", "scale"), "same"
             yield prefix + "bias", path + ("GroupNorm_0", "bias"), "same"
+            return
+        if isinstance(mod, nn.LayerNorm):
+            yield prefix + "weight", path + ("scale",), "same"
+            yield prefix + "bias", path + ("bias",), "same"
             return
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             yield prefix + "weight", path + ("kernel",), "conv" if isinstance(mod, nn.Conv2d) else "dense"
@@ -213,3 +226,34 @@ def batch_stats_to_flax(module: nn.Module,
     module's own buffers) -> flax's ``batch_stats`` tree."""
     return _to_flax_tree(module, dict(module.named_buffers()) if tensors is None else tensors,
                          True, _numpy_leaf)
+
+
+def flax_param_paths(module: nn.Module) -> dict[str, str]:
+    """Each parameter's name -> its flax path, keys joined by ``"/"``
+    (``quantizer.codebook`` -> ``quantizer/codebook``)."""
+    return {name: "/".join(path) for name, path, layout in _flax_leaves(module) if layout != "stats"}
+
+
+def extra_from_flax(algorithm: Any, state: Any, extra: Mapping[str, Any]) -> None:
+    """A JAX VQ-KD / Cluster state's ``extra`` into the port's, in place:
+    ``teacher_params`` into the algorithm's teacher, CVQ's
+    ``probability``, and ``initialized`` as a host bool."""
+    if "teacher_params" in extra:
+        algorithm.teacher.load_state_dict(state_dict_from_flax(algorithm.teacher, extra["teacher_params"]))
+    if "probability" in extra:
+        state.extra["probability"].copy_(torch.from_numpy(np.array(extra["probability"], np.float32)))
+    if "initialized" in extra:
+        state.extra["initialized"] = bool(np.asarray(extra["initialized"]))
+
+
+def extra_to_flax(algorithm: Any, state: Any) -> dict[str, Any]:
+    """The reverse of :func:`extra_from_flax`: the keys of the port's
+    ``extra`` that it carries, as numpy in the JAX state's layout."""
+    out: dict[str, Any] = {}
+    if "teacher_params" in state.extra:
+        out["teacher_params"] = params_to_flax(algorithm.teacher, state.extra["teacher_params"])
+    if "probability" in state.extra:
+        out["probability"] = state.extra["probability"].detach().cpu().numpy().copy()
+    if "initialized" in state.extra:
+        out["initialized"] = np.asarray(state.extra["initialized"], np.bool_)
+    return out
