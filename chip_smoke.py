@@ -208,29 +208,68 @@ exits non-zero:
    on phase 17's model and state (CFG as the config sets it, alpha 1.75,
    its top-k 600 / top-p 0.92 sampler), 8 classes, then phase 10's VQGAN
    decoder: images (8, 256, 256, 3), finite; seconds per image.
-20. ``decode_profile``: the decode step of phase 4 on the host clock and,
+20. ``cli_vqgan``: ``python -m vector_quantization_tpu_torch.cli.train``'s
+   ``main`` in this process on an overlay of
+   configs/llamagen/vqgan_imagenet_ddp.py written to a temporary directory:
+   the full-width LlamaGen VQGAN trainer as phase 12 runs it, its dataset
+   replaced by ``SyntheticDataset`` (48 images of 256 px, 1000 classes),
+   ``batch_size_in_total`` 12, 4 iterations, checkpoints every 2; then
+   ``--auto-resume`` with ``max_iters`` 6. Weights at the config's own
+   random init under the runner's seed. Gates: the second run starts at
+   step 4 and runs 2; K1 launched once a step in each run; no plain version
+   on the card; finite losses; ``checkpoints/iter_{2,4,6}`` written. The
+   host ms per step of each run (synchronised at its ends, with and
+   without the checkpoint saves, reported beside phase 12's hand-driven
+   step, not gated), each save's seconds and each checkpoint's size.
+21. ``cli_test_tokenize``: ``cli.test``'s ``main`` with ``--load-model-from
+   iter_6`` over the overlay's validator (24 images, 2 batches of 12; the
+   metrics of the config but FID, which is not ported): finite metrics, K1
+   once per eval batch; then ``cli.tokenize``'s ``main`` over the same
+   split: its ``.npz`` codes against the plain lookup's on the same images
+   and the checkpoint's weights (equal but near-ties, ``codes_vs_plain``'s
+   rule), K1 once per batch, no plain version on the card in either run.
+22. ``cli_ar``: ``build_runner`` on an overlay of
+   configs/llamagen/c2i_medium_imagenet_ddp.py (Llama-medium,
+   ``transformer.flash=True``, synthetic 256 px images, batch 64, 3
+   iterations, a constant lr of 1e-4 in place of the 10,000-step warm-up,
+   whose first lrs of 0, 1e-8, 2e-8 leave the steps near no-ops), then
+   ``cli/train.py``'s sequence: ``init_state``, random Llama-medium
+   weights made from the seed (non-zero lm head; in place of
+   ``--load-model-from``), ``ARAlgorithm.load_ir_from(state, <phase 20's
+   iter_6>)``, ``run``. Gates: K4-fwd 48, dkv 24, dq 24 and K1 1 launches
+   a step; finite losses, the last below the first; every transformer
+   tensor moved; the batches the steps took equal the loader's own for
+   the run's epoch; the same three ``train_step``s driven by hand from the
+   run's starting weights, fresh moments and the runner's seed, on those
+   batches, give the runner's losses within ``CLI_AR_REPLAY_TOL``; no
+   plain version on the card; the tokenizer unchanged by ``load_ir_from``
+   (the JAX package's merge ignores a VQGAN checkpoint's
+   ``generator``/``discriminator`` keys). Host ms per step, and one
+   checkpoint's save time and size.
+23. ``decode_profile``: the decode step of phase 4 on the host clock and,
    under torch.profiler, its device time; their ratio gives the device's
    idle share (run last: the profiler slows later host dispatch).
-21. ``generate_profile``: one decode step of phase 8 at its midpoint (a
+24. ``generate_profile``: one decode step of phase 8 at its midpoint (a
    129-column INT8 cache) on the host clock and under torch.profiler:
    device ms, idle share, K2's share.
-22. ``tokenizer_profile``: one encode + decode of the 64 images of phase 10
+25. ``tokenizer_profile``: one encode + decode of the 64 images of phase 10
    under torch.profiler: device time by kernel and the idle share.
-23. ``ar_train_profile``: one codes train step under torch.profiler:
+26. ``ar_train_profile``: one codes train step under torch.profiler:
    device time by kernel and the idle share.
-24. ``vqgan_train_profile``: one GAN-on step of phase 12 under
+27. ``vqgan_train_profile``: one GAN-on step of phase 12 under
    torch.profiler: device ms (the kernels' sum), busy ms (the union of
    their intervals: cuDNN's FFT convolutions overlap), the idle share of
    the host clock from the busy time, and the shares of cuDNN's
    convolutions, the elementwise passes, the GEMMs and K1.
-25. ``vqkd_train_profile``, 26. ``cluster_train_profile``: one step of
-   phases 14 and 15 under torch.profiler, as phase 24 (their kernels by
+28. ``vqkd_train_profile``, 29. ``cluster_train_profile``: one step of
+   phases 14 and 15 under torch.profiler, as phase 27 (their kernels by
    family: K1, SDPA's attention kernels, cuBLAS's GEMMs, elementwise,
    reductions).
-27. ``kernels``: per kernel, launches in its path's run (phase 5 for the
+30. ``kernels``: per kernel, launches in its path's run (phase 5 for the
    server's: K2's kernels that the serving shapes' plans name, and K3;
-   phase 10 for the lookup (and its launches in phases 12, 14, 15 and 17,
-   and its times at the train shapes), phase 17 for the three flash kernels; K2's
+   phase 10 for the lookup (and its launches in phases 12, 14, 15, 17 and
+   20-22, and its times at the train shapes), phase 17 for the three flash
+   kernels (and their launches in phase 22); K2's
    rows also give their launches in phases 7 and 8, and phase 6's times
    at the dense path's shapes), device time per call, the bound, the plain
    version's and the yardstick's time.
@@ -243,10 +282,12 @@ from __future__ import annotations
 
 import argparse
 import functools
+import itertools
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1283,16 +1324,17 @@ def conv_linear_flops(model, fn) -> int:
     return total
 
 
-def codes_vs_plain(model, images) -> dict:
-    """``images``' lookup by the kernel and by its plain version (swapped
-    in) on the same features, held against each other by ``compare_codes``."""
+def codes_vs_plain(model, images, codes=None) -> dict:
+    """``images``' lookup by the kernel (or ``codes``, the kernel's codes
+    from elsewhere) and by its plain version (swapped in) on the same
+    features, held against each other by ``compare_codes``."""
     from vector_quantization_tpu_torch.ops import vq_lookup
     from vector_quantization_tpu_torch.ops.distances import normalize
 
     q = model.quantizer
     with torch.no_grad():
         feat = model.encode(images).reshape(-1, q.embedding_dim)
-        codes = q.encode(feat)
+        codes = q.encode(feat) if codes is None else codes
         saved = vq_lookup.nearest_codes
         vq_lookup.nearest_codes = vq_lookup.nearest_codes_reference
         try:
@@ -1551,7 +1593,7 @@ def phase_vqgan_train(algo, dev, seed: int):
         profile_train_step("vqgan_train_profile", lambda: algo.train_step(state, batch),
                            batch=VQGAN_TRAIN_BATCH, step=state.step)
 
-    return launches, profile_vqgan_step
+    return launches, profile_vqgan_step, parts["gates_off"]["step_ms_median"]
 
 
 def phase_vqgan_anchor(dev) -> None:
@@ -2007,6 +2049,280 @@ def phase_ar_train(algo, cfg, dev, seed: int):
     return launches, state, codes_batch
 
 
+
+# the entry points (cli.train / cli.test / cli.tokenize and build_runner)
+# over overlays of the shipped LlamaGen configs, synthetic images at 256 px
+CLI_VQGAN_STEPS, CLI_RESUME_STEPS, CLI_VAL_IMAGES = 4, 6, 24
+CLI_AR_BATCH, CLI_AR_STEPS = 64, 3
+# runner vs hand-driven losses on the same batches and starting weights: the
+# path's kernels are deterministic (K4 has no atomics), so the two should
+# agree exactly; 1e-5 relative leaves room for a reordered reduction in a
+# library kernel and is far below one step's change of the loss at lr 1e-4
+CLI_AR_REPLAY_TOL = 1e-5
+CLI_METRICS = ("codebook_usage", "codebook_ppl", "l1", "mse", "psnr", "ssim")  # the config's, FID aside
+
+
+class StepRecorder:
+    """A runner callback (registered as ``SmokeStepRecorder``): each step's
+    metrics as the step left them (tensors: no read, no synchronisation),
+    the host clock at each step's end (unsynchronised: the pace at which
+    steps are enqueued), each checkpoint save's seconds, and the run's host
+    seconds between synchronisations at its ends."""
+
+    def bind(self, runner) -> None:
+        self.runner = runner
+        save = runner.save_checkpoint
+
+        def timed_save(step: int) -> None:
+            t0 = time.perf_counter()
+            save(step)
+            self.saves.append(time.perf_counter() - t0)
+
+        runner.save_checkpoint = timed_save
+
+    def before_run(self) -> None:
+        self.steps, self.metrics, self.ends, self.saves = [], [], [], []
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def after_run_iter(self, step: int, metrics) -> None:
+        self.steps.append(step)
+        self.metrics.append(metrics)
+        self.ends.append(time.perf_counter())
+
+    def after_run(self) -> None:
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+
+    def report(self) -> dict:
+        losses = [{k: float(v) for k, v in m.items()} for m in self.metrics]
+        n = max(len(self.steps), 1)
+        ends = [self.t0, *self.ends]
+        return {"steps": self.steps, "host_s": self.seconds, "host_ms_per_step": 1e3 * self.seconds / n,
+                "save_s": list(self.saves),
+                "host_ms_per_step_without_saves": 1e3 * (self.seconds - sum(self.saves)) / n,
+                "step_end_host_ms_unsynchronised": [1e3 * (b - a) for a, b in zip(ends, ends[1:])],
+                "losses_finite": all(np.isfinite(list(m.values())).all() for m in losses),
+                "loss_per_step": [m["loss"] for m in losses]}
+
+
+def register_recorder() -> None:
+    from vector_quantization_tpu_torch.registries import CallbackRegistry
+
+    if "SmokeStepRecorder" not in CallbackRegistry.keys():
+        CallbackRegistry.register("SmokeStepRecorder")(StepRecorder)
+
+
+def recorder_of(runner) -> StepRecorder:
+    return next(cb for cb in runner.callbacks if isinstance(cb, StepRecorder))
+
+
+def write_overlay(tmp: Path, name: str, base: str, body: str) -> str:
+    path = tmp / f"{name}.py"
+    path.write_text(f"_base_ = [{str(Path(__file__).resolve().parent / base)!r}]\n{body}")
+    return str(path)
+
+
+def synthetic(size: int) -> str:
+    return f"dict(_delete_=True, type='SyntheticDataset', size={size}, image_size={IMAGE_SIZE}, num_categories=1000)"
+
+
+def phase_cli_vqgan(tmp: Path, hand_step_ms: float):
+    """cli.train twice in this process: 4 iterations, then --auto-resume to 6."""
+    from vector_quantization_tpu_torch.cli import train
+
+    register_recorder()
+    metrics = {m: ({"type": "CodebookUsageMetric", "codebook_size": CODEBOOK} if m == "codebook_usage"
+                   else {"type": "CodebookPPLMetric", "codebook_size": CODEBOOK} if m == "codebook_ppl"
+                   else {"type": "ImageLossMetric", "kind": m}) for m in CLI_METRICS}
+    config = write_overlay(tmp, "cli_vqgan", VQGAN_CONFIG, f"""
+trainer = dict(
+    dataset={synthetic(4 * VQGAN_TRAIN_BATCH)},
+    dataloader=dict(_delete_=True, batch_size_in_total={VQGAN_TRAIN_BATCH}, shuffle=True, num_workers=4),
+    max_iters={CLI_VQGAN_STEPS},
+    callbacks=[dict(type="LogCallback", interval=2), dict(type="TensorBoardCallback", interval=2),
+               dict(type="CheckpointCallback", interval=2), dict(type="SmokeStepRecorder")],
+)
+validator = dict(
+    dataset={synthetic(CLI_VAL_IMAGES)},
+    dataloader=dict(_delete_=True, batch_size_in_total={VQGAN_TRAIN_BATCH}, num_workers=4),
+    metrics=dict(_delete_=True, **{metrics!r}),
+)
+""")
+    work = tmp / "cli_vqgan"
+    zero_launches()
+    _, plain0 = read_launches()
+    runs, ok = [], True
+    for argv, start, stop in ((["--override", f"trainer.max_iters={CLI_VQGAN_STEPS}"], 0, CLI_VQGAN_STEPS),
+                              (["--auto-resume", "--override", f"trainer.max_iters={CLI_RESUME_STEPS}"],
+                               CLI_VQGAN_STEPS, CLI_RESUME_STEPS)):
+        k1_before = read_launches()[0]["nearest_codes"]
+        t0 = time.perf_counter()
+        trainer = train.main(["cli_vqgan", config, "--work-dir", str(work), *argv])
+        rec = recorder_of(trainer).report()
+        run = {"argv": argv, "start_step": trainer.start_step, "end_step": trainer.state.step,
+               "k1_launches": read_launches()[0]["nearest_codes"] - k1_before,
+               "main_s": time.perf_counter() - t0, **rec}
+        runs.append(run)
+        ok = ok and (run["start_step"], run["end_step"], run["steps"]) == (start, stop, list(range(start + 1, stop + 1)))
+        ok = ok and run["k1_launches"] == stop - start and rec["losses_finite"]
+        del trainer
+    launches, plain = read_launches()
+    ckpts = sorted(p.name for p in (work / "checkpoints").iterdir())
+    sizes = {p.parent.name: p.stat().st_size for p in (work / "checkpoints").glob("iter_*/state.pt")}
+    row = {"phase": "cli_vqgan", "config": VQGAN_CONFIG, "batch": VQGAN_TRAIN_BATCH, "runs": runs,
+           "checkpoints": ckpts, "checkpoint_bytes": sizes, "plain_runs_on_cuda": plain - plain0,
+           "vqgan_train_hand_driven_step_ms": hand_step_ms,
+           "note": "host ms per step: the run between synchronisations at its ends, first step and "
+                   "checkpoint saves included; not gated"}
+    emit(row)
+    torch.cuda.empty_cache()
+    if not (ok and row["plain_runs_on_cuda"] == 0 and {"iter_2", "iter_4", "iter_6"} <= set(ckpts)):
+        raise SystemExit("cli_vqgan: a check failed (see the cli_vqgan line)")
+    return config, work / "checkpoints" / f"iter_{CLI_RESUME_STEPS}", launches
+
+
+def phase_cli_test_tokenize(config: str, ckpt: Path, tmp: Path):
+    from vector_quantization_tpu_torch.cli import test, tokenize
+    from vector_quantization_tpu_torch.data.datasets import SyntheticDataset, collate
+    from vector_quantization_tpu_torch.training.runner import build_runner
+    from vector_quantization_tpu_torch.utils.config import load_config
+
+    work = tmp / "cli_test"
+    batches = CLI_VAL_IMAGES // VQGAN_TRAIN_BATCH
+    zero_launches()
+    _, plain0 = read_launches()
+    results = test.main(["cli_vqgan", config, "--work-dir", str(work), "--load-model-from", str(ckpt)])
+    k1_test = read_launches()[0]["nearest_codes"]
+    out = Path(tokenize.main(["cli_vqgan", config, "--work-dir", str(work), "--load-model-from", str(ckpt)]))
+    launches, plain = read_launches()
+    k1_tokenize = launches["nearest_codes"] - k1_test
+    # the plain lookup on the tokenized images, the checkpoint's weights
+    runner = build_runner(load_config(config), "validator", work_dir=str(work))
+    runner.init_state()
+    runner.load_model_from(str(ckpt))
+    model, data = runner.state.model.eval(), SyntheticDataset(size=CLI_VAL_IMAGES, image_size=IMAGE_SIZE,
+                                                              num_categories=1000)
+    reps, ids_ok = [], True
+    for i in range(batches):
+        npz = np.load(out / f"{i}_0.npz")
+        items = [data[j] for j in range(i * VQGAN_TRAIN_BATCH, (i + 1) * VQGAN_TRAIN_BATCH)]
+        ids_ok = ids_ok and list(npz["id_"]) == [it.id_ for it in items] and npz["tokens"].shape == (
+            VQGAN_TRAIN_BATCH, GRID, GRID) and npz["tokens"].dtype == np.int32
+        dev = runner.strategy.device
+        images = torch.from_numpy(collate(items)["image"]).to(dev)
+        reps.append(codes_vs_plain(model, images, torch.from_numpy(npz["tokens"]).to(dev)))
+    del runner, model
+    torch.cuda.empty_cache()
+    row = {"phase": "cli_test_tokenize", "checkpoint": ckpt.name, "metrics": results, "eval_batches": batches,
+           "k1_launches_test": k1_test, "k1_launches_tokenize": k1_tokenize,
+           "plain_runs_on_cuda": plain - plain0, "token_files": sorted(p.name for p in out.iterdir()),
+           "codes_vs_plain": [{k: r[k] for k in ("rows", "differ", "excused", "near_tie_rows", "tol")}
+                              for r in reps]}
+    emit(row)
+    if not (set(results) == set(CLI_METRICS) and all(np.isfinite(list(results.values())))
+            and k1_test == batches and k1_tokenize == batches and row["plain_runs_on_cuda"] == 0
+            and ids_ok and all(r["ok"] for r in reps)):
+        raise SystemExit("cli_test_tokenize: a check failed (see the cli_test_tokenize line)")
+    return {"cli_test": k1_test, "cli_tokenize": k1_tokenize}
+
+
+def phase_cli_ar(ir_ckpt: Path, tmp: Path, seed: int):
+    """build_runner, init_state, the weights, load_ir_from, run:
+    cli/train.py's sequence (random Llama-medium weights from ``seed`` stand
+    in for ``--load-model-from``; a constant lr of 1e-4 stands in for the
+    10,000-step warm-up, whose first lrs of 0, 1e-8 and 2e-8 would leave the
+    steps near no-ops). Then the runner is held to hand-driven steps:
+    its batches against the loader's order, and its losses against
+    ``train_step`` replayed from the same weights on those batches."""
+    from vector_quantization_tpu_torch.data.loader import DataLoader
+    from vector_quantization_tpu_torch.registries import DatasetRegistry
+    from vector_quantization_tpu_torch.training.runner import build_runner
+    from vector_quantization_tpu_torch.utils.bridge import load_ar_from_flax
+    from vector_quantization_tpu_torch.utils.config import load_config
+
+    register_recorder()
+    config = write_overlay(tmp, "cli_ar", AR_CONFIG, f"""
+trainer = dict(
+    dataset={synthetic(CLI_AR_BATCH * CLI_AR_STEPS)},
+    dataloader=dict(_delete_=True, batch_size_in_total={CLI_AR_BATCH}, shuffle=True, num_workers=4),
+    max_iters={CLI_AR_STEPS},
+    algorithm=dict(transformer=dict(flash=True), optimizer=dict(schedule=dict(_delete_=True, type="constant"))),
+    callbacks=[dict(type="LogCallback", interval={CLI_AR_STEPS}), dict(type="SmokeStepRecorder")],
+)
+""")
+    cfg = load_config(config)
+    trainer = build_runner(cfg, "trainer", work_dir=str(tmp / "cli_ar"))
+    algo = trainer.algorithm
+    n_layers = algo.model.num_layers
+    state = trainer.init_state()
+    load_ar_from_flax(algo, medium_flax_params(seed + 4))
+    ir_before = [p.detach().clone() for p in algo.ir_model.parameters()]
+    trainer.state = algo.load_ir_from(state, str(ir_ckpt))
+    ir_same = all(torch.equal(p, b) for p, b in zip(algo.ir_model.parameters(), ir_before))
+    del ir_before
+    before = [p.detach().clone() for p in algo.model.parameters()]
+    seen, step = [], algo.train_step
+
+    def recording_step(state, batch):
+        seen.append({k: v.clone() for k, v in batch.items()})
+        return step(state, batch)
+
+    algo.train_step = recording_step
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    _, plain0 = read_launches()
+    trainer.run()
+    launches, plain = read_launches()
+    algo.train_step = step
+    rec = recorder_of(trainer).report()
+    unmoved = [n for (n, p), b in zip(algo.model.named_parameters(), before) if torch.equal(p, b)]
+    want = {"flash_attention_fwd": 2 * n_layers * CLI_AR_STEPS, "flash_bwd_dkv": n_layers * CLI_AR_STEPS,
+            "flash_bwd_dq": n_layers * CLI_AR_STEPS, "nearest_codes": CLI_AR_STEPS}
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(CLI_AR_STEPS)
+    save_s = time.perf_counter() - t0
+    saved = tmp / "cli_ar" / "checkpoints" / f"iter_{CLI_AR_STEPS}" / "state.pt"
+    # the loader's own batches for the run's epoch, host side
+    loader = DataLoader(DatasetRegistry.build(cfg["trainer"]["dataset"]), **cfg["trainer"]["dataloader"])
+    loader.seek(trainer._first_epoch, 0)
+    expected = list(itertools.islice(iter(loader), CLI_AR_STEPS))
+    batches_ok = len(seen) == len(expected) and all(
+        set(b) == set(e) - {"id_"} and all(torch.equal(b[k].cpu(), torch.as_tensor(e[k])) for k in b)
+        for b, e in zip(seen, expected))
+    # the same steps driven by hand: the run's starting weights, fresh
+    # moments and the runner's seed (CFG dropout draws), on the run's batches
+    with torch.no_grad():
+        for p, b in zip(algo.model.parameters(), before):
+            p.copy_(b)
+    del before
+    replay, hand = algo.init_state(trainer.seed), []
+    for batch in seen:
+        replay, metrics = algo.train_step(replay, batch)
+        hand.append(float(metrics["loss"]))
+    runner_losses = rec["loss_per_step"]
+    replay_rel = max(abs(a - b) / abs(b) for a, b in zip(runner_losses, hand))
+    row = {"phase": "cli_ar", "config": AR_CONFIG, "flash": True, "batch": CLI_AR_BATCH,
+           "params": sum(p.numel() for p in algo.model.parameters()), **rec,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches, "expected_launches": want, "plain_runs_on_cuda": plain - plain0,
+           "param_tensors": len(list(algo.model.parameters())), "param_tensors_unmoved": unmoved,
+           "lr_per_step": [algo.tx().schedule(c) for c in range(CLI_AR_STEPS)],
+           "batches_match_loader": batches_ok, "hand_driven_loss_per_step": hand,
+           "runner_vs_hand_loss_max_rel": replay_rel, "runner_vs_hand_loss_tol": CLI_AR_REPLAY_TOL,
+           "ir_unchanged_by_load_ir_from": ir_same, "ir_unchanged_expected_from_jax": True,
+           "checkpoint_save_s": save_s, "checkpoint_bytes": saved.stat().st_size}
+    emit(row)
+    del trainer, algo, state, replay, seen
+    torch.cuda.empty_cache()
+    if not (rec["losses_finite"] and rec["steps"] == list(range(1, CLI_AR_STEPS + 1)) and ir_same
+            and not unmoved and runner_losses[-1] < runner_losses[0] and batches_ok
+            and replay_rel <= CLI_AR_REPLAY_TOL
+            and row["plain_runs_on_cuda"] == 0 and all(launches[k] == v for k, v in want.items())):
+        raise SystemExit("cli_ar: a check failed (see the cli_ar line)")
+    return launches
+
+
 def set_flash(model, flash: bool) -> None:
     for blk in model.blocks():
         blk.flash = flash
@@ -2115,7 +2431,7 @@ def main() -> int:
     phase_class_to_image(vqgan, done, dev)
     torch.cuda.empty_cache()
     vqgan_algo, _ = make_vqgan_algorithm(VQGAN_CONFIG, args.seed, dev)
-    vqgan_launches, profile_vqgan = phase_vqgan_train(vqgan_algo, dev, args.seed)
+    vqgan_launches, profile_vqgan, vqgan_step_ms = phase_vqgan_train(vqgan_algo, dev, args.seed)
     torch.cuda.empty_cache()
     phase_vqgan_anchor(dev)
     torch.cuda.empty_cache()
@@ -2132,6 +2448,11 @@ def main() -> int:
     ar_launches, ar_state, codes_batch = phase_ar_train(algo, ar_cfg, dev, args.seed)
     phase_ar_flash_vs_einsum(algo, ar_state, codes_batch)
     phase_ar_generate(algo, ar_state, dev, args.seed)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cli_config, cli_ckpt, cli_vqgan_launches = phase_cli_vqgan(Path(tmp), vqgan_step_ms)
+        cli_eval_launches = phase_cli_test_tokenize(cli_config, cli_ckpt, Path(tmp))
+        cli_ar_launches = phase_cli_ar(cli_ckpt, Path(tmp), args.seed)
     profile_step()
     profile_generate()
     profile_tokenizer()
@@ -2153,9 +2474,13 @@ def main() -> int:
                                 "vqgan_train": vqgan_launches["nearest_codes"],
                                 "vqkd_train": vqkd_launches["nearest_codes"],
                                 "cluster_train": cluster_launches["nearest_codes"],
-                                "ar_train": ar_launches["nearest_codes"]}
+                                "ar_train": ar_launches["nearest_codes"],
+                                "cli_vqgan_train": cli_vqgan_launches["nearest_codes"],
+                                **cli_eval_launches,
+                                "cli_ar": cli_ar_launches["nearest_codes"]}
     for k in k_flash:
         k["launches"] = ar_launches[k["name"]]
+        k["launches_by_path"] = {"ar_train": ar_launches[k["name"]], "cli_ar": cli_ar_launches[k["name"]]}
     emit({"kernels": [*k_int8, k_attn, k_vq, *k_flash]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -648,3 +648,68 @@ def test_vqkd_steps_on_card_match_cpu(dev, monkeypatch):
         e_cpu, e_card = cpu.model.quantizer.codebook.detach(), card.model.quantizer.codebook.detach().cpu()
         assert float((e_card - e_cpu).abs().max()) <= 1e-3
     assert s_card.extra["initialized"] is True
+
+
+# -- the runner on the card ------------------------------------------------------
+
+
+def _smoke_config(**override):
+    from pathlib import Path
+
+    from vector_quantization_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(Path(__file__).resolve().parents[1] / "configs/vqgan/smoke.py"))
+    cfg.override(override)
+    return cfg
+
+
+def test_trainer_two_steps_on_the_card(dev, tmp_path):
+    from vector_quantization_tpu_torch.training.runner import build_runner
+
+    cfg = _smoke_config(**{"trainer.max_iters": 2, "trainer.callbacks": [dict(type="CheckpointCallback", interval=2)]})
+    trainer = build_runner(cfg, "trainer", work_dir=str(tmp_path))  # CUDA by default
+    before = (nearest_codes.launches, nearest_codes_reference.cuda_calls)
+    state = trainer.run()
+    torch.cuda.synchronize()
+    assert state.step == 2 and trainer.strategy.device.type == "cuda"
+    assert (nearest_codes.launches - before[0], nearest_codes_reference.cuda_calls - before[1]) == (2, 0)
+    assert {p.device.type for p in state.model.parameters()} == {"cuda"}
+    assert (tmp_path / "checkpoints" / "iter_2" / "state.pt").exists()
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())
+
+
+def test_checkpoint_round_trip_of_a_cuda_generator(dev, tmp_path):
+    from vector_quantization_tpu_torch.training import checkpoints as ckpt
+    from vector_quantization_tpu_torch.training.runner import build_runner
+
+    cfg = _smoke_config()
+    a = build_runner(cfg, "trainer", work_dir=str(tmp_path / "a"))
+    sa = a.init_state()
+    assert sa.rng.device.type == "cuda"
+    torch.rand(5, generator=sa.rng, device=dev)  # move the generator off its seed
+    path = ckpt.save_checkpoint(str(tmp_path / "a"), a.algorithm, sa, 0)
+    b = build_runner(cfg, "trainer", work_dir=str(tmp_path / "b"))
+    sb = b.init_state()
+    ckpt.restore_checkpoint(path, b.algorithm, sb)
+    assert torch.equal(sa.rng.get_state(), sb.rng.get_state())
+    assert torch.equal(torch.rand(7, generator=sa.rng, device=dev), torch.rand(7, generator=sb.rng, device=dev))
+    for (name, p), q in zip(a.algorithm.model.named_parameters(), b.algorithm.model.parameters()):
+        assert q.device.type == "cuda" and torch.equal(p, q), name
+
+
+def test_prefetch_copies_pinned_batches_that_equal_the_host(dev, tmp_path):
+    from vector_quantization_tpu_torch.training.runner import build_runner
+
+    trainer = build_runner(_smoke_config(), "trainer", work_dir=str(tmp_path))
+    rng = np.random.default_rng(0)
+    host = [{"id_": [f"x{i}"], "image": rng.standard_normal((4, 64, 64, 3), dtype=np.float32),
+             "category": rng.integers(0, 10, 4).astype(np.int32)} for i in range(5)]
+    assert trainer.strategy.host_tensor(host[0]["image"]).is_pinned()
+    got = []
+    for batch in trainer._device_prefetch(iter(host)):
+        assert set(batch) == {"image", "category"} and batch["image"].device.type == "cuda"
+        got.append({k: (v * 1).cpu() for k, v in batch.items()})  # read on the compute stream
+    torch.cuda.synchronize()
+    assert len(got) == len(host)
+    for g, h in zip(got, host):
+        assert np.array_equal(g["image"].numpy(), h["image"]) and np.array_equal(g["category"].numpy(), h["category"])

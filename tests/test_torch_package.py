@@ -92,6 +92,19 @@ def test_all_submodules_listed():
         "vector_quantization_tpu_torch.models.teachers.vit",
         "vector_quantization_tpu_torch.models.teachers.encoder",
         "vector_quantization_tpu_torch.algorithms.vqkd",
+        "vector_quantization_tpu_torch.utils.flags",
+        "vector_quantization_tpu_torch.data.loader",
+        "vector_quantization_tpu_torch.data.native",
+        "vector_quantization_tpu_torch.parallel.mesh",
+        "vector_quantization_tpu_torch.parallel.sharding",
+        "vector_quantization_tpu_torch.training.checkpoints",
+        "vector_quantization_tpu_torch.training.callbacks",
+        "vector_quantization_tpu_torch.training.runner",
+        "vector_quantization_tpu_torch.cli.common",
+        "vector_quantization_tpu_torch.cli.train",
+        "vector_quantization_tpu_torch.cli.test",
+        "vector_quantization_tpu_torch.cli.tokenize",
+        "vector_quantization_tpu_torch.cli.demo",
     } <= names
 
 

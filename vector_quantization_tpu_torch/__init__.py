@@ -27,10 +27,17 @@ Covered so far:
 - VQ-KD and Cluster tokenizer training (``algorithms.vqkd``: the ViT
   encoder and decoder, the CLIP/ViT teachers, ``ClusterEncoder``, the EMA
   k-means with its lazy init and CVQ in ``ops.codebook``, the optimizer's
-  ``exclude`` mask over flax paths, ``utils.filters``).
+  ``exclude`` mask over flax paths, ``utils.filters``);
+- the entry points: ``training.runner`` (``Trainer``, ``Validator``,
+  ``build_runner``), ``training.checkpoints`` (torch files in the JAX
+  state's layout; the three load modes), ``training.callbacks``, the data
+  plane (``data.loader.DataLoader``, ``data.datasets``, ``data.native``),
+  ``parallel`` for one device, and ``python -m
+  vector_quantization_tpu_torch.cli.{train,test,tokenize,demo}`` over the
+  same config files as the JAX package.
 """
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 from . import registries  # noqa: F401
 # importing these registers their classes under the configs' type names
@@ -43,5 +50,8 @@ from .models.autoencoders import vqgan as _vqgan  # noqa: F401
 from .models.autoencoders import vit as _vit  # noqa: F401
 from .models.quantizers import vq as _vq  # noqa: F401
 from .models.transformers import llama as _llama  # noqa: F401
+from .parallel import sharding as _sharding  # noqa: F401
 from .tasks import image_reconstruction as _image_reconstruction  # noqa: F401
+from .training import callbacks as _callbacks  # noqa: F401
 from .training import metrics as _metrics  # noqa: F401
+from .training import runner as _runner  # noqa: F401

@@ -10,6 +10,13 @@ the card) under ``no_grad``. The tokenizer is outside the optimizer and
 its weights never change, as the JAX package keeps its params in
 ``state.extra`` under ``stop_gradient``.
 
+``state.extra["ir_params"]`` holds the tokenizer's weights by name (the
+module's own tensors, under the JAX state's key). ``load_ir_from`` merges
+checkpoints' ``params`` over ``{"params": <the tokenizer's tree>}`` as the
+JAX package does (``training/checkpoints.load_model_from``, strict=False):
+only a checkpoint whose ``params`` hold a ``params`` subtree reaches the
+tokenizer, so a VQGAN or reconstruction checkpoint leaves it unchanged.
+
 ``train_step``: tokens -> the fused-CE loss (or the dense head +
 ``next_token_ce``) -> gradients -> the optimizer, in place.
 ``eval_step``: the dense head's CE and the teacher-forced sampling
@@ -40,6 +47,7 @@ from ..tasks.sequence_modeling import (
     teacher_forced_sample,
 )
 from ..training.state import TrainState
+from ..utils.bridge import flax_tree
 from .base import Algorithm
 
 __all__ = ["ARAlgorithm"]
@@ -89,6 +97,22 @@ class ARAlgorithm(Algorithm):
     @property
     def uncondition_token(self) -> int:
         return self.num_categories
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        state = super().init_state(seed)
+        state.extra["ir_params"] = dict(self.ir_model.named_parameters())
+        return state
+
+    def extra_modules(self) -> dict[str, tuple[nn.Module, bool]]:
+        return {**super().extra_modules(), "ir_params": (self.ir_model, False)}
+
+    def load_ir_from(self, state: TrainState, paths) -> TrainState:
+        """Merge checkpoints' ``params`` over ``{"params": ir_params}`` in
+        place (the JAX package's composition; see the module docstring)."""
+        from ..training.checkpoints import load_model_from
+
+        load_model_from(paths, {"params": flax_tree(self.ir_model)})
+        return state
 
     # -- pieces ------------------------------------------------------------
 

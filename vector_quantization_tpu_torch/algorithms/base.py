@@ -27,7 +27,7 @@ from ..registries import AlgorithmRegistry, ModelRegistry
 from ..tasks.image_tokenization import model_device
 from ..training.optim import Optimizer, build_optimizer
 from ..training.state import TrainState
-from ..utils.bridge import flax_param_paths
+from ..utils.bridge import flax_param_paths, flax_tree
 
 __all__ = ["Algorithm", "ReconstructionAlgorithm", "apply_codebook_update"]
 
@@ -141,6 +141,23 @@ class Algorithm:
     def eval_step(self, state: TrainState, batch) -> dict:
         raise NotImplementedError
 
+    # -- the JAX state's layout (checkpoints) --------------------------------
+
+    def param_tree(self, state: TrainState) -> dict[str, Any]:
+        """The JAX state's ``params``: the trained model's parameters nested
+        by their flax paths (the live tensors)."""
+        return flax_tree(state.model)
+
+    def optimizer_states(self, state: TrainState) -> dict[str, tuple[Optimizer, nn.Module, dict]]:
+        """The JAX state's optimizer fields -> (optimizer, the module it
+        moves, its state)."""
+        return {"opt_state": (self.tx(), state.model, state.opt_state)}
+
+    def extra_modules(self) -> dict[str, tuple[nn.Module, bool]]:
+        """The ``extra`` entries that hold a module's tensors by name ->
+        (the module, whether they are its buffers)."""
+        return {"ema_params": (self.model, False)}
+
 
 @AlgorithmRegistry.register()
 class ReconstructionAlgorithm(Algorithm):
@@ -170,6 +187,12 @@ class ReconstructionAlgorithm(Algorithm):
         self.codebook_update = dict(codebook_update) if codebook_update else None
         self.lazy_kmeans_init = dict(lazy_kmeans_init) if lazy_kmeans_init is not None else None
         self.lpips_module = LPIPS().to(self.device) if "lpips" in self.recon_losses else None
+
+    def extra_modules(self) -> dict[str, tuple[nn.Module, bool]]:
+        out = super().extra_modules()
+        if self.lpips_module is not None:
+            out["lpips_params"] = (self.lpips_module, False)
+        return out
 
     def _zero(self) -> torch.Tensor:
         return torch.zeros((), dtype=torch.float32, device=self.device)

@@ -50,6 +50,7 @@ from ..models.losses.gan import (
 from ..registries import AlgorithmRegistry, DiscriminatorRegistry
 from ..training.optim import Optimizer, build_optimizer
 from ..training.state import TrainState
+from ..utils.bridge import flax_tree
 from .base import ReconstructionAlgorithm
 
 __all__ = ["VQGANAlgorithm"]
@@ -95,6 +96,16 @@ class VQGANAlgorithm(ReconstructionAlgorithm):
         state.d_opt_state = self.d_tx().init(list(self.discriminator.parameters()))
         state.extra["d_batch_stats"] = dict(self.discriminator.named_buffers())
         return state
+
+    def param_tree(self, state: TrainState) -> dict[str, Any]:
+        return {"generator": flax_tree(state.model), "discriminator": flax_tree(self.discriminator)}
+
+    def optimizer_states(self, state: TrainState) -> dict:
+        return {**super().optimizer_states(state),
+                "d_opt_state": (self.d_tx(), self.discriminator, state.d_opt_state)}
+
+    def extra_modules(self) -> dict[str, tuple[nn.Module, bool]]:
+        return {**super().extra_modules(), "d_batch_stats": (self.discriminator, True)}
 
     # -- pieces ------------------------------------------------------------
 

@@ -60,6 +60,9 @@ class VQKDAlgorithm(ReconstructionAlgorithm):
         state.extra["teacher_params"] = dict(self.teacher.named_parameters())
         return state
 
+    def extra_modules(self) -> dict[str, tuple[nn.Module, bool]]:
+        return {**super().extra_modules(), "teacher_params": (self.teacher, False)}
+
     @torch.no_grad()
     def _recon_target(self, out, batch, extra) -> torch.Tensor:
         image = torch.as_tensor(batch[self.teacher_image_key]).to(self.device)

@@ -10,6 +10,7 @@ VQRegistry = Registry("VQ")
 
 DatasetRegistry = VQRegistry.child("datasets")
 ModelRegistry = VQRegistry.child("models")
+RunnerRegistry = VQRegistry.child("runners")
 AlgorithmRegistry = VQRegistry.child("algorithms")
 EncoderRegistry = ModelRegistry.child("encoders")
 DecoderRegistry = ModelRegistry.child("decoders")
@@ -18,4 +19,7 @@ ConnectorRegistry = ModelRegistry.child("connectors")
 DiscriminatorRegistry = ModelRegistry.child("discriminators")
 TransformerRegistry = ModelRegistry.child("transformers")
 TeacherRegistry = ModelRegistry.child("teachers")
-MetricRegistry = VQRegistry.child("metrics")  # a child of "runners" in JAX; no runner yet
+
+CallbackRegistry = RunnerRegistry.child("callbacks")
+MetricRegistry = RunnerRegistry.child("metrics")
+StrategyRegistry = RunnerRegistry.child("strategies")

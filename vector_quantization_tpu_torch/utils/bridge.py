@@ -11,7 +11,8 @@ through :func:`extra_from_flax`. :func:`params_to_flax`,
 tensors back in flax's layout, for holding updated weights, optimizer
 moments, EMA shadows and codebook statistics against the JAX package's.
 :func:`flax_param_paths` names each parameter by its flax path, which the
-optimizer's ``exclude`` filter matches.
+optimizer's ``exclude`` filter matches; :func:`flax_tree` nests a module's
+own tensors by those paths, the layout of the port's checkpoints.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ __all__ = [
     "extra_to_flax",
     "flax_param_paths",
     "flax_param_shapes",
+    "flax_tree",
     "params_to_flax",
     "llama_params_from_flax",
     "llama_params_to_flax",
@@ -226,6 +228,17 @@ def batch_stats_to_flax(module: nn.Module,
     module's own buffers) -> flax's ``batch_stats`` tree."""
     return _to_flax_tree(module, dict(module.named_buffers()) if tensors is None else tensors,
                          True, _numpy_leaf)
+
+
+def flax_tree(module: nn.Module, tensors: Mapping[str, torch.Tensor] | None = None,
+              stats: bool = False) -> dict[str, Any]:
+    """``module``'s parameters (with ``stats``: its persistent buffers), or
+    ``tensors`` under the same names, nested by their flax paths: the JAX
+    package's ``params`` (``batch_stats``) tree with the port's own tensors,
+    in the port's layouts, as leaves (no copies)."""
+    if tensors is None:
+        tensors = dict(module.named_buffers() if stats else module.named_parameters())
+    return _to_flax_tree(module, tensors, stats, lambda t, layout: t)
 
 
 def flax_param_paths(module: nn.Module) -> dict[str, str]:

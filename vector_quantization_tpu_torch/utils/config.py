@@ -15,8 +15,9 @@ the same way in either package:
 - ``_delete_ = True`` inside a nested dict means "replace, don't merge" when
   that dict is merged over a base value.
 
-The JAX copy's dotted-path ``override`` and ``dump`` serve its CLI, which
-is not ported.
+``override`` patches dotted and indexed paths (``{"a.b[0].c": 1}``), as
+the CLI's ``--override`` gives them; ``dumps``/``dump`` write the config as
+sorted JSON (``work_dir/config.json``).
 
 Configs are plain nested ``Config`` dicts with attribute access — no schema,
 same as the reference.
@@ -24,6 +25,8 @@ same as the reference.
 
 from __future__ import annotations
 
+import copy
+import json
 import os
 from typing import Any, Iterable, Mapping
 
@@ -58,6 +61,9 @@ class Config(dict):
             return type(obj)(cls.from_obj(v) for v in obj)
         return obj
 
+    def copy(self) -> "Config":  # type: ignore[override]
+        return copy.deepcopy(self)
+
     # -- merge / override --------------------------------------------------
 
     def merge(self, other: Mapping[str, Any]) -> "Config":
@@ -80,11 +86,51 @@ class Config(dict):
                 self[k] = v
         return self
 
+    def override(self, options: Mapping[str, Any]) -> "Config":
+        """Patch dotted paths: ``{'a.b.c': 1, 'a.list[0]': 2}``."""
+        for path, value in options.items():
+            self._set_path(path, value)
+        return self
+
+    def _set_path(self, path: str, value: Any) -> None:
+        parts = _parse_path(path)
+        node: Any = self
+        for part in parts[:-1]:
+            if isinstance(part, int):
+                node = node[part]
+            else:
+                if part not in node or not isinstance(node[part], (dict, list, tuple)):
+                    node[part] = Config()
+                node = node[part]
+        node[parts[-1]] = Config.from_obj(value)
+
     # -- io ----------------------------------------------------------------
 
     @classmethod
     def load(cls, path: str, **kwargs: Any) -> "Config":
         return load_config(path, **kwargs)
+
+    def dumps(self) -> str:
+        return json.dumps(self, indent=2, default=repr, sort_keys=True)
+
+    def dump(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.dumps())
+
+
+def _parse_path(path: str) -> list[Any]:
+    """``'a.b[0].c'`` -> ``['a', 'b', 0, 'c']``."""
+    parts: list[Any] = []
+    for piece in path.split("."):
+        while "[" in piece:
+            head, rest = piece.split("[", 1)
+            if head:
+                parts.append(head)
+            idx, piece = rest.split("]", 1)
+            parts.append(int(idx))
+        if piece:
+            parts.append(piece)
+    return parts
 
 
 def _exec_config_file(path: str, kwargs: Mapping[str, Any]) -> dict[str, Any]:

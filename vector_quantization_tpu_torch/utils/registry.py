@@ -1,7 +1,7 @@
 """Hierarchical registries: configs name a class by ``type``.
 
 The port's own copy of ``vector_quantization_tpu/utils/registry.py``,
-trimmed to registration, lookup and ``build``. ``build`` takes a plain
+trimmed to registration, lookup, ``build`` and ``build_or_return``. ``build`` takes a plain
 mapping: ``type`` names the class, the remaining keys are its keyword
 arguments (a config's ``_delete_`` merge marker is dropped). A class may
 define a ``build_pre_hook(config, registry)`` classmethod, which ``build``
@@ -120,3 +120,9 @@ class Registry:
         if pre_hook is not None:
             cfg = pre_hook(cfg, self)
         return cls(**cfg)
+
+    def build_or_return(self, obj: Any, **extra: Any) -> Any:
+        """``build`` for a config with a ``type``; anything else as it is."""
+        if isinstance(obj, Mapping) and "type" in obj:
+            return self.build(obj, **extra)
+        return obj
