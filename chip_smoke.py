@@ -85,8 +85,9 @@ exits non-zero:
    LlamaGen quantizer feeds), the VQGAN train step's 3072 x 16384 x 8 (f32
    unit rows), VQ-KD's 12544 x 8192 x 32 (cosine, and l2 as its lazy
    k-means init looks up; unit rows), Cluster's 12544 x 8192 x 768 (f32,
-   x streamed through the ring), the flagship D = 256, a ragged 1000 x 777 x
-   40 (cosine), N = 1, and planted exact ties (duplicated codebook rows,
+   x streamed through the ring), the flagship D = 256, the StyleGAN2
+   VQGAN's and CVQ-VAE's 3072 x 8192 x 256 (l2 and cosine), a ragged
+   1000 x 777 x 40 (cosine), N = 1, and planted exact ties (duplicated codebook rows,
    f32 and bf16). Codes may differ only as near-ties (both codes' plain
    scores within 1e-5 * max|score| of the row's best: TF32 parts and f32
    sums in another order); planted ties go to the lowest index exactly.
@@ -246,29 +247,81 @@ exits non-zero:
    (the JAX package's merge ignores a VQGAN checkpoint's
    ``generator``/``discriminator`` keys). Host ms per step, and one
    checkpoint's save time and size.
-23. ``decode_profile``: the decode step of phase 4 on the host clock and,
+23. ``fsq_train``: ``ReconstructionAlgorithm`` from
+   configs/fsq/8000_imagenet_ddp.py (VQGAN width 128, levels (8, 8, 5, 5,
+   5), 8000 codes, L1 + MSE, Adam 1e-4), f32, the weights made from
+   ``--seed``: 3 steps at batch 12 of random 256 px images, then encode and
+   decode the batch. Gates: finite losses; every tensor moved; codes
+   (12, 16, 16) in [0, 8000); ``decode_from_quant(codes)`` equal to the
+   decoder on the forward's ``z`` (within 1e-5 of max|ref|); **K1 launched
+   0 times** (FSQ rounds, it looks nothing up); no plain version on the
+   card. Step ms, images/s, encode and decode images/s.
+24. ``vqgan_stylegan2_train``: configs/vqgan/8192_stylegan2_imagenet_ddp.py
+   (the VQGAN with an 8192 x 256 l2 codebook, LPIPS, the StyleGAN2
+   discriminator at 256 px, 28,864,129 parameters; ``discriminator_start``
+   0, so the GAN, the adaptive weight and the discriminator's phase run
+   from the first step): 3 steps at batch 12. Gates: finite losses, K1
+   once a step and its codes against the plain lookup at (3072, 8192,
+   256); every generator tensor moved, and every discriminator tensor but
+   at most ``fc2.bias`` (the hinge loss gives the logit's bias (#fake −
+   #real logits inside (−1, 1)) / B, exactly 0 while every logit lies
+   inside); ``d_batch_stats`` empty (no BatchNorm); no plain version on
+   the card.
+25. ``cvq_anchors_train``: configs/cvqvae/8192_dd2_aglwg075_imagenet_ddp.py
+   (the VQGAN recipe with a cosine 8192 x 256 codebook, PatchGAN depth 2,
+   CVQ after each step) with ``anchor="cached"``: 3 steps at batch 12,
+   then one with ``"multinomial"`` and one with ``"random"``. Each step's
+   anchors are read as the update draws them: every row a row of its pool
+   (the 3072 features and, for ``cached``, the 8192 previous anchors; for
+   ``random``, short of K features, the features in order and then noise
+   in [0, 1)); the cache equals the step's anchors and changes every
+   step. K1 once a step (cosine), its codes against the plain lookup;
+   finite losses; no plain version on the card.
+26. ``vqkd_convnext_train``: phase 14 on configs/vqkd/
+   convnext_8192_imagenet_ddp.py: the ConvNeXt-B teacher (depths 3/3/27/3,
+   widths 128-1024, 87,564,416 parameters) whose 7 x 7 map the bicubic
+   resize takes to 14 x 14, the decoder to 1024 features; the same gates
+   (K1 11, 1, 1, 1 and once at eval), and the teacher's features (64,
+   196, 1024) finite.
+27. ``ar_gpt2``: ``ARAlgorithm`` from configs/ar/c2i_gpt2_medium_imagenet_ddp.py
+   (GPT-2 medium: 24 x 1024, 16 heads, f32, no remat, vocab 17384, the
+   dense head and next-token CE, AdamW; a constant lr of 1e-4 in place of
+   the warm-up), the transformer at its own init under ``--seed``, the
+   tokenizer of phase 10: 3 steps on 64 random 256 px images; the cached
+   decode (f32 cache, a 1-token prefill and 32 steps) against the full
+   forward's logits (within 1e-4 of max|ref|); ``generate_step`` for 8
+   classes -> (8, 256, 256, 3) finite; a dense ``ARServer`` (the per-row
+   scatter: learned positions) serving 16 requests, each 256 codes in
+   range. Gates also: K1 once a step, **K4 launched 0 times** (JAX's GPT-2
+   reaches no Pallas kernel), every tensor moved, no plain version on the
+   card. Step ms, tokens/s, generate and serving tokens/s.
+28. ``decode_profile``: the decode step of phase 4 on the host clock and,
    under torch.profiler, its device time; their ratio gives the device's
    idle share (run last: the profiler slows later host dispatch).
-24. ``generate_profile``: one decode step of phase 8 at its midpoint (a
+29. ``generate_profile``: one decode step of phase 8 at its midpoint (a
    129-column INT8 cache) on the host clock and under torch.profiler:
    device ms, idle share, K2's share.
-25. ``tokenizer_profile``: one encode + decode of the 64 images of phase 10
+30. ``tokenizer_profile``: one encode + decode of the 64 images of phase 10
    under torch.profiler: device time by kernel and the idle share.
-26. ``ar_train_profile``: one codes train step under torch.profiler:
+31. ``ar_train_profile``: one codes train step under torch.profiler:
    device time by kernel and the idle share.
-27. ``vqgan_train_profile``: one GAN-on step of phase 12 under
+32. ``vqgan_train_profile``: one GAN-on step of phase 12 under
    torch.profiler: device ms (the kernels' sum), busy ms (the union of
    their intervals: cuDNN's FFT convolutions overlap), the idle share of
    the host clock from the busy time, and the shares of cuDNN's
    convolutions, the elementwise passes, the GEMMs and K1.
-28. ``vqkd_train_profile``, 29. ``cluster_train_profile``: one step of
-   phases 14 and 15 under torch.profiler, as phase 27 (their kernels by
+33. ``vqkd_train_profile``, 34. ``cluster_train_profile``: one step of
+   phases 14 and 15 under torch.profiler, as phase 32 (their kernels by
    family: K1, SDPA's attention kernels, cuBLAS's GEMMs, elementwise,
    reductions).
-30. ``kernels``: per kernel, launches in its path's run (phase 5 for the
+35. ``fsq_train_profile``, ``vqgan_stylegan2_train_profile``,
+   ``vqkd_convnext_train_profile``, ``ar_gpt2_profile``: one step of
+   phases 23, 24, 26 and 27 under torch.profiler, as phase 32.
+36. ``kernels``: per kernel, launches in its path's run (phase 5 for the
    server's: K2's kernels that the serving shapes' plans name, and K3;
-   phase 10 for the lookup (and its launches in phases 12, 14, 15, 17 and
-   20-22, and its times at the train shapes), phase 17 for the three flash
+   phase 10 for the lookup (and its launches in phases 12, 14, 15, 17,
+   20-22 and 23-27, and its times at the train shapes and the zoo's
+   (3072, 8192, 256) l2 and cosine), phase 17 for the three flash
    kernels (and their launches in phase 22); K2's
    rows also give their launches in phases 7 and 8, and phase 6's times
    at the dense path's shapes), device time per call, the bound, the plain
@@ -1125,6 +1178,7 @@ def phase_ar_generate(algo, state, dev, seed: int) -> None:
 
 
 TF32_FLOPS = 495e12  # dense tensor-core TF32
+ZOO_N = 12 * 16 * 16  # the batch-12 VQGAN steps' rows at 256 px, /16: 3072
 
 
 def lookup_bounds(n: int, k: int, d: int, x_dtype, e_dtype) -> dict:
@@ -1180,13 +1234,17 @@ def phase_vq_lookup(dev, gen) -> dict:
         ("vqkd_cosine", TEACHER_N, 8192, 32, torch.float32, "cosine", "unit", True),
         ("vqkd_init_l2", TEACHER_N, 8192, 32, torch.float32, "l2", "unit", True),
         ("cluster_d768", TEACHER_N, 8192, 768, torch.float32, "l2", "gaussian", True),
+        # the 8192 x 256 codebooks of the StyleGAN2 VQGAN (l2) and CVQ-VAE
+        # (cosine) steps at batch 12
+        ("zoo_d256_l2", ZOO_N, 8192, 256, torch.float32, "l2", "gaussian", True),
+        ("zoo_d256_cosine", ZOO_N, 8192, 256, torch.float32, "cosine", "gaussian", True),
         ("ragged_cosine", 1000, 777, 40, torch.float32, "cosine", "gaussian", False),
         ("n1", 1, CODEBOOK, 8, torch.float32, "l2", "gaussian", False),
         ("planted_ties", 4096, 1000, 8, torch.float32, "l2", "ties", False),
         ("planted_ties_bf16", 4096, 1000, 8, torch.bfloat16, "l2", "ties", False),
     ]
     kernel_row = train_row = None
-    teacher_rows = {}
+    teacher_rows, zoo_rows = {}, {}
     for name, n, k, d, dtype, metric, rows, timed in cases:
         x = torch.randn((n, d), generator=gen, device=dev)
         e = torch.randn((k, d), generator=gen, device=dev)
@@ -1233,6 +1291,8 @@ def phase_vq_lookup(dev, gen) -> dict:
                 train_row = row
             if name in ("vqkd_cosine", "vqkd_init_l2", "cluster_d768"):
                 teacher_rows[name] = row
+            if name.startswith("zoo_"):
+                zoo_rows[name] = row
             del xf, ef, esq_half
         emit(row)
         del x, e, got, want
@@ -1252,6 +1312,8 @@ def phase_vq_lookup(dev, gen) -> dict:
         "train_shape": {key: train_row[key] for key in SHAPE_KEYS},
         "teacher_shapes": {name: {key: r[key] for key in (*SHAPE_KEYS, "metric")}
                            for name, r in teacher_rows.items()},
+        "zoo_shapes": {name: {key: r[key] for key in (*SHAPE_KEYS, "metric")}
+                       for name, r in zoo_rows.items()},
     }
 
 
@@ -1714,14 +1776,18 @@ def step_flops(algo, batch) -> dict:
             "step_gflop_per_image": step / n / 1e9}
 
 
-def phase_teacher_train(phase: str, algo, cfg, dev, seed: int):
-    """``phase`` is ``vqkd_train`` or ``cluster_train``: 1 + 3 train steps at
-    full width on one batch, then (VQ-KD) one ``eval_step`` with the
-    validator's metrics."""
+def phase_teacher_train(phase: str, algo, cfg, dev, seed: int, config: str = VQKD_CONFIG,
+                        params: int = VQKD_PARAMS):
+    """``phase`` is ``vqkd_train``, ``vqkd_convnext_train`` (VQ-KD from
+    ``config``, ``params`` trained-model parameters) or ``cluster_train``:
+    1 + 3 train steps at full width on one batch, then (VQ-KD) one
+    ``eval_step`` with the validator's metrics."""
     from vector_quantization_tpu_torch.data.base import pixel_encode
     from vector_quantization_tpu_torch.registries import MetricRegistry
 
-    vqkd = phase == "vqkd_train"
+    vqkd = hasattr(algo, "teacher")
+    if not vqkd:
+        config, params = CLUSTER_CONFIG, CLUSTER_PARAMS
     model = algo.model
     teacher = algo.teacher if vqkd else model.encoder
     rng = np.random.default_rng(seed + 5)
@@ -1768,7 +1834,14 @@ def phase_teacher_train(phase: str, algo, cfg, dev, seed: int):
     teacher_moved = moved(teacher, teacher_before)
     trained_moved = [n for n, p in model.named_parameters() if n in trained_before
                      and not torch.equal(p.detach(), trained_before[n])]
-    row = {"phase": phase, "config": VQKD_CONFIG if vqkd else CLUSTER_CONFIG, "dtype": "float32",
+    teacher_feats = {}
+    if vqkd:  # the recon target: the teacher's features of the batch
+        with torch.no_grad():
+            feats = algo.teacher(u8)
+        teacher_feats = {"teacher_features_shape": list(feats.shape),
+                         "teacher_features_finite": bool(torch.isfinite(feats).all())}
+        del feats
+    row = {"phase": phase, "config": config, "dtype": "float32",
            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
            "model_params": n_params, "trained_params": sum(p.numel() for p in trained_before.values()),
            "teacher_params": sum(p.numel() for p in teacher.parameters()),
@@ -1780,7 +1853,7 @@ def phase_teacher_train(phase: str, algo, cfg, dev, seed: int):
            "k1_launches_expected": want_k1, "k1_launches_eval": launches["nearest_codes"] - train_launches,
            "plain_runs_on_cuda": plain - plain0, "teacher_tensors_moved": len(teacher_moved),
            "trained_tensors_moved": len(trained_moved), "trained_tensors": len(trained),
-           "eval_metrics": evaluated,
+           "eval_metrics": evaluated, "teacher": type(teacher).__name__, **teacher_feats,
            "codes_vs_plain": {k: rep[k] for k in ("shape", "rows", "differ", "excused", "near_tie_rows",
                                                   "tol")}}
     emit(row)
@@ -1790,9 +1863,11 @@ def phase_teacher_train(phase: str, algo, cfg, dev, seed: int):
     ok = (row["k1_launches_per_step"] == want_k1 and row["plain_runs_on_cuda"] == 0 and rep["ok"]
           and not teacher_moved and not torch.equal(model.quantizer.codebook.detach(), codebook_before)
           and all(np.isfinite(list(r["metrics"].values())).all() for r in rows)
-          and n_params == (VQKD_PARAMS if vqkd else CLUSTER_PARAMS))
+          and n_params == params)
     if vqkd:
         ok = ok and row["k1_launches_eval"] == 1 and np.isfinite(list(evaluated.values())).all()
+        ok = ok and teacher_feats["teacher_features_finite"] and teacher_feats["teacher_features_shape"] == [
+            TEACHER_BATCH, TEACHER_GRID**2, algo.teacher.out_channels]
         ok = ok and all(r["codebook_norm_max_dev_from_1"] <= UNIT_NORM_LIMIT for r in rows)
         ok = ok and state.extra["initialized"] is True
     if not ok:
@@ -2397,6 +2472,355 @@ def profile_ar_step(algo, state, batch) -> None:
                           for e in events[:12]]})
 
 
+# the rest of the tokenizer zoo and GPT-2, each at its config's full width,
+# f32, batch 12 of 256 px for the VQGAN-family steps (the configs' 96 over
+# their 8-way data parallelism)
+FSQ_CONFIG = "configs/fsq/8000_imagenet_ddp.py"
+STYLEGAN2_CONFIG = "configs/vqgan/8192_stylegan2_imagenet_ddp.py"
+CVQ_CONFIG = "configs/cvqvae/8192_dd2_aglwg075_imagenet_ddp.py"
+CONVNEXT_CONFIG = "configs/vqkd/convnext_8192_imagenet_ddp.py"
+GPT2_CONFIG = "configs/ar/c2i_gpt2_medium_imagenet_ddp.py"
+ZOO_BATCH, ZOO_STEPS = 12, 3
+FSQ_PARAMS, ZOO_VQGAN_PARAMS, STYLEGAN2_PARAMS = 71_750_792, 73_845_123, 28_864_129
+CONVNEXT_VQKD_PARAMS, GPT2_PARAMS = 109_486_144, 320_375_808
+GPT2_BATCH, GPT2_STEPS, GPT2_GEN_CLASSES, GPT2_REQUESTS, GPT2_DECODE_STEPS = 64, 3, 8, 16, 32
+GPT2_DECODE_LIMIT = 1e-4  # cached decode vs the full forward, of max|ref| (f32, TF32 off)
+
+
+def zoo_batch(seed: int, dev) -> dict:
+    from vector_quantization_tpu_torch.data.base import pixel_encode
+
+    rng = np.random.default_rng(seed)
+    u8 = rng.integers(0, 256, (ZOO_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)
+    return {"image": pixel_encode(torch.from_numpy(u8).to(dev))}
+
+
+def zoo_algorithm(cfg_path: str, seed: int, dev, codebook_update: dict | None = None):
+    """:func:`make_vqgan_algorithm`'s build (the generator's weights from
+    :func:`load_random_flax_weights`, any discriminator at its own init
+    under ``seed``), with ``codebook_update`` merged over the config's."""
+    from vector_quantization_tpu_torch.registries import AlgorithmRegistry
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    cfg = Config.load(str(Path(__file__).resolve().parent / cfg_path))["trainer"]["algorithm"]
+    if codebook_update:
+        cfg["codebook_update"] = {**cfg["codebook_update"], **codebook_update}
+    torch.manual_seed(seed)
+    algo = AlgorithmRegistry.build(cfg, device=dev)
+    load_random_flax_weights(algo.model, seed)
+    return algo
+
+
+def zoo_steps(algo, state, batch, steps: int, check=None) -> list[dict]:
+    """``steps`` train steps on ``batch``: host ms, metrics, K1's launches
+    per step and whatever ``check(state)`` reports after each."""
+    rows = []
+    for _ in range(steps):
+        k1_before = read_launches()[0]["nearest_codes"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = algo.train_step(state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}  # synchronises
+        rows.append({"step": state.step - 1, "ms": 1e3 * (time.perf_counter() - t0), "metrics": metrics,
+                     "k1_launches": read_launches()[0]["nearest_codes"] - k1_before,
+                     **(check(state) if check else {})})
+    return rows
+
+
+def finite(rows) -> bool:
+    return all(np.isfinite(list(r["metrics"].values())).all() for r in rows)
+
+
+def phase_fsq_train(dev, seed: int):
+    """FSQ (configs/fsq/8000_imagenet_ddp.py: VQGAN width 128, levels (8, 8,
+    5, 5, 5), no codebook): 3 ReconstructionAlgorithm steps, then encode and
+    decode the batch. No nearest-code lookup on this path: K1 must not
+    launch."""
+    algo = zoo_algorithm(FSQ_CONFIG, seed, dev)
+    model = algo.model
+    batch = zoo_batch(seed + 20, dev)
+    state = algo.init_state(seed)
+    before = snapshot(model)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    _, plain0 = read_launches()
+    rows = zoo_steps(algo, state, batch, ZOO_STEPS)
+    tensors_moved = moved(model, before)
+    del before
+    with torch.no_grad():
+        codes, enc_s = _timed(lambda: model.encode_to_quant(batch["image"]))
+        images, dec_s = _timed(lambda: model.decode_from_quant(codes))
+        z = model(batch["image"])["quantizer"].z
+        direct = model.decode(z)
+    launches, plain = read_launches()
+    step_ms = float(np.median([r["ms"] for r in rows]))
+    decode_gap = float((images - direct).abs().max() / direct.abs().max())
+    row = {"phase": "fsq_train", "config": FSQ_CONFIG, "dtype": "float32", "levels": list(model.quantizer.levels),
+           "params": sum(p.numel() for p in model.parameters()), "batch": ZOO_BATCH, "image_size": IMAGE_SIZE,
+           "steps": rows, "step_ms_median": step_ms, "images_per_s": ZOO_BATCH / step_ms * 1e3,
+           "encode_images_per_s": ZOO_BATCH / enc_s, "decode_images_per_s": ZOO_BATCH / dec_s,
+           "codes_shape": list(codes.shape), "codes_min": int(codes.min()), "codes_max": int(codes.max()),
+           "decode_from_quant_vs_decoder_on_z": decode_gap,
+           "tensors_moved": len(tensors_moved), "tensors": len(model.state_dict()),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches, "plain_runs_on_cuda": plain - plain0}
+    emit(row)
+    ok = (finite(rows) and row["tensors_moved"] == row["tensors"] and launches["nearest_codes"] == 0
+          and plain == plain0 and 0 <= row["codes_min"] and row["codes_max"] < 8000
+          and codes.shape == (ZOO_BATCH, GRID, GRID) and decode_gap <= 1e-5
+          and images.shape == (ZOO_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3) and row["params"] == FSQ_PARAMS)
+    if not ok:
+        raise SystemExit("fsq_train: a check failed (see the fsq_train line)")
+    return launches, lambda: profile_train_step("fsq_train_profile", lambda: algo.train_step(state, batch),
+                                                batch=ZOO_BATCH, step=state.step)
+
+
+def phase_vqgan_stylegan2_train(dev, seed: int):
+    """configs/vqgan/8192_stylegan2_imagenet_ddp.py: the VQGAN (width 128,
+    8192 x 256 l2 codebook) against the StyleGAN2 discriminator at 256 px,
+    the GAN on from step 0 (the config's ``discriminator_start``)."""
+    algo = zoo_algorithm(STYLEGAN2_CONFIG, seed, dev)
+    model, disc = algo.model, algo.discriminator
+    batch = zoo_batch(seed + 21, dev)
+    state = algo.init_state(seed)
+    g_before, d_before = snapshot(model), snapshot(disc)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    _, plain0 = read_launches()
+    rows = zoo_steps(algo, state, batch, ZOO_STEPS)
+    g_moved, d_moved = moved(model, g_before), moved(disc, d_before)
+    del g_before, d_before
+    launches, plain = read_launches()
+    rep = codes_vs_plain(model, batch["image"])
+    step_ms = float(np.median([r["ms"] for r in rows]))
+    row = {"phase": "vqgan_stylegan2_train", "config": STYLEGAN2_CONFIG, "dtype": "float32",
+           "generator_params": sum(p.numel() for p in model.parameters()),
+           "discriminator_params": sum(p.numel() for p in disc.parameters()),
+           "discriminator_start": algo.d_start, "r1_weight": algo.r1_weight, "batch": ZOO_BATCH,
+           "steps": rows, "step_ms_median": step_ms, "images_per_s": ZOO_BATCH / step_ms * 1e3,
+           "generator_tensors_moved": len(g_moved), "generator_tensors": len(model.state_dict()),
+           "discriminator_tensors_moved": len(d_moved), "discriminator_tensors": len(disc.state_dict()),
+           "discriminator_tensors_unmoved": sorted(set(disc.state_dict()) - set(d_moved)),
+           "d_batch_stats": sorted(state.extra["d_batch_stats"]),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches, "plain_runs_on_cuda": plain - plain0,
+           "codes_vs_plain": {k: rep[k] for k in ("shape", "rows", "differ", "excused", "near_tie_rows", "tol")}}
+    emit(row)
+    # the hinge loss gives the logit's bias the gradient (#fake − #real logits
+    # inside the margin (−1, 1)) / B: exactly 0 while every logit lies inside,
+    # so ``fc2.bias`` may stay; every other tensor must move
+    ok = (finite(rows) and all(r["k1_launches"] == 1 and r["metrics"]["d_loss"] != 0 for r in rows)
+          and len(g_moved) == row["generator_tensors"] and set(disc.state_dict()) - set(d_moved) <= {"fc2.bias"}
+          and not state.extra["d_batch_stats"] and plain == plain0 and rep["ok"]
+          and rep["shape"] == [ZOO_N, 8192, 256] and row["discriminator_params"] == STYLEGAN2_PARAMS
+          and row["generator_params"] == ZOO_VQGAN_PARAMS)
+    if not ok:
+        raise SystemExit("vqgan_stylegan2_train: a check failed (see the vqgan_stylegan2_train line)")
+    return launches, lambda: profile_train_step("vqgan_stylegan2_train_profile",
+                                                lambda: algo.train_step(state, batch), batch=ZOO_BATCH,
+                                                step=state.step)
+
+
+def rows_in(anchors: torch.Tensor, pool: torch.Tensor) -> bool:
+    """Whether every row of ``anchors`` is a row of ``pool``, bit for bit:
+    each anchor's hash (a random f64 projection) found among the pool's,
+    then the matched rows compared whole."""
+    r = torch.randn(pool.shape[1], dtype=torch.float64, device=pool.device)
+    hp, ha = pool.double() @ r, anchors.double() @ r
+    order = torch.argsort(hp)
+    at = torch.searchsorted(hp[order], ha).clamp(max=len(hp) - 1)
+    return bool(torch.equal(pool[order[at]], anchors))
+
+
+def phase_cvq_anchors_train(dev, seed: int):
+    """CVQ-VAE (configs/cvqvae/8192_dd2_aglwg075_imagenet_ddp.py: the
+    VQGAN recipe, cosine 8192 x 256 codebook, PatchGAN depth 2, CVQ after
+    each step): 3 steps with ``anchor="cached"``, then one step each with
+    ``"multinomial"`` and ``"random"``. Each step's anchors are read as the
+    update draws them, with the features and the cache they came from."""
+    from vector_quantization_tpu_torch.ops import codebook as cb_ops
+
+    algo = zoo_algorithm(CVQ_CONFIG, seed, dev, {"anchor": "cached"})
+    model = algo.model
+    batch = zoo_batch(seed + 22, dev)
+    state = algo.init_state(seed)
+    drawn = {}
+    draw = cb_ops.cvq_anchors
+
+    def spied(x, d, anchor="nearest", generator=None, cache=None):
+        anchors = draw(x, d, anchor, generator, cache)
+        n, k = x.shape[0], d.shape[1]
+        if anchor == "random" and n < k:  # the N features in order, then K − N rows of noise
+            pool, ok = x, torch.equal(anchors[:n], x) and bool(((anchors[n:] >= 0) & (anchors[n:] < 1)).all())
+        else:  # cached: drawn from the features and the previous anchors
+            pool = torch.cat([x, cache]) if anchor == "cached" and n < k else x
+            ok = rows_in(anchors, pool)
+        drawn.update(anchor=anchor, rows_in_pool=ok, pool_rows=pool.shape[0], anchors=anchors)
+        return anchors
+
+    def check(state) -> dict:
+        anchors = drawn.pop("anchors")
+        out = dict(drawn, probability_sum=float(state.extra["probability"].sum()))
+        if drawn["anchor"] == "cached":
+            out["cache_is_anchors"] = bool(torch.equal(state.extra["anchor_cache"], anchors))
+            out["cache_changed"] = not torch.equal(state.extra["anchor_cache"], cache_before.pop())
+        return out
+
+    cb_ops.cvq_anchors = spied
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    _, plain0 = read_launches()
+    rows = []
+    try:
+        for anchor, steps in (("cached", ZOO_STEPS), ("multinomial", 1), ("random", 1)):
+            algo.codebook_update["anchor"] = anchor
+            for _ in range(steps):
+                cache_before = [state.extra["anchor_cache"].clone()]
+                rows += zoo_steps(algo, state, batch, 1, check)
+    finally:
+        cb_ops.cvq_anchors = draw
+    launches, plain = read_launches()
+    rep = codes_vs_plain(model, batch["image"])
+    row = {"phase": "cvq_anchors_train", "config": CVQ_CONFIG, "dtype": "float32",
+           "distance": model.quantizer.distance, "batch": ZOO_BATCH, "steps": rows,
+           "step_ms_median": float(np.median([r["ms"] for r in rows])),
+           "anchor_cache_shape": list(state.extra["anchor_cache"].shape),
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches, "plain_runs_on_cuda": plain - plain0,
+           "codes_vs_plain": {k: rep[k] for k in ("shape", "rows", "differ", "excused", "near_tie_rows", "tol")}}
+    emit(row)
+    ok = (finite(rows) and all(r["k1_launches"] == 1 and r["rows_in_pool"] for r in rows)
+          and [r["anchor"] for r in rows] == ["cached"] * ZOO_STEPS + ["multinomial", "random"]
+          and all(r["cache_is_anchors"] and r["cache_changed"] for r in rows[:ZOO_STEPS])
+          and plain == plain0 and rep["ok"] and rep["shape"] == [ZOO_N, 8192, 256]
+          and model.quantizer.distance == "cosine" and row["anchor_cache_shape"] == [8192, 256])
+    if not ok:
+        raise SystemExit("cvq_anchors_train: a check failed (see the cvq_anchors_train line)")
+    return launches
+
+
+def make_gpt2_algorithm(seed: int, dev, vqgan):
+    """ARAlgorithm from configs/ar/c2i_gpt2_medium_imagenet_ddp.py (GPT-2
+    medium, f32, no remat, no CFG) through the port's config loader and
+    registry, at the transformer's own random init under ``seed``; the
+    tokenizer is phase ``tokenizer``'s VQGAN. A constant lr of 1e-4 in place
+    of the config's 10,000-step warm-up (whose first lrs, 0 and 1e-8, leave
+    a LayerNorm scale of 1 unmoved in f32)."""
+    from vector_quantization_tpu_torch.registries import AlgorithmRegistry
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    cfg = Config.load(str(Path(__file__).resolve().parent / GPT2_CONFIG))["trainer"]["algorithm"]
+    cfg["transformer"]["seed"] = seed
+    cfg["optimizer"]["schedule"] = {"type": "constant"}
+    cfg["ir"] = vqgan
+    return AlgorithmRegistry.build(cfg, device=dev), cfg
+
+
+def phase_ar_gpt2(vqgan, dev, seed: int):
+    """GPT-2 medium C2I: 3 train steps on 64 random images (K1 -> the dense
+    head -> next-token CE -> AdamW); the cached decode's logits against the
+    full forward's; ``generate_step`` for 8 classes through the VQGAN
+    decoder; a dense ``ARServer`` (the per-row scatter engine) over 16
+    requests. JAX's GPT-2 reaches no Pallas kernel: K4 must not launch."""
+    from vector_quantization_tpu_torch.data.base import pixel_encode
+    from vector_quantization_tpu_torch.tasks.serving import ARServer
+
+    algo, cfg = make_gpt2_algorithm(seed, dev, vqgan)
+    model = algo.model
+    rng = np.random.default_rng(seed + 23)
+    u8 = rng.integers(0, 256, (GPT2_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)
+    batch = {"image": pixel_encode(torch.from_numpy(u8).to(dev)),
+             "category": torch.from_numpy(rng.integers(0, NUM_CATEGORIES, GPT2_BATCH)).to(dev)}
+    before = [p.detach().clone() for p in model.parameters()]
+    state = algo.init_state(seed)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    _, plain0 = read_launches()
+    rows = zoo_steps(algo, state, batch, GPT2_STEPS)
+    changed = [not torch.equal(p, b) for p, b in zip(model.parameters(), before)]
+    del before
+    train_launches = read_launches()[0]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = float(np.median([r["ms"] for r in rows]))
+
+    # the cached decode (a 1-token prefill, then single steps) against the full forward
+    tokens = torch.from_numpy(rng.integers(0, model.vocabulary_size, (8, 1 + GPT2_DECODE_STEPS))).to(dev)
+    with torch.no_grad():
+        full = model(tokens)
+        cache = model.init_cache(8, dtype=torch.float32)
+        steps = []
+        for t in range(1 + GPT2_DECODE_STEPS):
+            logits, cache = model(tokens[:, t:t + 1], cache)
+            steps.append(logits[:, 0])
+        decode_gap = float((torch.stack(steps, 1) - full).abs().max() / full.abs().max())
+    del full, cache, steps
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    category = torch.arange(0, NUM_CATEGORIES, NUM_CATEGORIES // GPT2_GEN_CLASSES, device=dev)[:GPT2_GEN_CLASSES]
+    images, gen_s = _timed(lambda: algo.generate_step(state, category, gen))
+
+    server = ARServer(model, None, algo.image_codebook, image_tokens=IMAGE_TOKENS, batch_slots=GPT2_REQUESTS,
+                      sampler=algo.sampler, steps_per_sync=1, cache_dtype=torch.float32, seed=seed, device=dev)
+    for i in range(GPT2_REQUESTS):
+        server.submit(category=i)
+    done, serve_s = _timed(lambda: dict(server.run_until_drained()))
+    launches, plain = read_launches()
+    k1_train, k1_all = train_launches["nearest_codes"], launches["nearest_codes"]
+    k4 = sum(launches[k] for k in ("flash_attention_fwd", "flash_bwd_dkv", "flash_bwd_dq"))
+    row = {"phase": "ar_gpt2", "config": GPT2_CONFIG, "params": sum(p.numel() for p in model.parameters()),
+           "dtype": str(model.dtype).removeprefix("torch."), "vocabulary_size": model.vocabulary_size,
+           "max_length": model.max_length, "fused_ce": algo._use_fused(), "batch": GPT2_BATCH, "seq": SEQ,
+           "steps": rows, "step_ms_median": step_ms, "tokens_per_s": GPT2_BATCH * SEQ / step_ms * 1e3,
+           "peak_memory_gib": peak_gib, "param_tensors_changed": int(sum(changed)), "param_tensors": len(changed),
+           "decode_steps": GPT2_DECODE_STEPS, "cached_vs_full_rel": decode_gap,
+           "cached_vs_full_limit": GPT2_DECODE_LIMIT,
+           "generate_classes": GPT2_GEN_CLASSES, "generate_s": gen_s,
+           "generate_tokens_per_s": GPT2_GEN_CLASSES * IMAGE_TOKENS / gen_s,
+           "images_shape": list(images.shape), "images_finite": bool(torch.isfinite(images).all()),
+           "serving_engine": "shared_column" if server._shared_col else "scatter",
+           "served": len(done), "serve_s": serve_s, "serve_tokens_per_s": len(done) * IMAGE_TOKENS / serve_s,
+           "k1_launches_train": k1_train, "k1_launches_per_step": [r["k1_launches"] for r in rows],
+           "k4_launches": k4, "launches": launches, "plain_runs_on_cuda": plain - plain0}
+    emit(row)
+    ok = (finite(rows) and all(r["k1_launches"] == 1 for r in rows) and k4 == 0 and all(changed)
+          and plain == plain0 and decode_gap <= GPT2_DECODE_LIMIT and row["images_finite"]
+          and images.shape == (GPT2_GEN_CLASSES, IMAGE_SIZE, IMAGE_SIZE, 3) and not algo._use_fused()
+          and sorted(done) == list(range(GPT2_REQUESTS)) and not server._shared_col
+          and all(c.shape == (IMAGE_TOKENS,) and (c >= 0).all() and (c < CODEBOOK).all() for c in done.values())
+          and row["params"] == GPT2_PARAMS)
+    if not ok:
+        raise SystemExit("ar_gpt2: a check failed (see the ar_gpt2 line)")
+    del server, images
+    return launches, lambda: profile_train_step("ar_gpt2_profile", lambda: algo.train_step(state, batch),
+                                                batch=GPT2_BATCH, step=state.step)
+
+
+def phase_zoo(vqgan, dev, seed: int) -> tuple[dict, list]:
+    """The five phases of the tokenizer zoo and GPT-2: their K1 launches by
+    phase, and one-step profiles of four of them (run after the others'
+    profiles; CVQ-VAE's step is the VQGAN recipe's, and its models are
+    freed here)."""
+    out, profiles = {}, []
+    for name, run in (("fsq_train", lambda: phase_fsq_train(dev, seed)),
+                      ("vqgan_stylegan2_train", lambda: phase_vqgan_stylegan2_train(dev, seed))):
+        launches, profile = run()
+        out[name] = launches["nearest_codes"]
+        profiles.append(profile)
+        torch.cuda.empty_cache()
+    out["cvq_anchors_train"] = phase_cvq_anchors_train(dev, seed)["nearest_codes"]
+    torch.cuda.empty_cache()
+    algo, cfg = make_teacher_algorithm(CONVNEXT_CONFIG, seed, dev)
+    launches, profile = phase_teacher_train("vqkd_convnext_train", algo, cfg, dev, seed, CONVNEXT_CONFIG,
+                                            CONVNEXT_VQKD_PARAMS)
+    out["vqkd_convnext_train"] = launches["nearest_codes"]
+    profiles.append(profile)
+    torch.cuda.empty_cache()
+    launches, profile = phase_ar_gpt2(vqgan, dev, seed)
+    out["ar_gpt2"] = launches["nearest_codes"]
+    profiles.append(profile)
+    torch.cuda.empty_cache()
+    return out, profiles
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2453,6 +2877,8 @@ def main() -> int:
         cli_config, cli_ckpt, cli_vqgan_launches = phase_cli_vqgan(Path(tmp), vqgan_step_ms)
         cli_eval_launches = phase_cli_test_tokenize(cli_config, cli_ckpt, Path(tmp))
         cli_ar_launches = phase_cli_ar(cli_ckpt, Path(tmp), args.seed)
+    torch.cuda.empty_cache()
+    zoo_launches, zoo_profiles = phase_zoo(vqgan, dev, args.seed)
     profile_step()
     profile_generate()
     profile_tokenizer()
@@ -2460,6 +2886,9 @@ def main() -> int:
     profile_vqgan()
     profile_vqkd()
     profile_cluster()
+    for profile in zoo_profiles:
+        torch.cuda.empty_cache()
+        profile()
     for k in k_int8:
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = {"serving": launches[k["name"]],
@@ -2477,7 +2906,7 @@ def main() -> int:
                                 "ar_train": ar_launches["nearest_codes"],
                                 "cli_vqgan_train": cli_vqgan_launches["nearest_codes"],
                                 **cli_eval_launches,
-                                "cli_ar": cli_ar_launches["nearest_codes"]}
+                                "cli_ar": cli_ar_launches["nearest_codes"], **zoo_launches}
     for k in k_flash:
         k["launches"] = ar_launches[k["name"]]
         k["launches_by_path"] = {"ar_train": ar_launches[k["name"]], "cli_ar": cli_ar_launches[k["name"]]}

@@ -54,6 +54,17 @@ ITER_800 = REPO / "work_dirs/published/anchor_ar_train/checkpoints/iter_800"
 RECORDED_LOSS, RECORDED_ACCURACY = 0.08484, 0.9707
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _algorithm_cfg(**override):
     cfg = Config.load(ANCHOR)["trainer"]["algorithm"]
     cfg.update(override)

@@ -323,6 +323,8 @@ _F32, _BF16 = torch.float32, torch.bfloat16
         (12544, 8192, 32, _F32, _F32, "cosine", "unit"),  # VQ-KD's step (batch 64 at 224 px)
         (12544, 8192, 32, _F32, _F32, "l2", "unit"),  # VQ-KD's lazy k-means init
         (12544, 8192, 768, _F32, _F32, "l2", "gaussian"),  # Cluster's step: x streamed
+        (3072, 8192, 256, _F32, _F32, "l2", "gaussian"),  # the StyleGAN2 VQGAN's step (batch 12)
+        (3072, 8192, 256, _F32, _F32, "cosine", "gaussian"),  # CVQ-VAE's step (batch 12)
     ],
 )
 def test_nearest_codes_kernel_matches_plain(dev, n, k, d, dtype, e_dtype, metric, rows):

@@ -27,6 +27,17 @@ _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1.6e-2, 2.4e-2)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(b, t, h, dh, seed):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((b, t, h, dh), dtype=np.float32) for _ in range(4)]

@@ -21,6 +21,17 @@ from vector_quantization_tpu_torch.ops.fused_ce import fused_ce, fused_next_toke
 from vector_quantization_tpu_torch.tasks.sequence_modeling import next_token_ce
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rel(got, want):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     assert got.shape == want.shape

@@ -45,6 +45,17 @@ TINY = dict(
 DECODE_HASH, DECODE_MEAN = 134239, 32.2265625
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tiny_pair():
     jt = JaxLlama(**TINY)
     params = jt.init(jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32))["params"]

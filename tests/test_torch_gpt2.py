@@ -1,0 +1,258 @@
+"""GPT-2 through the port against the JAX package, on the CPU, f32 (vocab
+32, width 32, 2 layers, 2 heads, max_length 16; every bias, LayerNorm
+scale and embedding drawn from numpy, so none is at its init value).
+
+Held within 1e-4 of max|ref| (per tensor):
+- the training forward's logits and the gradient of ``next_token_ce``
+  with respect to every parameter;
+- two ``ARAlgorithm.train_step``s of ``configs/regression/ar_anchor.py``
+  with its transformer swapped for GPT-2 (the dense head and
+  ``next_token_ce``, since ``supports_fused_ce`` is false), from the
+  drawn weights: the losses within 1e-5 relative, every weight within
+  1e-4 of max|ref|, except the
+  elements whose first-step JAX gradient is f32 rounding noise (the key
+  part of ``c_attn``'s bias, which the softmax cancels): AdamW turns
+  those into full steps, and they are held to its bound, 2 steps x 2 x
+  1.1 lr, as in ``tests/test_torch_vqgan_train.py``;
+- the cached decode (a 3-token prefill, then single steps) with an f32 and
+  with an INT8 KV cache, and the ``slot_positions`` decode at staggered
+  columns (``tests/test_serving.py``'s GPT-2 slot tests: it equals the
+  full forward, and JAX's);
+- ``generate`` with ``kv_segment`` equal to the full-window one, sampled
+  (``tests/test_ar.py``'s segmented-generate test), and greedy ``generate``
+  equal to JAX's token for token;
+- the dense ``ARServer`` on GPT-2: its per-row scatter engine (the learned
+  positions rule out the shared column) gives JAX's server's streams.
+"""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vector_quantization_tpu.algorithms.ar  # noqa: F401  (registers the JAX algorithm)
+import vector_quantization_tpu.models  # noqa: F401
+import vector_quantization_tpu.tasks  # noqa: F401
+from vector_quantization_tpu.models.transformers.gpt2 import GPT2Transformer as JaxGPT2
+from vector_quantization_tpu.registries import AlgorithmRegistry as JaxAlgorithmRegistry
+from vector_quantization_tpu.tasks.sequence_modeling import TokenCodebook as JaxCodebook
+from vector_quantization_tpu.tasks.sequence_modeling import generate as jax_generate
+from vector_quantization_tpu.tasks.sequence_modeling import next_token_ce as jax_next_token_ce
+from vector_quantization_tpu.tasks.serving import ARServer as JaxServer
+from vector_quantization_tpu.utils.config import load_config as jax_load_config
+from vector_quantization_tpu_torch.models.transformers.gpt2 import GPT2Transformer
+from vector_quantization_tpu_torch.registries import AlgorithmRegistry
+from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook, generate, next_token_ce
+from vector_quantization_tpu_torch.tasks.serving import ARServer
+from vector_quantization_tpu_torch.utils.bridge import llama_params_from_flax, llama_params_to_flax, load_ar_from_flax
+from vector_quantization_tpu_torch.utils.config import Config
+from test_torch_vqkd import NOISE_REL, _adam_state  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+ANCHOR = str(REPO / "configs/regression/ar_anchor.py")
+TINY = dict(vocabulary_size=32, hidden_size=32, num_layers=2, num_heads=2, max_length=16)
+REL = 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread (small ops beside other test
+    processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}{k}.") if isinstance(v, dict) else {f"{prefix}{k}": v})
+    return out
+
+
+def _close(got, want, what, rel=REL):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = float(np.abs(got - want).max(initial=0.0))
+    assert err <= rel * float(np.abs(want).max(initial=0.0)), (what, err, float(np.abs(want).max()))
+
+
+def _params(seed=0, **over):
+    """JAX's init, then every leaf redrawn from numpy: kernels and
+    embeddings N(0, 0.2²) (wide enough that the logits spread), biases
+    N(0, 0.05²), LayerNorm scales 1 + N(0, 0.05²)."""
+    cfg = {**TINY, **over}
+    params = JaxGPT2(**cfg).init(jax.random.PRNGKey(seed), jnp.zeros((1, 4), jnp.int32))["params"]
+    rng = np.random.default_rng(seed + 100)
+
+    def draw(path, a):
+        leaf = path[-1].key
+        if leaf == "scale":
+            return (1.0 + rng.normal(0.0, 0.05, a.shape)).astype(np.float32)
+        if leaf == "bias":
+            return rng.normal(0.0, 0.05, a.shape).astype(np.float32)
+        return rng.normal(0.0, 0.2, a.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, dict(params))
+
+
+def _pair(seed=0, **over):
+    cfg = {**TINY, **over}
+    params = _params(seed, **over)
+    tt = GPT2Transformer(**cfg)
+    tt.load_state_dict(llama_params_from_flax(params))
+    return JaxGPT2(**cfg), jax.tree_util.tree_map(jnp.asarray, params), tt.eval()
+
+
+def _tokens(seed, b, t):
+    return np.random.default_rng(seed).integers(0, TINY["vocabulary_size"], (b, t)).astype(np.int32)
+
+
+def test_training_forward_and_gradients_match_jax():
+    jt, params, tt = _pair()
+    toks = _tokens(1, 3, TINY["max_length"])
+    want = jt.apply({"params": params}, jnp.asarray(toks))
+    got = tt(torch.from_numpy(toks))
+    assert got.dtype == torch.float32 and not tt.supports_fused_ce
+    _close(got, want, "logits")
+    jgrads = jax.grad(lambda p: jax_next_token_ce(jt.apply({"params": p}, jnp.asarray(toks)),
+                                                  jnp.asarray(toks)))(params)
+    tt.zero_grad()
+    next_token_ce(tt(torch.from_numpy(toks)), torch.from_numpy(toks)).backward()
+    grads = _flat(llama_params_to_flax(tt))
+    got_grads = {name: p.grad for name, p in tt.named_parameters()}
+    want_grads = _flat(jax.tree_util.tree_map(np.asarray, jgrads))
+    assert set(grads) == set(want_grads) == set(got_grads)
+    for name, w in want_grads.items():
+        _close(got_grads[name], w, f"grad {name}")
+
+
+def test_two_ar_train_steps_match_jax():
+    override = dict(transformer=dict(type="GPT2Transformer", hidden_size=32, num_layers=2, num_heads=2), cfg=None)
+    jcfg = jax_load_config(ANCHOR)["trainer"]["algorithm"]
+    jcfg.update(override)
+    jalgo = JaxAlgorithmRegistry.build(jcfg)
+    jstate = jalgo.init_state(jax.random.PRNGKey(0), {})
+    cfg = Config.load(ANCHOR)["trainer"]["algorithm"]
+    cfg.update(override)
+    algo = AlgorithmRegistry.build(cfg, device="cpu")
+    assert type(algo.model).__name__ == "GPT2Transformer" and not algo._use_fused()
+    assert (algo.model.vocabulary_size, algo.model.max_length) == (jalgo.model.vocabulary_size, 65)
+    params = _params(0, vocabulary_size=jalgo.model.vocabulary_size, max_length=65)
+    jstate = jstate.replace(params=jax.tree_util.tree_map(jnp.asarray, params), opt_state=jalgo.tx(params).init(params))
+    load_ar_from_flax(algo, params, jax.tree_util.tree_map(np.asarray, jstate.extra["ir_params"]))
+    state = algo.init_state(0)
+    step = jax.jit(jalgo.train_step)
+    rng = np.random.default_rng(3)
+    for i in range(2):
+        batch = {"codes": rng.integers(0, 64, (4, 8, 8)).astype(np.int32),
+                 "category": rng.integers(0, 10, 4).astype(np.int32)}
+        jstate, jm = step(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+        state, m = algo.train_step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+        assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-5 * float(jm["loss"])
+        if i == 0:  # the first-step gradients that are rounding noise
+            mu = _flat(jax.tree_util.tree_map(np.asarray, dict(_adam_state(jstate.opt_state).mu)))
+            top = max(float(np.abs(v).max()) for v in mu.values())
+            noise = {k: np.abs(v) <= NOISE_REL * top for k, v in mu.items()}
+    assert noise["h0.c_attn.bias"][32:64].all() and not noise["h0.c_attn.bias"][:32].any()
+    got = _flat(llama_params_to_flax(algo.model))
+    want = _flat(jax.tree_util.tree_map(np.asarray, dict(jstate.params)))
+    assert set(got) == set(want) == set(noise)
+    bound = 2 * 2 * 1.1 * algo.optimizer_cfg["lr"]
+    for name, w in want.items():
+        assert float(np.abs(got[name] - w)[noise[name]].max(initial=0.0)) <= bound, name
+        _close(got[name][~noise[name]], w[~noise[name]], name)
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "int8"])
+def test_cached_decode_matches_jax(cache_dtype):
+    jt, params, tt = _pair(1)
+    b = 3
+    jc = jt.init_cache(b, dtype=getattr(jnp, cache_dtype))
+    tc = tt.init_cache(b, dtype=getattr(torch, cache_dtype), device="cpu")
+    toks = _tokens(2, b, 3)
+    with torch.inference_mode():
+        for _ in range(6):
+            jl, jc = jt.apply({"params": params}, jnp.asarray(toks), jc)
+            tl, tc = tt(torch.from_numpy(toks), tc)
+            assert tl.dtype == torch.float32 and tc.length == int(jc.length)
+            _close(tl, jl, "logits")
+            toks = np.asarray(jnp.argmax(jl[:, -1:], axis=-1)).astype(np.int32)
+    if cache_dtype == "int8":
+        for i in range(TINY["num_layers"]):
+            for t, j in ((tc.k[i], jc.k[i]), (tc.v[i], jc.v[i])):
+                diff = np.abs(t.numpy().astype(np.int32) - np.asarray(j, np.int32))
+                assert diff.max() <= 1 and (diff > 0).mean() < 1e-2
+            _close(tc.k_scale[i], jc.k_scale[i], "k_scale")
+
+
+def test_slot_positions_decode_matches_full_forward_and_jax():
+    jt, params, tt = _pair(2)
+    toks = np.asarray([[3, 1, 30, 4]], np.int32)
+    full = jt.apply({"params": params}, jnp.asarray(toks))
+    _close(tt(torch.from_numpy(toks)), full, "full forward")
+    jc, tc = jt.init_cache(1, dtype=jnp.float32), tt.init_cache(1, dtype=torch.float32, device="cpu")
+    outs = []
+    with torch.inference_mode():
+        for t in range(toks.shape[1]):
+            pos = np.asarray([t], np.int32)
+            jl, jc = jt.apply({"params": params}, jnp.asarray(toks[:, t:t + 1]), jc, slot_positions=jnp.asarray(pos))
+            tl, tc = tt(torch.from_numpy(toks[:, t:t + 1]), tc, slot_positions=torch.from_numpy(pos))
+            _close(tl, jl, f"slot step {t}")
+            outs.append(tl[:, 0])
+    _close(torch.stack(outs, 1), full, "slot decode vs full forward")
+    # staggered rows, each at its own column
+    jc, tc = jt.init_cache(3, dtype=jnp.float32), tt.init_cache(3, dtype=torch.float32, device="cpu")
+    toks = np.asarray([[3], [5], [7]], np.int32)
+    with torch.inference_mode():
+        for step in range(6):
+            pos = np.asarray([step, step + 4, step + 1], np.int32)
+            jl, jc = jt.apply({"params": params}, jnp.asarray(toks), jc, slot_positions=jnp.asarray(pos))
+            tl, tc = tt(torch.from_numpy(toks), tc, slot_positions=torch.from_numpy(pos))
+            _close(tl, jl, f"staggered step {step}")
+            toks = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)
+
+
+def test_segmented_generate_matches_full_window():
+    _, _, tt = _pair(3, vocabulary_size=64, max_length=40)
+    prefix = torch.zeros((2, 1), dtype=torch.int32)
+    kw = dict(sampler={"top_k": 5}, cache_dtype=torch.float32)
+    full = generate(tt, prefix, 32, TokenCodebook(12, 48), torch.Generator().manual_seed(7), kv_segment=None, **kw)
+    seg = generate(tt, prefix, 32, TokenCodebook(12, 48), torch.Generator().manual_seed(7), kv_segment=8, **kw)
+    assert torch.equal(full, seg) and int(full.min()) >= 0 and int(full.max()) < 48
+
+
+@pytest.mark.parametrize("cfg_alpha,kv_segment", [(None, None), (1.75, 4)])
+def test_greedy_generate_matches_jax(cfg_alpha, kv_segment):
+    jt, params, tt = _pair(4)
+    prefix = np.asarray([[10], [10], [3], [5]], np.int32)
+    want = jax_generate(jt, params, jnp.asarray(prefix), 12, JaxCodebook(11, 16), jax.random.PRNGKey(1),
+                        sampler={"top_k": 1}, cfg_alpha=cfg_alpha, cache_dtype=jnp.float32,
+                        kv_segment=kv_segment)
+    got = generate(tt, torch.from_numpy(prefix), 12, TokenCodebook(11, 16), torch.Generator().manual_seed(1),
+                   sampler={"top_k": 1}, cfg_alpha=cfg_alpha, cache_dtype=torch.float32, kv_segment=kv_segment)
+    assert got.shape == (4 if cfg_alpha is None else 2, 12)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_dense_server_streams_match_jax():
+    jt, params, tt = _pair(5)
+    recipe = dict(image_tokens=6, batch_slots=4, sampler={"temperature": 1e-4}, cfg_alpha=1.75, uncond_token=10,
+                  steps_per_sync=3)
+    js = JaxServer(jt, params, JaxCodebook(11, 16), cache_dtype=jnp.float32, **recipe)
+    ts = ARServer(tt, None, TokenCodebook(11, 16), cache_dtype=torch.float32, device="cpu", **recipe)
+    assert not ts._shared_col and not js._shared_col
+    want, got = ({}, {})
+    for server, out in ((js, want), (ts, got)):
+        for c in (2, 7, 5, 1, 3):
+            server.submit(category=c)
+        out.update(dict(server.run_until_drained()))
+    assert got.keys() == want.keys() == {0, 1, 2, 3, 4}
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+        assert int(got[rid].min()) >= 0 and int(got[rid].max()) < 16

@@ -12,6 +12,17 @@ from vector_quantization_tpu_torch.ops.int8_matmul import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(b, d, f, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(b, d)).astype(np.float32)

@@ -26,6 +26,17 @@ TINY = dict(vocabulary_size=75, hidden_size=64, num_layers=2, num_heads=2, ffn_d
             max_length=17)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _params():
     params = JaxLlama(**TINY).init(jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32))["params"]
     params = jax.tree_util.tree_map(np.asarray, dict(params))

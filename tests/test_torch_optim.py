@@ -28,6 +28,17 @@ _SCHEDULES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("cfg", _SCHEDULES)
 def test_schedule_matches_optax(cfg):
     lr = 1e-3

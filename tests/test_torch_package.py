@@ -35,6 +35,17 @@ print("LOADED", bad)
 """
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_no_jax_or_jax_package_imported():
     # a fresh interpreter: this test process has JAX loaded already
     out = subprocess.run(

@@ -12,6 +12,17 @@ from vector_quantization_tpu.ops.paged_attention import (
 from vector_quantization_tpu_torch.ops.paged_attention import decode_plan, paged_decode_attention
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(int8, *, b=6, h=2, dh=8, ps=4, n_layers=2, p_cap=3, seed=0):
     rng = np.random.default_rng(seed)
     num_pages = 1 + b * (p_cap + 1)

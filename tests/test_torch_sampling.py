@@ -21,6 +21,17 @@ from vector_quantization_tpu_torch.models.transformers.sampling import (
 V = 257
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("top_k", [1, 5, V])
 @pytest.mark.parametrize("top_p", [0.5, 0.92, 1.0])
 def test_filter_keeps_the_jax_set(top_k, top_p):

@@ -30,6 +30,17 @@ from vector_quantization_tpu_torch.ops.vq_lookup import (
 _DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(n, k, d, dtype="float32", seed=0, ties=False):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((n, d), dtype=np.float32)

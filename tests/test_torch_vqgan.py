@@ -40,6 +40,17 @@ LLAMAGEN_VQGAN = str(REPO / "configs/llamagen/vqgan_imagenet_ddp.py")
 REL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _randn(shape, seed):
     return np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
 

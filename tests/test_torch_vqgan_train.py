@@ -87,6 +87,31 @@ NOISE_REL = 1e-6  # a gradient this far below its module's largest is f32 roundi
 BATCH, SIZE = 4, 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield threads
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def _process_torch_threads(_one_torch_thread):
+    """The process's own intra-op pool for one test. The two-step VQGAN
+    checks hold every metric and Adam moment within 1e-4 of JAX's; the
+    adaptive weight (a ratio of two gradient norms at the decoder's last
+    conv) and the decoder's moments sit near that bound, and one thread's
+    summation order moves them past it (``aglw`` 1.1e-4 relative in the
+    ``gan_vanilla`` case), so those checks keep the order they were set
+    against."""
+    torch.set_num_threads(_one_torch_thread)
+    yield
+    torch.set_num_threads(1)
+
+
 def _images(seed, b=BATCH, s=SIZE):
     return np.random.default_rng(seed).uniform(-1, 1, (b, s, s, 3)).astype(np.float32)
 
@@ -317,6 +342,7 @@ def _synthetic_batches(n):
     return [collate([data[j] for j in range(i * BATCH, (i + 1) * BATCH)])["image"] for i in range(n)]
 
 
+@pytest.mark.usefixtures("_process_torch_threads")
 @pytest.mark.parametrize("case", list(CASES))
 def test_vqgan_two_train_steps_match_jax(case):
     override, start = CASES[case]
@@ -519,10 +545,14 @@ def test_llamagen_vqgan_algorithm_builds_from_config():
     assert type(jmodel.decoder).last_parameter_path() == ("backbone", "proj_out", "kernel")
 
 
-# kmeans and cvq with the nearest anchor are ported (tests/test_torch_vqkd.py);
-# CVQ's other anchors are not
+# kmeans and cvq with each of its anchors are ported (tests/test_torch_vqkd.py,
+# tests/test_torch_cvq_anchors.py): they build; an anchor rule the
+# reference lacks still raises
 @pytest.mark.parametrize("update", [dict(type="cvq", anchor="multinomial"), dict(type="cvq", anchor="cached")])
 def test_unported_codebook_updates_raise(update):
     cfg = _algorithm_cfg(Config.load, SMOKE, dict(codebook_update=update))
-    with pytest.raises(NotImplementedError, match="The remaining tokenizers"):
+    state = AlgorithmRegistry.build(cfg, device="cpu").init_state(0)
+    assert ("anchor_cache" in state.extra) == (update["anchor"] == "cached")
+    cfg = _algorithm_cfg(Config.load, SMOKE, dict(codebook_update=dict(update, anchor="farthest")))
+    with pytest.raises(ValueError, match="unknown CVQ anchor"):
         AlgorithmRegistry.build(cfg, device="cpu")

@@ -83,6 +83,17 @@ BATCH, SIZE, K = 4, 32, 16
 TINY = dict(embed_dim=32, depth=2, num_heads=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch ops of this module on one thread: they are small, and beside
+    other test processes a full intra-op pool spends most of its time
+    waiting for cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _close(got, want, what, rel=REL):
     if isinstance(got, torch.Tensor):
         got = got.detach()
@@ -305,8 +316,12 @@ def test_teacher_matches_jax(name):
 
 
 def test_teacher_resize_raises():
-    with pytest.raises(NotImplementedError, match="bicubic resize"):
-        TeacherRegistry.build(dict(type="PixelTeacher", patch_size=8, image_size=64))
+    """The bicubic resizes are ported (``tests/test_torch_teachers.py``);
+    what still raises is a side that is not positive."""
+    teacher = TeacherRegistry.build(dict(type="PixelTeacher", patch_size=8, image_size=64, output_size=4))
+    assert teacher(torch.from_numpy(_uint8(17)), return_2d=True).shape == (BATCH, 4, 4, 3)
+    with pytest.raises(ValueError, match="output_size"):
+        TeacherRegistry.build(dict(type="PixelTeacher", patch_size=8, output_size=0))
 
 
 def test_cluster_encoder_matches_jax():

@@ -34,7 +34,13 @@ Covered so far:
   plane (``data.loader.DataLoader``, ``data.datasets``, ``data.native``),
   ``parallel`` for one device, and ``python -m
   vector_quantization_tpu_torch.cli.{train,test,tokenize,demo}`` over the
-  same config files as the JAX package.
+  same config files as the JAX package;
+- the rest of the tokenizer zoo and GPT-2: FSQ and SQ (``ops.fsq``,
+  ``models.quantizers.fsq``), the teachers' bicubic resize and the
+  ConvNeXt teacher, CVQ-VAE's multinomial, random and cached anchors, the
+  StyleGAN2 discriminator (``ops.upfirdn``), ``models.transformers.gpt2``
+  (training, the dense-cache decode, ``generate`` and the dense server),
+  and ``AccuracyMetric``.
 """
 
 __version__ = "0.6.0"
@@ -48,7 +54,9 @@ from .data import datasets as _datasets  # noqa: F401
 from .models import connectors as _connectors  # noqa: F401
 from .models.autoencoders import vqgan as _vqgan  # noqa: F401
 from .models.autoencoders import vit as _vit  # noqa: F401
+from .models.quantizers import fsq as _fsq  # noqa: F401
 from .models.quantizers import vq as _vq  # noqa: F401
+from .models.transformers import gpt2 as _gpt2  # noqa: F401
 from .models.transformers import llama as _llama  # noqa: F401
 from .parallel import sharding as _sharding  # noqa: F401
 from .tasks import image_reconstruction as _image_reconstruction  # noqa: F401

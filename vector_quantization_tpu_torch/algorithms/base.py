@@ -32,7 +32,6 @@ from ..utils.bridge import flax_param_paths, flax_tree
 __all__ = ["Algorithm", "ReconstructionAlgorithm", "apply_codebook_update"]
 
 RECON_LOSSES = {"l1": l1_loss, "mse": mse_loss, "cosine": cosine_loss}
-_TOKENIZERS = "ROADMAP.md queue A: The remaining tokenizers (CVQ-VAE and its other anchors)"
 
 
 @torch.no_grad()
@@ -42,6 +41,7 @@ def apply_codebook_update(
     x: torch.Tensor | None = None,
     codes: torch.Tensor | None = None,
     extra: dict[str, Any] | None = None,
+    generator: torch.Generator | None = None,
 ) -> None:
     """The configured non-gradient codebook update, applied to the
     ``codebook`` parameter (and ``extra``) in place, from the step's
@@ -54,8 +54,9 @@ def apply_codebook_update(
     - ``{"type": "cvq", "ema_decay": 0.99, "anchor": "nearest"}``: CVQ's
       anchor re-initialisation, with the squared l2 distances of ``x`` to
       the codebook as it stands (after the gradient step); moves
-      ``extra["probability"]``. Other anchors are refused when the
-      algorithm is built.
+      ``extra["probability"]``. The anchors ``multinomial`` and ``random``
+      draw from ``generator`` (the state's); ``cached`` also reads
+      ``extra["anchor_cache"]`` and leaves this step's anchors there.
     """
     kind = cfg["type"]
     if kind == "normalize":
@@ -66,11 +67,16 @@ def apply_codebook_update(
             normalize_input=cfg.get("normalize_input", True), renormalize=cfg.get("renormalize", True)))
     elif kind == "cvq":
         x = x.reshape(-1, x.shape[-1])
-        new, p = cb_ops.cvq_update(
-            codebook, extra["probability"], x, pairwise_distance(x, codebook, "l2"), codes,
-            ema_decay=cfg.get("ema_decay", 0.99), eps=cfg.get("eps", 1e-3))
+        d = pairwise_distance(x, codebook, "l2")
+        anchor = cfg.get("anchor", "nearest")
+        anchors = cb_ops.cvq_anchors(x, d, anchor, generator, extra.get("anchor_cache"))
+        new, p = cb_ops.cvq_update(codebook, extra["probability"], x, d, codes,
+                                   ema_decay=cfg.get("ema_decay", 0.99), eps=cfg.get("eps", 1e-3),
+                                   anchors=anchors)
         codebook.copy_(new)
         extra["probability"] = p
+        if anchor == "cached":
+            extra["anchor_cache"] = anchors.float()
     else:
         raise ValueError(f"unknown codebook update {kind!r}")
 
@@ -177,8 +183,8 @@ class ReconstructionAlgorithm(Algorithm):
         **kwargs: Any,
     ) -> None:
         if codebook_update and codebook_update["type"] == "cvq" and \
-                codebook_update.get("anchor", "nearest") != "nearest":
-            raise NotImplementedError(f"CVQ anchor {codebook_update['anchor']!r}: {_TOKENIZERS}")
+                codebook_update.get("anchor", "nearest") not in cb_ops.ANCHORS:
+            raise ValueError(f"unknown CVQ anchor {codebook_update['anchor']!r}")
         self.device = model_device(device)
         if not isinstance(model, nn.Module):
             model = ModelRegistry.build(model, device=self.device)
@@ -211,12 +217,18 @@ class ReconstructionAlgorithm(Algorithm):
 
     def init_extra(self) -> dict[str, Any]:
         """The codebook update's state: CVQ's usage ``probability`` (K,)
-        and, with the lazy k-means init, ``initialized`` (a host bool: the
-        step reads it with no device sync)."""
+        and, with ``anchor="cached"``, the ``anchor_cache`` (K, D) f32,
+        seeded uniform in [0, 1) (the reference's noise for a first step
+        short of features) from a generator of seed 0; with the lazy
+        k-means init, ``initialized`` (a host bool: the step reads it with
+        no device sync)."""
         extra: dict[str, Any] = {}
         if self.codebook_update and self.codebook_update["type"] == "cvq":
             cb = self.model.get_parameter(self.codebook_name)
             extra["probability"] = torch.zeros(cb.shape[0], dtype=torch.float32, device=cb.device)
+            if self.codebook_update.get("anchor") == "cached":
+                gen = torch.Generator(device=cb.device).manual_seed(0)
+                extra["anchor_cache"] = torch.rand(tuple(cb.shape), generator=gen, device=cb.device)
         if self.lazy_kmeans_init is not None:
             extra["initialized"] = False
         return extra
@@ -246,7 +258,7 @@ class ReconstructionAlgorithm(Algorithm):
         if self.codebook_update is not None:
             x, codes = (None, None) if qout is None else (qout.aux["x"], qout.codes)
             apply_codebook_update(self.codebook_update, state.model.get_parameter(self.codebook_name),
-                                  x, codes, state.extra)
+                                  x, codes, state.extra, state.rng)
 
     @torch.no_grad()
     def _maybe_lazy_init(self, state: TrainState, image: torch.Tensor) -> None:

@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from ..models.discriminators import patchgan as _patchgan  # noqa: F401  (registers)
+from ..models.discriminators import stylegan2 as _stylegan2  # noqa: F401
 from ..models.losses.gan import (
     hinge_d_loss,
     non_saturating_g_loss,

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..models.teachers import base as _teachers_base  # noqa: F401  (registers)
+from ..models.teachers import convnext as _teachers_convnext  # noqa: F401
 from ..models.teachers import encoder as _teachers_encoder  # noqa: F401
 from ..models.teachers import vit as _teachers_vit  # noqa: F401
 from ..registries import AlgorithmRegistry, TeacherRegistry

@@ -13,7 +13,8 @@ Children keep the flax names (``patch_embed``, ``block{i}_norm1``,
 ``backbone``), so :mod:`...utils.bridge` maps the params.
 
 Unlike flax, the position embedding's size is fixed when the module is
-built: ``img_size`` (224 by default, the shipped configs' size) sets it.
+built: ``img_size`` (224 by default, the shipped configs' size) sets it,
+or ``image_size`` where the teacher resizes its input.
 No pretrained weights are in the repository: a teacher is held to the JAX
 package at random init.
 """
@@ -144,7 +145,9 @@ class ViTTeacher(BaseTeacher):
                          opts.pop("output_size", None))
         self.patch_size = patch_size
         self._out_channels = opts["proj_dim"] or embed_dim
-        self.backbone = _TeacherViT(img_size, patch_size, embed_dim, depth, num_heads, **opts)
+        # the backbone sees the resized input where ``image_size`` is set
+        self.backbone = _TeacherViT(self.image_size or img_size, patch_size, embed_dim, depth, num_heads,
+                                    **opts)
 
     @property
     def out_channels(self) -> int:

@@ -1,8 +1,8 @@
 """Codebook statistics and the non-gradient codebook updates (port of
 ``vector_quantization_tpu/ops/codebook.py``): the EMA k-means of VQ-KD,
 its k-means initialisation, and CVQ-VAE's anchor re-initialisation with
-the nearest anchors, as Cluster runs it (CVQ-VAE's other anchors are not
-ported: ROADMAP.md queue A, The remaining tokenizers).
+its four anchor rules (nearest, as Cluster runs it; multinomial, random
+and cached, the last carrying the previous step's anchors).
 
 One process, one device: the JAX functions' ``axis_name`` reductions
 (``psum``, ``all_gather``) are not ported (ROADMAP.md queue A:
@@ -32,9 +32,13 @@ __all__ = [
     "kmeans_update",
     "kmeans_init",
     "kmeans_iterate",
+    "cvq_anchors",
     "cvq_decay",
     "cvq_update",
+    "cached_anchors",
+    "multinomial_anchors",
     "nearest_anchors",
+    "random_anchors",
 ]
 
 def code_histogram(codes: torch.Tensor, codebook_size: int) -> torch.Tensor:
@@ -169,10 +173,61 @@ def cvq_decay(p: torch.Tensor, codebook_size: int, ema_decay: float, eps: float 
     return 1.0 - torch.exp(-p * codebook_size * 10.0 / (1.0 - ema_decay) - eps)
 
 
-def nearest_anchors(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+def nearest_anchors(x: torch.Tensor, d: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
     """Per code, the closest feature: ``x[argmin_n d[n, k]]`` (the first on
     a tie)."""
     return x[torch.argmin(d, dim=0)]
+
+
+def multinomial_anchors(x: torch.Tensor, d: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Per code, one feature drawn with probability ``softmax(d.T)`` over
+    the features: a softmax of the raw distance, as the reference computes
+    it, so a farther feature is the likelier draw."""
+    probs = torch.softmax(d.t().float(), dim=-1)  # (K, N)
+    return x[torch.multinomial(probs, 1, generator=generator)[:, 0]]
+
+
+def random_anchors(x: torch.Tensor, d: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """K features drawn without replacement when there are at least K;
+    else all N features, then K − N rows of uniform [0, 1) noise."""
+    k, (n, dim) = d.shape[1], x.shape
+    if n >= k:
+        return x[torch.randperm(n, generator=generator, device=x.device)[:k]]
+    missing = torch.rand((k - n, dim), generator=generator, device=x.device, dtype=x.dtype)
+    return torch.cat([x, missing])
+
+
+def cached_anchors(x: torch.Tensor, d: torch.Tensor, generator: torch.Generator,
+                   cache: torch.Tensor) -> torch.Tensor:
+    """CachedAnchor: K rows drawn without replacement from the pool of
+    this step's features, joined by the previous step's anchors (the
+    ``cache``, (K, D)) when there are fewer than K features, and padded
+    with uniform [0, 1) noise while still short. The anchors become the
+    next cache."""
+    k, (n, dim) = d.shape[1], x.shape
+    pool = torch.cat([x, cache.to(x.dtype)]) if n < k else x
+    if pool.shape[0] < k:
+        missing = torch.rand((k - pool.shape[0], dim), generator=generator, device=x.device, dtype=x.dtype)
+        pool = torch.cat([pool, missing])
+    return pool[torch.randperm(pool.shape[0], generator=generator, device=x.device)[:k]]
+
+
+ANCHORS = {"nearest": nearest_anchors, "multinomial": multinomial_anchors, "random": random_anchors,
+           "cached": cached_anchors}
+
+
+@torch.no_grad()
+def cvq_anchors(x: torch.Tensor, d: torch.Tensor, anchor: str = "nearest",
+                generator: torch.Generator | None = None, cache: torch.Tensor | None = None) -> torch.Tensor:
+    """Each code's anchor (K, D) from the features ``x`` (N, D) and their
+    distances ``d`` (N, K) to the codebook, by the named rule; the random
+    rules draw from ``generator``, ``"cached"`` also reads ``cache``."""
+    x = x.reshape(-1, x.shape[-1])
+    if anchor == "cached":
+        if cache is None:
+            raise ValueError("anchor='cached' requires the anchor cache")
+        return cached_anchors(x, d, generator, cache)
+    return ANCHORS[anchor](x, d, generator)
 
 
 @torch.no_grad()
@@ -185,15 +240,18 @@ def cvq_update(
     *,
     ema_decay: float,
     eps: float = 1e-3,
+    anchors: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One CVQ-VAE codebook step with the nearest anchors -> (new codebook,
-    new probability): the code frequency EMA'd into ``p``, each code's
-    anchor the feature of ``x`` nearest to it by the distances ``d`` (N,
-    K), and the per-code decay blending the anchors into the codebook. (One
-    device: the JAX function's ``sync``, gathering the features across
-    devices or averaging the anchors, changes nothing here.)"""
+    """One CVQ-VAE codebook step -> (new codebook, new probability): the
+    code frequency EMA'd into ``p``, and the per-code decay blending each
+    code's anchor into the codebook. ``anchors`` (K, D) are
+    :func:`cvq_anchors`' (default: the nearest, by the distances ``d``
+    (N, K)). (One device: the JAX function's ``sync``, gathering the
+    features across devices or averaging the anchors, changes nothing
+    here.)"""
     x = x.reshape(-1, x.shape[-1])
     p = ema(p, code_frequency(codes, codebook.shape[0]), ema_decay)
-    anchors = nearest_anchors(x, d)
+    if anchors is None:
+        anchors = nearest_anchors(x, d)
     decay = cvq_decay(p, codebook.shape[0], ema_decay, eps)[:, None]
     return ema(codebook, anchors, decay).to(codebook.dtype), p

@@ -109,7 +109,7 @@ class ARServer:
     ) -> None:
         if strategy is not None:
             raise NotImplementedError(
-                "strategy= (tensor-parallel serving): ROADMAP.md queue A #10, parallelism"
+                "strategy= (tensor-parallel serving): ROADMAP.md queue A: Parallelism"
             )
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():

@@ -8,7 +8,9 @@
   ``pixel_decode(pred) / 255`` against the batch's uint8
   ``original_image / 255``, one value per batch, averaged over the run.
 - ``LossMetric``: the mean over batches of a scalar memo entry (``key``,
-  e.g. VQ-KD's ``loss_cosine``).
+  e.g. VQ-KD's ``loss_cosine``); ``AccuracyMetric`` likewise, its key
+  ``accuracy`` by default (the AR ``eval_step``'s teacher-forced sampling
+  accuracy).
 - ``FIDMetric`` is not ported: it needs the Inception network.
 
 A memo is what an ``eval_step`` returns plus ``memo["batch"]``, the batch.
@@ -27,8 +29,8 @@ from ..data.base import pixel_decode
 from ..models.losses.recon import psnr, ssim
 from ..registries import MetricRegistry
 
-__all__ = ["BaseMetric", "CodebookUsageMetric", "CodebookPPLMetric", "ImageLossMetric", "LossMetric",
-           "FIDMetric"]
+__all__ = ["AccuracyMetric", "BaseMetric", "CodebookUsageMetric", "CodebookPPLMetric", "ImageLossMetric",
+           "LossMetric", "FIDMetric"]
 
 _METRICS_CLI = "ROADMAP.md queue A: Metrics and CLI"
 
@@ -108,6 +110,12 @@ class LossMetric(BaseMetric):
 
     def summary(self, name: str) -> dict[str, float]:
         return {name: float(np.mean(self.values)) if self.values else 0.0}
+
+
+@MetricRegistry.register()
+class AccuracyMetric(LossMetric):
+    def __init__(self, *, key: str = "accuracy") -> None:
+        super().__init__(key=key)
 
 
 @MetricRegistry.register()

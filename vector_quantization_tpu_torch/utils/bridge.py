@@ -2,11 +2,12 @@
 
 The JAX package maps torch checkpoints to flax (``utils/converters.py``);
 this goes the other way, so the port loads the same weights as the JAX
-model it is held against: the tokenizers (VQGAN, the ViTs of VQ-KD, the
-teachers), the discriminator (``params`` and ``batch_stats``) and LPIPS
-through :func:`state_dict_from_flax`, Llama through
-:func:`llama_params_from_flax`, and a VQ-KD or Cluster state's ``extra``
-through :func:`extra_from_flax`. :func:`params_to_flax`,
+model it is held against: the tokenizers (VQGAN, FSQ, the ViTs of VQ-KD,
+the ViT and ConvNeXt teachers), the discriminators (PatchGAN's
+``params`` and ``batch_stats``, StyleGAN2's equalised-lr kernels kept in
+flax's layouts) and LPIPS through :func:`state_dict_from_flax`, Llama and
+GPT-2 through :func:`llama_params_from_flax`, and a VQ-KD, Cluster or
+CVQ-VAE state's ``extra`` through :func:`extra_from_flax`. :func:`params_to_flax`,
 :func:`batch_stats_to_flax` and :func:`extra_to_flax` read the port's
 tensors back in flax's layout, for holding updated weights, optimizer
 moments, EMA shadows and codebook statistics against the JAX package's.
@@ -67,7 +68,8 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
 def llama_params_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Nested flax ``LlamaTransformer`` params (numpy arrays; float, INT8
     from ``quantize_params_int8`` and/or fused from ``fuse_llama_params``)
-    -> a state dict for the port's ``LlamaTransformer`` of the same layout.
+    or ``GPT2Transformer`` params -> a state dict for the port's module of
+    the same layout.
 
     The port keeps flax's names and ``(in, out)`` layouts, so the mapping
     joins the tree's keys with dots and copies each array (f32 stays f32,
@@ -248,13 +250,15 @@ def flax_param_paths(module: nn.Module) -> dict[str, str]:
 
 
 def extra_from_flax(algorithm: Any, state: Any, extra: Mapping[str, Any]) -> None:
-    """A JAX VQ-KD / Cluster state's ``extra`` into the port's, in place:
-    ``teacher_params`` into the algorithm's teacher, CVQ's
-    ``probability``, and ``initialized`` as a host bool."""
+    """A JAX VQ-KD / Cluster / CVQ-VAE state's ``extra`` into the port's,
+    in place: ``teacher_params`` into the algorithm's teacher, CVQ's
+    ``probability`` and ``anchor_cache``, and ``initialized`` as a host
+    bool."""
     if "teacher_params" in extra:
         algorithm.teacher.load_state_dict(state_dict_from_flax(algorithm.teacher, extra["teacher_params"]))
-    if "probability" in extra:
-        state.extra["probability"].copy_(torch.from_numpy(np.array(extra["probability"], np.float32)))
+    for key in ("probability", "anchor_cache"):
+        if key in extra:
+            state.extra[key].copy_(torch.from_numpy(np.array(extra[key], np.float32)))
     if "initialized" in extra:
         state.extra["initialized"] = bool(np.asarray(extra["initialized"]))
 
@@ -265,8 +269,9 @@ def extra_to_flax(algorithm: Any, state: Any) -> dict[str, Any]:
     out: dict[str, Any] = {}
     if "teacher_params" in state.extra:
         out["teacher_params"] = params_to_flax(algorithm.teacher, state.extra["teacher_params"])
-    if "probability" in state.extra:
-        out["probability"] = state.extra["probability"].detach().cpu().numpy().copy()
+    for key in ("probability", "anchor_cache"):
+        if key in state.extra:
+            out[key] = state.extra[key].detach().cpu().numpy().copy()
     if "initialized" in state.extra:
         out["initialized"] = np.asarray(state.extra["initialized"], np.bool_)
     return out
