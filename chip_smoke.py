@@ -86,7 +86,8 @@ exits non-zero:
    unit rows), VQ-KD's 12544 x 8192 x 32 (cosine, and l2 as its lazy
    k-means init looks up; unit rows), Cluster's 12544 x 8192 x 768 (f32,
    x streamed through the ring), the flagship D = 256, the StyleGAN2
-   VQGAN's and CVQ-VAE's 3072 x 8192 x 256 (l2 and cosine), a ragged
+   VQGAN's and CVQ-VAE's 3072 x 8192 x 256 (l2 and cosine), the linear
+   probe's 16384 x 8192 x 256 (l2), a ragged
    1000 x 777 x 40 (cosine), N = 1, and planted exact ties (duplicated codebook rows,
    f32 and bf16). Codes may differ only as near-ties (both codes' plain
    scores within 1e-5 * max|score| of the row's best: TF32 parts and f32
@@ -222,13 +223,19 @@ exits non-zero:
    host ms per step of each run (synchronised at its ends, with and
    without the checkpoint saves, reported beside phase 12's hand-driven
    step, not gated), each save's seconds and each checkpoint's size.
-21. ``cli_test_tokenize``: ``cli.test``'s ``main`` with ``--load-model-from
-   iter_6`` over the overlay's validator (24 images, 2 batches of 12; the
-   metrics of the config but FID, which is not ported): finite metrics, K1
-   once per eval batch; then ``cli.tokenize``'s ``main`` over the same
-   split: its ``.npz`` codes against the plain lookup's on the same images
-   and the checkpoint's weights (equal but near-ties, ``codes_vs_plain``'s
-   rule), K1 once per batch, no plain version on the card in either run.
+21. ``cli_test_tokenize`` (after ``cli_ar`` and ``cli_fid``): ``cli.test``'s
+   ``main`` with ``--load-model-from iter_6`` over the overlay's validator
+   (64 synthetic images, 4 batches of 16) with the config's own metrics, FID
+   included (random-init Inception, ``fid_path`` = ``cli_fid``'s cache):
+   finite metrics, the ``fid_random_init`` tag, K1 once per eval batch; a
+   second ``FIDMetric`` whose prediction is the originals themselves gives
+   |FID| < 1e-2 against their cache (the JAX package's own test's bound),
+   and its statistics (``n``, ``sum``, ``sum_outer``) equal the cache's
+   within 1e-5 of max|cache|; the FID summary's host seconds. Then ``cli.tokenize``'s ``main`` over
+   the same split: its ``.npz`` codes against the plain lookup's on the same
+   images and the checkpoint's weights (equal but near-ties,
+   ``codes_vs_plain``'s rule), K1 once per batch, no plain version on the
+   card in either run.
 22. ``cli_ar``: ``build_runner`` on an overlay of
    configs/llamagen/c2i_medium_imagenet_ddp.py (Llama-medium,
    ``transformer.flash=True``, synthetic 256 px images, batch 64, 3
@@ -247,6 +254,36 @@ exits non-zero:
    (the JAX package's merge ignores a VQGAN checkpoint's
    ``generator``/``discriminator`` keys). Host ms per step, and one
    checkpoint's save time and size.
+22a. ``cli_fid``: ``cli.fid``'s ``main`` over the CLI validation set
+   (``fid_batch_size`` 16: 4 batches), random-init Inception on the card.
+   Gates: ``n`` 64, mean and covariance finite, the covariance symmetric
+   (1e-12 of its largest entry), the file read back by
+   ``FIDStatistics.load``. Inception images/s on the card (64 images of
+   256 px after a warm-up), the host seconds of the float64 accumulation.
+22b. ``cli_val``: ``cli.val``'s ``main`` over ``cli_vqgan``'s checkpoints
+   with ``--max-idle-rounds 1`` (its sleep swapped for a recorder). Gates:
+   ``iter_2``, ``iter_4``, ``iter_6`` validated once each, oldest first;
+   K1 launched 4 x 3 times; ``iter_6``'s metrics equal ``cli.test``'s
+   within 1e-5 relative (1e-3 for FID); every FID finite and tagged; no
+   sleep; no plain version on the card. Each summary's host seconds.
+22c. ``ar_generation_eval``: configs/ar/generation_eval.py's validator
+   (``eval_generate``, ``FIDMetric(pred="generated_image")`` against
+   ``cli_fid``'s cache, ``AccuracyMetric``; its visual dumps left out)
+   composed over ``cli_ar``'s C2I config with flash, through ``cli.test``
+   on ``cli_ar``'s checkpoint: one batch of 8 classes generated and decoded
+   to (8, 256, 256, 3). Gates: the images finite, FID finite and tagged,
+   accuracy in [0, 1], launches exactly K1 1 (the batch's tokens), K4-fwd
+   24 (one forward), K4-dkv, K4-dq, K2 and K3 0; no plain version on the
+   card.
+22d. ``linear_probe_train``: configs/ic/imagenet_ddp.py (the frozen VQGAN at
+   width 128 with an 8192 x 256 codebook, BatchNorm + Linear head, LARS at
+   0.1) with ``SyntheticDataset`` (1000 classes, 256 px), batch 64 (the
+   config's 512 over 8-way DP): 3 steps through ``cli.train``, then
+   ``cli.test`` on ``iter_3``. Gates: K1 once a step and once per eval
+   batch, every call at (16384, 8192, 256) l2; the IR bit-identical to its
+   initial weights; every head tensor and BatchNorm statistic moved; finite
+   losses; accuracy in [0, 1]; no plain version on the card. Host ms a
+   step, peak GiB.
 23. ``fsq_train``: ``ReconstructionAlgorithm`` from
    configs/fsq/8000_imagenet_ddp.py (VQGAN width 128, levels (8, 8, 5, 5,
    5), 8000 codes, L1 + MSE, Adam 1e-4), f32, the weights made from
@@ -320,10 +357,11 @@ exits non-zero:
 36. ``kernels``: per kernel, launches in its path's run (phase 5 for the
    server's: K2's kernels that the serving shapes' plans name, and K3;
    phase 10 for the lookup (and its launches in phases 12, 14, 15, 17,
-   20-22 and 23-27, and its times at the train shapes and the zoo's
-   (3072, 8192, 256) l2 and cosine), phase 17 for the three flash
-   kernels (and their launches in phase 22); K2's
-   rows also give their launches in phases 7 and 8, and phase 6's times
+   20-22d and 23-27, and its times at the train shapes, the zoo's
+   (3072, 8192, 256) l2 and cosine and the probe's (16384, 8192, 256) l2),
+   phase 17 for the three flash kernels (and their launches in phases 22
+   and 22c); K2's
+   rows also give their launches in phases 7, 8 and 22c, and phase 6's times
    at the dense path's shapes), device time per call, the bound, the plain
    version's and the yardstick's time.
 
@@ -334,6 +372,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import itertools
 import json
@@ -342,6 +381,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1238,12 +1278,14 @@ def phase_vq_lookup(dev, gen) -> dict:
         # (cosine) steps at batch 12
         ("zoo_d256_l2", ZOO_N, 8192, 256, torch.float32, "l2", "gaussian", True),
         ("zoo_d256_cosine", ZOO_N, 8192, 256, torch.float32, "cosine", "gaussian", True),
+        # the linear probe's IR (configs/ic: width 128, 8192 x 256) at batch 64
+        ("probe_d256_l2", *PROBE_SHAPE[:3], torch.float32, "l2", "gaussian", True),
         ("ragged_cosine", 1000, 777, 40, torch.float32, "cosine", "gaussian", False),
         ("n1", 1, CODEBOOK, 8, torch.float32, "l2", "gaussian", False),
         ("planted_ties", 4096, 1000, 8, torch.float32, "l2", "ties", False),
         ("planted_ties_bf16", 4096, 1000, 8, torch.bfloat16, "l2", "ties", False),
     ]
-    kernel_row = train_row = None
+    kernel_row = train_row = probe_row = None
     teacher_rows, zoo_rows = {}, {}
     for name, n, k, d, dtype, metric, rows, timed in cases:
         x = torch.randn((n, d), generator=gen, device=dev)
@@ -1293,6 +1335,8 @@ def phase_vq_lookup(dev, gen) -> dict:
                 teacher_rows[name] = row
             if name.startswith("zoo_"):
                 zoo_rows[name] = row
+            if name == "probe_d256_l2":
+                probe_row = row
             del xf, ef, esq_half
         emit(row)
         del x, e, got, want
@@ -1314,6 +1358,7 @@ def phase_vq_lookup(dev, gen) -> dict:
                            for name, r in teacher_rows.items()},
         "zoo_shapes": {name: {key: r[key] for key in (*SHAPE_KEYS, "metric")}
                        for name, r in zoo_rows.items()},
+        "probe_shape": {key: probe_row[key] for key in (*SHAPE_KEYS, "metric")},
     }
 
 
@@ -2127,14 +2172,29 @@ def phase_ar_train(algo, cfg, dev, seed: int):
 
 # the entry points (cli.train / cli.test / cli.tokenize and build_runner)
 # over overlays of the shipped LlamaGen configs, synthetic images at 256 px
-CLI_VQGAN_STEPS, CLI_RESUME_STEPS, CLI_VAL_IMAGES = 4, 6, 24
+CLI_VQGAN_STEPS, CLI_RESUME_STEPS = 4, 6
+CLI_VAL_IMAGES, CLI_VAL_BATCH = 64, 16  # the FID phases' images: more than one batch each
 CLI_AR_BATCH, CLI_AR_STEPS = 64, 3
 # runner vs hand-driven losses on the same batches and starting weights: the
 # path's kernels are deterministic (K4 has no atomics), so the two should
 # agree exactly; 1e-5 relative leaves room for a reordered reduction in a
 # library kernel and is far below one step's change of the loss at lr 1e-4
 CLI_AR_REPLAY_TOL = 1e-5
-CLI_METRICS = ("codebook_usage", "codebook_ppl", "l1", "mse", "psnr", "ssim")  # the config's, FID aside
+CLI_METRICS = ("codebook_usage", "codebook_ppl", "l1", "mse", "psnr", "ssim", "fid")  # the config's validator
+FID_SELF_BOUND = 1e-2  # |FID(originals, their own cache)|: the JAX package's own test's bound
+# the originals' statistics in FIDMetric against cli.fid's cache of them, as
+# a fraction of max|cache|: the same images through the same network in
+# batches of the same size, so at most another cuDNN algorithm's rounding may
+# differ; tests/test_torch_fid.py holds an align-corners resize in place of
+# JAX's to moving them by more than 1e-4, where the FID cannot see it
+FID_CACHE_TOL = 1e-5
+# cli.val against cli.test on one checkpoint: the same weights on the same
+# images; FID's 2048 x 2048 eigvals leave it a looser bound
+CLI_VAL_LOSS_TOL, CLI_VAL_FID_TOL = 1e-5, 1e-3
+GEN_EVAL_BATCH = 8  # ar_generation_eval: one batch of 8 classes
+PROBE_CONFIG = "configs/ic/imagenet_ddp.py"
+PROBE_BATCH, PROBE_STEPS = 64, 3  # the config's 512 over its 8-way data parallelism
+PROBE_SHAPE = (PROBE_BATCH * GRID * GRID, 8192, 256, "l2")  # the probe's IR: width 128, 8192 x 256
 
 
 class StepRecorder:
@@ -2198,8 +2258,37 @@ def write_overlay(tmp: Path, name: str, base: str, body: str) -> str:
     return str(path)
 
 
-def synthetic(size: int) -> str:
-    return f"dict(_delete_=True, type='SyntheticDataset', size={size}, image_size={IMAGE_SIZE}, num_categories=1000)"
+def synthetic(size: int, fid_path: Path | None = None) -> str:
+    fid = f", fid_path={str(fid_path)!r}" if fid_path else ""
+    return (f"dict(_delete_=True, type='SyntheticDataset', size={size}, image_size={IMAGE_SIZE}, "
+            f"num_categories=1000{fid})")
+
+
+@contextlib.contextmanager
+def timing(owner, name: str):
+    """``owner.name`` wrapped to append each call's host seconds to the
+    yielded list, for the block."""
+    original, seconds = getattr(owner, name), []
+
+    @functools.wraps(original)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return original(*args, **kwargs)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    setattr(owner, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(owner, name, original)
+
+
+def cli_fid_path(tmp: Path) -> Path:
+    """Where ``cli_fid`` writes the CLI validation set's cache (the
+    overlay's ``validator.dataset.fid_path``)."""
+    return tmp / "cli_fid" / "synthetic_fid.npz"
 
 
 def phase_cli_vqgan(tmp: Path, hand_step_ms: float):
@@ -2207,9 +2296,6 @@ def phase_cli_vqgan(tmp: Path, hand_step_ms: float):
     from vector_quantization_tpu_torch.cli import train
 
     register_recorder()
-    metrics = {m: ({"type": "CodebookUsageMetric", "codebook_size": CODEBOOK} if m == "codebook_usage"
-                   else {"type": "CodebookPPLMetric", "codebook_size": CODEBOOK} if m == "codebook_ppl"
-                   else {"type": "ImageLossMetric", "kind": m}) for m in CLI_METRICS}
     config = write_overlay(tmp, "cli_vqgan", VQGAN_CONFIG, f"""
 trainer = dict(
     dataset={synthetic(4 * VQGAN_TRAIN_BATCH)},
@@ -2219,9 +2305,8 @@ trainer = dict(
                dict(type="CheckpointCallback", interval=2), dict(type="SmokeStepRecorder")],
 )
 validator = dict(
-    dataset={synthetic(CLI_VAL_IMAGES)},
-    dataloader=dict(_delete_=True, batch_size_in_total={VQGAN_TRAIN_BATCH}, num_workers=4),
-    metrics=dict(_delete_=True, **{metrics!r}),
+    dataset={synthetic(CLI_VAL_IMAGES, cli_fid_path(tmp))},
+    dataloader=dict(_delete_=True, batch_size_in_total={CLI_VAL_BATCH}, num_workers=4),
 )
 """)
     work = tmp / "cli_vqgan"
@@ -2257,17 +2342,78 @@ validator = dict(
     return config, work / "checkpoints" / f"iter_{CLI_RESUME_STEPS}", launches
 
 
-def phase_cli_test_tokenize(config: str, ckpt: Path, tmp: Path):
+def phase_cli_fid(config: str, tmp: Path) -> Path:
+    """cli.fid over the CLI validation set (64 images in batches of 16):
+    the cache ``cli_test``, ``cli_val`` and ``ar_generation_eval`` read."""
+    from vector_quantization_tpu_torch.cli import fid
+    from vector_quantization_tpu_torch.models.metrics.fid import FIDStatistics
+    from vector_quantization_tpu_torch.models.metrics.inception import load_inception
+
+    with timing(FIDStatistics, "update") as update_s:
+        path, wall = _timed(lambda: fid.main(["cli_vqgan", config, "--work-dir", str(tmp / "cli_fid"),
+                                              "--override", f"validator.fid_batch_size={CLI_VAL_BATCH}"]))
+    stats = FIDStatistics.load(path)
+    mean, cov = stats.mean, stats.cov
+    asym = float(np.abs(cov - cov.T).max())
+    # Inception alone on the card: 64 random 256 px images, after a warm-up
+    model, random_init = load_inception(None, "cuda")
+    u8 = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (CLI_VAL_IMAGES, IMAGE_SIZE, IMAGE_SIZE, 3),
+                                                            dtype=np.uint8)).cuda()
+    with torch.inference_mode():
+        model(u8)
+        _, inception_s = _timed(lambda: model(u8))
+    del model, u8
+    row = {"phase": "cli_fid", "path": Path(path).name, "n": stats.n, "dim": int(mean.shape[0]),
+           "batch": CLI_VAL_BATCH, "batches": len(update_s), "main_s": wall,
+           "accumulation_host_s": sum(update_s), "mean_finite": bool(np.isfinite(mean).all()),
+           "cov_finite": bool(np.isfinite(cov).all()), "cov_max_asymmetry": asym,
+           "cov_max_abs": float(np.abs(cov).max()), "inception_random_init": random_init,
+           "inception_images_per_s": CLI_VAL_IMAGES / inception_s}
+    emit(row)
+    torch.cuda.empty_cache()
+    if not (Path(path) == cli_fid_path(tmp) and stats.n == CLI_VAL_IMAGES and row["batches"] > 1
+            and row["mean_finite"] and row["cov_finite"] and asym <= 1e-12 * row["cov_max_abs"]
+            and random_init):
+        raise SystemExit("cli_fid: a check failed (see the cli_fid line)")
+    return Path(path)
+
+
+def self_fid(fid_path: Path) -> tuple[float, dict]:
+    """A second ``FIDMetric``, its prediction the CLI validation set's own
+    originals (their [-1, 1] encoding), against their cache: the FID, and
+    the metric's statistics against the cache's (``n`` and the largest
+    differences of ``sum`` and ``sum_outer``, each over max|cache|)."""
+    from vector_quantization_tpu_torch.data.datasets import SyntheticDataset, collate
+    from vector_quantization_tpu_torch.models.metrics.fid import FIDStatistics
+    from vector_quantization_tpu_torch.training.metrics import FIDMetric
+
+    metric = FIDMetric(pred="original_image", fid_path=str(fid_path))
+    data = SyntheticDataset(size=CLI_VAL_IMAGES, image_size=IMAGE_SIZE, num_categories=1000)
+    for start in range(0, CLI_VAL_IMAGES, CLI_VAL_BATCH):
+        batch = collate([data[j] for j in range(start, start + CLI_VAL_BATCH)])
+        metric.update({"original_image": torch.from_numpy(batch["image"]).cuda(), "batch": batch})
+    cache, got = FIDStatistics.load(str(fid_path)), metric.pred_stats
+    against = {"n": got.n, "cache_n": cache.n}
+    for key in ("sum", "sum_outer"):
+        want = getattr(cache, key)
+        against[f"{key}_err"] = float(np.abs(getattr(got, key) - want).max() / np.abs(want).max())
+    return metric.summary("fid")["fid"], against
+
+
+def phase_cli_test_tokenize(config: str, ckpt: Path, tmp: Path, fid_path: Path):
     from vector_quantization_tpu_torch.cli import test, tokenize
     from vector_quantization_tpu_torch.data.datasets import SyntheticDataset, collate
+    from vector_quantization_tpu_torch.training.metrics import FIDMetric
     from vector_quantization_tpu_torch.training.runner import build_runner
     from vector_quantization_tpu_torch.utils.config import load_config
 
     work = tmp / "cli_test"
-    batches = CLI_VAL_IMAGES // VQGAN_TRAIN_BATCH
+    batches = CLI_VAL_IMAGES // CLI_VAL_BATCH
     zero_launches()
     _, plain0 = read_launches()
-    results = test.main(["cli_vqgan", config, "--work-dir", str(work), "--load-model-from", str(ckpt)])
+    with timing(FIDMetric, "summary") as summary_s:
+        results = test.main(["cli_vqgan", config, "--work-dir", str(work), "--load-model-from", str(ckpt)])
+        fid_self, against_cache = self_fid(fid_path)
     k1_test = read_launches()[0]["nearest_codes"]
     out = Path(tokenize.main(["cli_vqgan", config, "--work-dir", str(work), "--load-model-from", str(ckpt)]))
     launches, plain = read_launches()
@@ -2281,25 +2427,66 @@ def phase_cli_test_tokenize(config: str, ckpt: Path, tmp: Path):
     reps, ids_ok = [], True
     for i in range(batches):
         npz = np.load(out / f"{i}_0.npz")
-        items = [data[j] for j in range(i * VQGAN_TRAIN_BATCH, (i + 1) * VQGAN_TRAIN_BATCH)]
+        items = [data[j] for j in range(i * CLI_VAL_BATCH, (i + 1) * CLI_VAL_BATCH)]
         ids_ok = ids_ok and list(npz["id_"]) == [it.id_ for it in items] and npz["tokens"].shape == (
-            VQGAN_TRAIN_BATCH, GRID, GRID) and npz["tokens"].dtype == np.int32
+            CLI_VAL_BATCH, GRID, GRID) and npz["tokens"].dtype == np.int32
         dev = runner.strategy.device
         images = torch.from_numpy(collate(items)["image"]).to(dev)
         reps.append(codes_vs_plain(model, images, torch.from_numpy(npz["tokens"]).to(dev)))
     del runner, model
     torch.cuda.empty_cache()
     row = {"phase": "cli_test_tokenize", "checkpoint": ckpt.name, "metrics": results, "eval_batches": batches,
+           "fid_summary_host_s": summary_s[0], "fid_of_originals_against_their_cache": fid_self,
+           "fid_of_originals_bound": FID_SELF_BOUND, "originals_stats_vs_cache": against_cache,
+           "originals_stats_tol": FID_CACHE_TOL,
            "k1_launches_test": k1_test, "k1_launches_tokenize": k1_tokenize,
            "plain_runs_on_cuda": plain - plain0, "token_files": sorted(p.name for p in out.iterdir()),
            "codes_vs_plain": [{k: r[k] for k in ("rows", "differ", "excused", "near_tie_rows", "tol")}
                               for r in reps]}
     emit(row)
-    if not (set(results) == set(CLI_METRICS) and all(np.isfinite(list(results.values())))
+    if not (set(results) == {*CLI_METRICS, "fid_random_init"} and all(np.isfinite(list(results.values())))
+            and results["fid_random_init"] == 1.0 and abs(fid_self) < FID_SELF_BOUND
+            and against_cache["n"] == against_cache["cache_n"] == CLI_VAL_IMAGES
+            and max(against_cache["sum_err"], against_cache["sum_outer_err"]) <= FID_CACHE_TOL
             and k1_test == batches and k1_tokenize == batches and row["plain_runs_on_cuda"] == 0
             and ids_ok and all(r["ok"] for r in reps)):
         raise SystemExit("cli_test_tokenize: a check failed (see the cli_test_tokenize line)")
-    return {"cli_test": k1_test, "cli_tokenize": k1_tokenize}
+    return {"cli_test": k1_test, "cli_tokenize": k1_tokenize}, results
+
+
+def phase_cli_val(config: str, work: Path, test_results: dict) -> int:
+    """cli.val over cli_vqgan's three checkpoints, one empty scan allowed;
+    iter_6's metrics against cli.test's on it."""
+    from vector_quantization_tpu_torch.cli import val
+    from vector_quantization_tpu_torch.training.metrics import FIDMetric
+
+    sleeps = []
+    saved_time, val.time = val.time, types.SimpleNamespace(sleep=sleeps.append)
+    zero_launches()
+    _, plain0 = read_launches()
+    try:
+        with timing(FIDMetric, "summary") as summary_s:
+            results, wall = _timed(lambda: val.main(["cli_vqgan", config, "--work-dir", str(work),
+                                                     "--max-idle-rounds", "1"]))
+    finally:
+        val.time = saved_time
+    launches, plain = read_launches()
+    last = results.get(f"iter_{CLI_RESUME_STEPS}", {})
+    rel = {k: abs(last[k] - v) / max(abs(v), 1e-30) for k, v in test_results.items() if k in last}
+    batches = CLI_VAL_IMAGES // CLI_VAL_BATCH
+    row = {"phase": "cli_val", "validated": list(results), "metrics": results, "main_s": wall,
+           "fid_summary_host_s": summary_s, "sleeps": sleeps, "k1_launches": launches["nearest_codes"],
+           "expected_k1_launches": batches * 3, "plain_runs_on_cuda": plain - plain0,
+           "iter_6_vs_cli_test_rel": rel, "loss_tol": CLI_VAL_LOSS_TOL, "fid_tol": CLI_VAL_FID_TOL}
+    emit(row)
+    torch.cuda.empty_cache()
+    if not (list(results) == ["iter_2", "iter_4", f"iter_{CLI_RESUME_STEPS}"] and not sleeps
+            and launches["nearest_codes"] == batches * 3 and row["plain_runs_on_cuda"] == 0
+            and set(rel) == set(test_results) and rel["fid"] <= CLI_VAL_FID_TOL
+            and all(r <= CLI_VAL_LOSS_TOL for k, r in rel.items() if k != "fid")
+            and all(r["fid_random_init"] == 1.0 and np.isfinite(r["fid"]) for r in results.values())):
+        raise SystemExit("cli_val: a check failed (see the cli_val line)")
+    return launches["nearest_codes"]
 
 
 def phase_cli_ar(ir_ckpt: Path, tmp: Path, seed: int):
@@ -2395,7 +2582,134 @@ trainer = dict(
             and replay_rel <= CLI_AR_REPLAY_TOL
             and row["plain_runs_on_cuda"] == 0 and all(launches[k] == v for k, v in want.items())):
         raise SystemExit("cli_ar: a check failed (see the cli_ar line)")
+    return launches, config, saved.parent
+
+
+class GeneratedImages:
+    """A metric (registered as ``SmokeGeneratedImages``) that records the
+    shape of each batch's ``generated_image`` and whether it is finite."""
+
+    def __init__(self, **kwargs) -> None:
+        self.shapes, self.finite = [], True
+
+    def update(self, memo) -> None:
+        images = memo["generated_image"]
+        self.shapes.append(list(images.shape))
+        self.finite = self.finite and bool(torch.isfinite(images).all())
+
+    def summary(self, name: str) -> dict[str, float]:
+        GeneratedImages.last = self
+        return {f"{name}_finite": float(self.finite)}
+
+
+def phase_ar_generation_eval(ar_config: str, ar_ckpt: Path, fid_path: Path, tmp: Path) -> dict:
+    """configs/ar/generation_eval.py's validator (``eval_generate``, its
+    FID of ``generated_image`` and accuracy) over cli_ar's config, through
+    cli.test on cli_ar's checkpoint: one batch of 8 classes."""
+    from vector_quantization_tpu_torch.cli import test
+    from vector_quantization_tpu_torch.registries import MetricRegistry
+    from vector_quantization_tpu_torch.utils.config import load_config
+
+    if "SmokeGeneratedImages" not in MetricRegistry.keys():
+        MetricRegistry.register("SmokeGeneratedImages")(GeneratedImages)
+    evaluation = load_config(str(Path(__file__).resolve().parent / "configs/ar/generation_eval.py"))["validator"]
+    metrics = {**evaluation["metrics"], "images": {"type": "SmokeGeneratedImages"}}
+    config = write_overlay(tmp, "ar_generation_eval", ar_config, f"""
+validator = dict(
+    dataset={synthetic(GEN_EVAL_BATCH, fid_path)},
+    dataloader=dict(_delete_=True, batch_size_in_total={GEN_EVAL_BATCH}, num_workers=4),
+    algorithm=dict(eval_generate={evaluation["algorithm"]["eval_generate"]!r}, transformer=dict(flash=True)),
+    metrics=dict(_delete_=True, **{metrics!r}),
+)
+""")
+    zero_launches()
+    _, plain0 = read_launches()
+    results, wall = _timed(lambda: test.main(["cli_ar", config, "--work-dir", str(tmp / "ar_eval"),
+                                              "--load-model-from", str(ar_ckpt)]))
+    launches, plain = read_launches()
+    n_layers = MEDIUM["num_layers"]
+    want = {**dict.fromkeys(launches, 0), "nearest_codes": 1, "flash_attention_fwd": n_layers}
+    images = GeneratedImages.last
+    row = {"phase": "ar_generation_eval", "config": "configs/ar/generation_eval.py over " + AR_CONFIG,
+           "checkpoint": ar_ckpt.name, "metrics": results, "main_s": wall, "generated_shapes": images.shapes,
+           "launches": launches, "expected_launches": want, "plain_runs_on_cuda": plain - plain0,
+           "note": "visual dumps left out (Pillow may be missing on the card's host); the tokenizer is the "
+                   "config's own at the runner's seed (the AR checkpoint's params hold the transformer)"}
+    emit(row)
+    torch.cuda.empty_cache()
+    if not (images.shapes == [[GEN_EVAL_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3]] and images.finite
+            and np.isfinite(results["fid"]) and results["fid_random_init"] == 1.0
+            and 0.0 <= results["accuracy"] <= 1.0 and launches == want and row["plain_runs_on_cuda"] == 0):
+        raise SystemExit("ar_generation_eval: a check failed (see the ar_generation_eval line)")
     return launches
+
+
+def phase_linear_probe(tmp: Path) -> dict:
+    """configs/ic/imagenet_ddp.py through cli.train (3 steps, batch 64 of
+    synthetic 256 px images, 1000 classes), then cli.test on its checkpoint;
+    every K1 call's shape recorded."""
+    from vector_quantization_tpu_torch.cli import test, train
+    from vector_quantization_tpu_torch.models.quantizers import vq
+    from vector_quantization_tpu_torch.training.runner import build_runner
+    from vector_quantization_tpu_torch.utils.config import load_config
+
+    register_recorder()
+    config = write_overlay(tmp, "linear_probe", PROBE_CONFIG, f"""
+trainer = dict(
+    dataset={synthetic(PROBE_BATCH * PROBE_STEPS)},
+    dataloader=dict(_delete_=True, batch_size_in_total={PROBE_BATCH}, shuffle=True, num_workers=4),
+    max_iters={PROBE_STEPS},
+    callbacks=[dict(type="LogCallback", interval=1), dict(type="CheckpointCallback", interval={PROBE_STEPS}),
+               dict(type="SmokeStepRecorder")],
+)
+validator = dict(
+    dataset={synthetic(PROBE_BATCH)},
+    dataloader=dict(_delete_=True, batch_size_in_total={PROBE_BATCH}, num_workers=4),
+)
+""")
+    work = tmp / "linear_probe"
+    shapes, lookup = [], vq.vq_quantize  # the quantizer's call of K1's wrapper
+
+    def recording(x, codebook, metric="l2"):
+        shapes.append((x.shape[0], codebook.shape[0], x.shape[1], metric))
+        return lookup(x, codebook, metric)
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    _, plain0 = read_launches()
+    vq.vq_quantize = recording
+    try:
+        trainer = train.main(["linear_probe", config, "--work-dir", str(work)])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        k1_train = len(shapes)
+        results = test.main(["linear_probe", config, "--work-dir", str(tmp / "probe_test"), "--load-model-from",
+                             str(work / "checkpoints" / f"iter_{PROBE_STEPS}")])
+    finally:
+        vq.vq_quantize = lookup
+    launches, plain = read_launches()
+    rec = recorder_of(trainer).report()
+    fresh = build_runner(load_config(config), "trainer", work_dir=str(tmp / "probe_fresh")).algorithm
+    algo = trainer.algorithm
+    ir_same = all(torch.equal(a, b) for a, b in zip(algo.ir_model.state_dict().values(),
+                                                    fresh.ir_model.state_dict().values()))
+    unmoved = [n for (n, a), b in zip(algo.model.state_dict().items(), fresh.model.state_dict().values())
+               if torch.equal(a, b)]
+    row = {"phase": "linear_probe_train", "config": PROBE_CONFIG, "batch": PROBE_BATCH, **rec,
+           "peak_memory_gib": peak, "metrics": results, "k1_shapes": sorted(set(shapes)),
+           "k1_launches_train": k1_train, "k1_launches_test": len(shapes) - k1_train,
+           "k1_launches": launches["nearest_codes"], "plain_runs_on_cuda": plain - plain0,
+           "ir_unchanged": ir_same, "head_tensors_unmoved": unmoved,
+           "ir_params": sum(p.numel() for p in algo.ir_model.parameters()),
+           "head_params": sum(p.numel() for p in algo.model.parameters())}
+    emit(row)
+    del trainer, algo, fresh
+    torch.cuda.empty_cache()
+    if not (rec["losses_finite"] and rec["steps"] == list(range(1, PROBE_STEPS + 1)) and ir_same and not unmoved
+            and set(shapes) == {PROBE_SHAPE} and k1_train == PROBE_STEPS and len(shapes) == PROBE_STEPS + 1
+            and launches["nearest_codes"] == PROBE_STEPS + 1 and row["plain_runs_on_cuda"] == 0
+            and 0.0 <= results["accuracy"] <= 1.0):
+        raise SystemExit("linear_probe_train: a check failed (see the linear_probe_train line)")
+    return {"linear_probe_train": k1_train, "linear_probe_test": len(shapes) - k1_train}
 
 
 def set_flash(model, flash: bool) -> None:
@@ -2874,9 +3188,14 @@ def main() -> int:
     phase_ar_generate(algo, ar_state, dev, args.seed)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        cli_config, cli_ckpt, cli_vqgan_launches = phase_cli_vqgan(Path(tmp), vqgan_step_ms)
-        cli_eval_launches = phase_cli_test_tokenize(cli_config, cli_ckpt, Path(tmp))
-        cli_ar_launches = phase_cli_ar(cli_ckpt, Path(tmp), args.seed)
+        tmp = Path(tmp)
+        cli_config, cli_ckpt, cli_vqgan_launches = phase_cli_vqgan(tmp, vqgan_step_ms)
+        cli_ar_launches, ar_config, ar_ckpt = phase_cli_ar(cli_ckpt, tmp, args.seed)
+        fid_path = phase_cli_fid(cli_config, tmp)
+        cli_eval_launches, cli_test_results = phase_cli_test_tokenize(cli_config, cli_ckpt, tmp, fid_path)
+        cli_val_launches = phase_cli_val(cli_config, cli_ckpt.parent.parent, cli_test_results)
+        gen_eval_launches = phase_ar_generation_eval(ar_config, ar_ckpt, fid_path, tmp)
+        probe_launches = phase_linear_probe(tmp)
     torch.cuda.empty_cache()
     zoo_launches, zoo_profiles = phase_zoo(vqgan, dev, args.seed)
     profile_step()
@@ -2893,7 +3212,8 @@ def main() -> int:
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = {"serving": launches[k["name"]],
                                  "generate": gen_launches[k["name"]],
-                                 "serving_dense": dense_launches[k["name"]]}
+                                 "serving_dense": dense_launches[k["name"]],
+                                 "ar_generation_eval": gen_eval_launches[k["name"]]}
         k["dense_path_shapes"] = [{key: r[key] for key in ("shape", "B", "D", "F", "ms", "plain_ms",
                                                            "library_ms", "bound_ms", "max_abs_err")}
                                   for r in k2_dense_rows if r["plan"]["design"] == k["design"]]
@@ -2906,10 +3226,13 @@ def main() -> int:
                                 "ar_train": ar_launches["nearest_codes"],
                                 "cli_vqgan_train": cli_vqgan_launches["nearest_codes"],
                                 **cli_eval_launches,
-                                "cli_ar": cli_ar_launches["nearest_codes"], **zoo_launches}
+                                "cli_ar": cli_ar_launches["nearest_codes"], "cli_val": cli_val_launches,
+                                "ar_generation_eval": gen_eval_launches["nearest_codes"], **probe_launches,
+                                **zoo_launches}
     for k in k_flash:
         k["launches"] = ar_launches[k["name"]]
-        k["launches_by_path"] = {"ar_train": ar_launches[k["name"]], "cli_ar": cli_ar_launches[k["name"]]}
+        k["launches_by_path"] = {"ar_train": ar_launches[k["name"]], "cli_ar": cli_ar_launches[k["name"]],
+                                 "ar_generation_eval": gen_eval_launches[k["name"]]}
     emit({"kernels": [*k_int8, k_attn, k_vq, *k_flash]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -11,17 +11,24 @@ an update and a CVQ anchor the port applies.
 Then the configs of the tokenizer zoo's last slice (FSQ, SQ, GPT-2, the
 resizing and ConvNeXt teachers, StyleGAN2, CVQ-VAE with each anchor) build
 their algorithms at full width on the meta device: shapes only, no memory
-and no arithmetic.
+and no arithmetic. The evaluation slice's configs build too: the linear
+probe's (``configs/ic``), the six domain VQGAN and VQ-KD configs (the
+algorithm on the meta device, both datasets over a folder of JPEGs written
+here), ``configs/fid/interface.py`` over the synthetic dataset and
+``configs/ar/generation_eval.py`` with its ``FIDMetric`` and
+``AccuracyMetric``.
 """
 
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import vector_quantization_tpu_torch  # noqa: F401  (registers the port's classes)
 from vector_quantization_tpu_torch.ops.codebook import ANCHORS
-from vector_quantization_tpu_torch.registries import AlgorithmRegistry, MetricRegistry, VQRegistry
+from vector_quantization_tpu_torch.registries import AlgorithmRegistry, DatasetRegistry, MetricRegistry, VQRegistry
 from vector_quantization_tpu_torch.training.optim import build_optimizer
 from vector_quantization_tpu_torch.utils.config import Config
 
@@ -29,14 +36,10 @@ REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(str(p.relative_to(REPO)) for p in (REPO / "configs").rglob("*.py"))
 
 # registry types the port does not have yet (ROADMAP.md queue A)
-QUEUED = {
-    "ClassificationAlgorithm",  # the linear probe
-    "VQGANVQKDAlgorithm", "VQGANVQKDModel",  # the hybrid
-    "COCODataset", "LAIONAestheticsDataset", "SAMed2DDataset", "SATINDataset",  # data/domains.py
-}
-QUEUED_OPTIMIZERS = {"lars"}  # the LARS optimizer (linear probe)
-# registered, but building it raises: FID needs the Inception network
-QUEUED_BUILDS = {"FIDMetric"}
+QUEUED = {"VQGANVQKDAlgorithm", "VQGANVQKDModel"}  # the hybrid
+QUEUED_OPTIMIZERS: set[str] = set()
+# registered, but building it raises
+QUEUED_BUILDS: set[str] = set()
 UPDATES = {"normalize", "kmeans", "cvq"}
 NOT_REGISTRY = {"optimizer", "d_optimizer", "schedule", "codebook_update"}
 
@@ -89,8 +92,9 @@ def test_the_queued_list_is_still_missing():
     known = set(VQRegistry.keys())
     assert not QUEUED & known, QUEUED & known
     assert QUEUED_BUILDS <= known
-    with pytest.raises(NotImplementedError, match="Metrics and CLI"):
-        MetricRegistry.build(dict(type="FIDMetric"))
+    for kind in QUEUED_BUILDS:
+        with pytest.raises(NotImplementedError):
+            MetricRegistry.build(dict(type=kind))
 
 
 SLICE = [
@@ -133,3 +137,48 @@ def test_slice_config_builds_at_full_width(path, kwargs, what):
         assert type(algo.discriminator).__name__ == what and not list(algo.discriminator.buffers())
     else:
         assert algo.codebook_update["anchor"] == what
+
+
+DOMAIN_CONFIGS = [f"configs/{kind}/{prefix}_{domain}_ddp.py" for kind, prefix in (("vqgan", "8192"),
+                                                                                   ("vqkd", "clip_8192"))
+                  for domain in ("laion_aesthetics", "sa_med2d_20m", "satin")]
+
+
+@pytest.mark.parametrize("path", DOMAIN_CONFIGS)
+def test_domain_config_builds(tmp_path, path):
+    for i in range(3):
+        Image.fromarray(np.full((40, 48, 3), 40 * i, np.uint8)).save(tmp_path / f"{i}.jpg")
+    cfg = Config.load(str(REPO / path))
+    for split, n in (("trainer", 0), ("validator", 3)):  # the 25,000-image val carve-out takes all 3
+        node = cfg[split]["dataset"]
+        node = node.get("dataset", node)  # SA-Med2D and SATIN split a folder dataset
+        node["root"] = str(tmp_path)
+        dataset = DatasetRegistry.build(cfg[split]["dataset"])
+        assert type(dataset).__name__ in ("LAIONAestheticsDataset", "SplitDataset") and len(dataset) == n
+    assert dataset[0].category == 0
+    with torch.device("meta"):
+        algo = AlgorithmRegistry.build(cfg["trainer"]["algorithm"], device="meta")
+    assert algo.model.quantizer.codebook_size == 8192
+
+
+@pytest.mark.parametrize("path", ["configs/ic/interface.py", "configs/ic/imagenet_ddp.py"])
+def test_probe_config_builds_at_full_width(path):
+    cfg = Config.load(str(REPO / path))
+    with torch.device("meta"):
+        algo = AlgorithmRegistry.build(cfg["trainer"]["algorithm"], device="meta")
+    assert type(algo).__name__ == "ClassificationAlgorithm" and algo.tx().kind == "lars"
+    assert set(cfg["validator"]["metrics"]) == {"accuracy"}
+
+
+def test_fid_config_builds_over_synthetic():
+    cfg = Config.load(str(REPO / "configs/fid/interface.py"), dataset="synthetic")
+    dataset = DatasetRegistry.build(cfg["validator"]["dataset"])
+    assert type(dataset).__name__ == "SyntheticDataset" and cfg["validator"]["fid_batch_size"] == 128
+
+
+def test_generation_eval_config_builds_its_metrics():
+    cfg = Config.load(str(REPO / "configs/ar/generation_eval.py"))["validator"]
+    metrics = {name: MetricRegistry.build(m, dataset=None) for name, m in cfg["metrics"].items()}
+    assert metrics["fid"].pred == "generated_image" and metrics["fid"].random_init
+    assert type(metrics["accuracy"]).__name__ == "AccuracyMetric"
+    assert cfg["algorithm"]["eval_generate"] is True

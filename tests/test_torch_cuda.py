@@ -325,6 +325,7 @@ _F32, _BF16 = torch.float32, torch.bfloat16
         (12544, 8192, 768, _F32, _F32, "l2", "gaussian"),  # Cluster's step: x streamed
         (3072, 8192, 256, _F32, _F32, "l2", "gaussian"),  # the StyleGAN2 VQGAN's step (batch 12)
         (3072, 8192, 256, _F32, _F32, "cosine", "gaussian"),  # CVQ-VAE's step (batch 12)
+        (16384, 8192, 256, _F32, _F32, "l2", "gaussian"),  # the linear probe's IR (batch 64)
     ],
 )
 def test_nearest_codes_kernel_matches_plain(dev, n, k, d, dtype, e_dtype, metric, rows):
@@ -715,3 +716,18 @@ def test_prefetch_copies_pinned_batches_that_equal_the_host(dev, tmp_path):
     assert len(got) == len(host)
     for g, h in zip(got, host):
         assert np.array_equal(g["image"].numpy(), h["image"]) and np.array_equal(g["category"].numpy(), h["category"])
+
+
+def test_inception_features_on_card_match_cpu(dev):
+    """The FID network (random init, cuDNN f32 with TF32 off) on the card
+    against the same module on the CPU, 256 px images through the 299 px
+    resize: 1e-4 of max|ref|."""
+    from vector_quantization_tpu_torch.models.metrics.inception import load_inception
+
+    model, _ = load_inception(None, "cpu")
+    images = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 256, 256, 3), dtype=np.uint8))
+    with torch.inference_mode():
+        want = model(images)
+        got = model.to(dev)(images.to(dev)).cpu()
+    assert got.shape == (4, 2048)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

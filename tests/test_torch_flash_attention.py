@@ -53,10 +53,17 @@ def _err(got, want):
 
 def _jax_flash(q, k, v, do, dtype):
     cast = [jnp.asarray(x).astype(_JNP[dtype]) for x in (q, k, v, do)]
+
+    def forward_backward(q, k, v, do):
+        o, vjp = jax.vjp(lambda a, b, c: _flash_train_attention(a, b, c, _JNP[dtype]), q, k, v)
+        return (o, *vjp(do))
+
+    # jitted: dispatched op by op, the interpret mode's callbacks run JAX ops
+    # of their own while the main thread dispatches the next op, and under
+    # a loaded CPU the two deadlock
     with pltpu.force_tpu_interpret_mode():
-        o, vjp = jax.vjp(lambda a, b, c: _flash_train_attention(a, b, c, _JNP[dtype]), *cast[:3])
-        grads = vjp(cast[3])
-    return [np.asarray(x.astype(jnp.float32)) for x in (o, *grads)]
+        outs = jax.jit(forward_backward)(*cast)
+    return [np.asarray(x.astype(jnp.float32)) for x in outs]
 
 
 def _naive(q, k, v):

@@ -80,11 +80,14 @@ def test_training_forward_matches_jax(flash):
     params, tokens = _params(), _tokens()
     jt = JaxLlama(**TINY, flash=flash)
     jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    # jitted: dispatched op by op, the interpret mode's callbacks run JAX ops
+    # of their own while the main thread dispatches the next op, and under
+    # a loaded CPU the two deadlock
     with pltpu.force_tpu_interpret_mode():
-        jlogits = jt.apply({"params": jparams}, jnp.asarray(tokens))
-        jloss, jgrads = jax.value_and_grad(
+        jlogits = jax.jit(lambda p: jt.apply({"params": p}, jnp.asarray(tokens)))(jparams)
+        jloss, jgrads = jax.jit(jax.value_and_grad(
             lambda p: jt.apply({"params": p}, jnp.asarray(tokens), fused_ce_targets=jnp.asarray(tokens))
-        )(jparams)
+        ))(jparams)
     model = _port(params, flash=flash)
     with torch.no_grad():
         logits = model(torch.from_numpy(tokens))

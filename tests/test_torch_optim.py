@@ -98,8 +98,10 @@ def test_optimizer_matches_optax(cfg):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="LARS"):
-        build_optimizer(dict(type="lars", lr=0.1))
+    # LARS is ported (tests/test_torch_probe.py); its masks, like exclude, need the parameters' names
+    assert build_optimizer(dict(type="lars", lr=0.1)).kind == "lars"
+    with pytest.raises(ValueError, match="weight_decay_mask needs"):
+        build_optimizer(dict(type="lars", lr=0.1, weight_decay_mask="kernel"))
     # exclude is ported (tests/test_torch_vqkd.py); like JAX's, it needs the parameters' names
     with pytest.raises(ValueError, match="exclude mask needs"):
         build_optimizer(dict(type="adamw", lr=0.1, exclude="codebook"))

@@ -1,7 +1,7 @@
 """The teachers' bicubic resize and the ConvNeXt teacher against the JAX
 package, on the CPU, f32.
 
-- ``bicubic_resize`` against ``jax.image.resize(..., "bicubic")`` (Keys'
+- ``ops.resize.resize(..., "bicubic")`` against ``jax.image.resize(..., "bicubic")`` (Keys'
   cubic, a = -0.5, antialiased on a downscale) within 1e-5 of max|ref| at
   16 -> 14, 14 -> 16, 7 -> 14 and 224 -> 224, the last within 1e-6 (both
   leave an unchanged axis as it is).
@@ -30,7 +30,7 @@ from vector_quantization_tpu.registries import AlgorithmRegistry as JaxAlgorithm
 from vector_quantization_tpu.registries import TeacherRegistry as JaxTeacherRegistry
 from vector_quantization_tpu.training.state import TrainState as JaxTrainState
 from vector_quantization_tpu.utils.config import load_config as jax_load_config
-from vector_quantization_tpu_torch.models.teachers.base import bicubic_resize, bicubic_weights
+from vector_quantization_tpu_torch.ops.resize import resize, resize_weights
 from vector_quantization_tpu_torch.ops import codebook as cb
 from vector_quantization_tpu_torch.registries import AlgorithmRegistry, TeacherRegistry
 from vector_quantization_tpu_torch.utils.bridge import (
@@ -77,11 +77,11 @@ def test_bicubic_resize_matches_jax(sizes):
     n, m = sizes
     x = np.random.default_rng(n * 1000 + m).standard_normal((2, n, n, 5)).astype(np.float32)
     want = np.asarray(jax.image.resize(jnp.asarray(x), (2, m, m, 5), method="bicubic"))
-    got = bicubic_resize(torch.from_numpy(x), m, m).numpy()
+    got = resize(torch.from_numpy(x), m, m, "bicubic").numpy()
     _close(got, want, f"{n}->{m}", rel=1e-6 if n == m else 1e-5)
     if n == m:
         assert np.array_equal(got, x)
-    w = bicubic_weights(n, m)
+    w = resize_weights(n, m, "bicubic")
     assert w.shape == (m, n) and np.allclose(w.sum(axis=1), 1.0, atol=1e-6)
     if m < n:  # antialiased: the widened kernel reaches past Keys' 4 taps
         assert (np.abs(w) > 0).sum(axis=1).max() > 4

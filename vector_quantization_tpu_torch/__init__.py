@@ -40,17 +40,24 @@ Covered so far:
   ConvNeXt teacher, CVQ-VAE's multinomial, random and cached anchors, the
   StyleGAN2 discriminator (``ops.upfirdn``), ``models.transformers.gpt2``
   (training, the dense-cache decode, ``generate`` and the dense server),
-  and ``AccuracyMetric``.
+  and ``AccuracyMetric``;
+- the paper's evaluations: FID and IS with the Inception network
+  (``models.metrics``, ``training.metrics.FIDMetric``), ``python -m
+  vector_quantization_tpu_torch.cli.{fid,val}``, the domain datasets
+  (``data.domains``) and the linear probe (``algorithms.classification``)
+  with the LARS optimizer.
 """
 
-__version__ = "0.6.0"
+__version__ = "0.7.0"
 
 from . import registries  # noqa: F401
 # importing these registers their classes under the configs' type names
 from .algorithms import ar as _ar  # noqa: F401
+from .algorithms import classification as _classification  # noqa: F401
 from .algorithms import vqgan as _vqgan_algorithm  # noqa: F401
 from .algorithms import vqkd as _vqkd  # noqa: F401
 from .data import datasets as _datasets  # noqa: F401
+from .data import domains as _domains  # noqa: F401
 from .models import connectors as _connectors  # noqa: F401
 from .models.autoencoders import vqgan as _vqgan  # noqa: F401
 from .models.autoencoders import vit as _vit  # noqa: F401

@@ -115,15 +115,13 @@ class Algorithm:
         return extra
 
     def tx(self) -> Optimizer:
-        """The optimizer, built on first use. Where the config ``exclude``s
-        parameters (matched on their flax paths), they are also frozen
+        """The optimizer, built on first use with the parameters' flax paths
+        (``build_optimizer`` reads them where the config filters over them).
+        Where the config ``exclude``s parameters, they are also frozen
         (``requires_grad`` off), so a step takes no gradient for them."""
         if self._tx is None:
-            paths = None
-            if self.optimizer_cfg.get("exclude"):
-                flax = flax_param_paths(self.model)
-                paths = [flax[name] for name, _ in self.model.named_parameters()]
-            self._tx = build_optimizer(self.optimizer_cfg, paths)
+            flax = flax_param_paths(self.model)
+            self._tx = build_optimizer(self.optimizer_cfg, [flax[name] for name, _ in self.model.named_parameters()])
             for p, keep in zip(self.model.parameters(), self._tx.keep or ()):
                 if not keep:
                     p.requires_grad_(False)

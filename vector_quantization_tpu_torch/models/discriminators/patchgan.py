@@ -5,16 +5,9 @@ inside, NHWC at ``forward`` as in the JAX package.
 A 4x4 stride-2 conv pyramid with LeakyReLU(0.2), BatchNorm after every conv
 but the first and the head, the width doubling per level up to 8x, a
 stride-1 penultimate conv and a 1-channel logit head; convs init N(0,
-0.02), BatchNorm scale N(1, 0.02).
-
-:class:`BatchNorm` keeps flax's semantics, which ``nn.BatchNorm2d`` does
-not: in train mode it normalises by the batch's biased variance
-``E[x²] − E[x]²`` (clamped at 0) and moves the running statistics with the
-same biased variance, momentum 0.99 (``new = 0.99·old + 0.01·batch``),
-epsilon 1e-5; ``train=False`` normalises by the running statistics. The
-running statistics are the buffers ``mean`` and ``var`` (flax's
-``batch_stats``). Children keep flax's auto names (``Conv_{i}``,
-``BatchNorm_{i}``) for the bridge.
+0.02), BatchNorm scale N(1, 0.02); the BatchNorm is flax's
+(:class:`...models.layers.BatchNorm`). Children keep flax's auto names
+(``Conv_{i}``, ``BatchNorm_{i}``) for the bridge.
 """
 
 from __future__ import annotations
@@ -24,32 +17,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...registries import DiscriminatorRegistry
+from ..layers import BatchNorm
 
-__all__ = ["BatchNorm", "PatchGANDiscriminator"]
-
-
-class BatchNorm(nn.Module):
-    def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-5) -> None:
-        super().__init__()
-        self.momentum, self.eps = momentum, eps
-        self.scale = nn.Parameter(torch.empty(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("mean", torch.zeros(channels))
-        self.register_buffer("var", torch.ones(channels))
-        with torch.no_grad():
-            self.scale.normal_(1.0, 0.02)
-
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        if train:
-            mean = torch.mean(x, dim=(0, 2, 3))
-            var = torch.clamp(torch.mean(torch.square(x), dim=(0, 2, 3)) - torch.square(mean), min=0.0)
-            with torch.no_grad():
-                self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
-                self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
-        else:
-            mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+__all__ = ["PatchGANDiscriminator"]
 
 
 def _conv(c_in: int, c_out: int, k: int, stride: int, bias: bool) -> nn.Conv2d:
@@ -74,7 +44,7 @@ class PatchGANDiscriminator(nn.Module):
             bn = ""
             if norm:
                 bn = f"BatchNorm_{sum(1 for _, b in self._order if b)}"
-                self.add_module(bn, BatchNorm(c_out))
+                self.add_module(bn, BatchNorm(c_out, scale_std=0.02))
             self._order.append((conv, bn))
 
         add(in_channels, width, 2, norm=False, bias=True)

@@ -7,6 +7,16 @@ nearest ×2 upsample are PyTorch calls, as the JAX package leaves them to XLA
 outside any Pallas kernel. Padding follows flax's: ``SAME`` for the stride-1
 convolutions, and the downsample pads right and bottom by one before a
 VALID stride-2 convolution.
+
+:class:`BatchNorm` is flax's ``nn.BatchNorm`` over channel axis 1 (NCHW,
+or (B, C)), which ``nn.BatchNorm1d``/``2d`` are not: in train mode it
+normalises by the batch's biased variance ``E[x²] − E[x]²`` (clamped at 0,
+over every axis but the channel's) and moves the running statistics with
+that same variance, momentum 0.99 (``new = 0.99·old + 0.01·batch``),
+epsilon 1e-5; ``train=False`` normalises by the running statistics, the
+buffers ``mean`` and ``var`` (flax's ``batch_stats``). Its scale starts at
+1 (flax's default), or N(1, ``scale_std``) where that is given (PatchGAN's
+0.02); its bias at 0.
 """
 
 from __future__ import annotations
@@ -17,7 +27,34 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["GroupNorm32", "ResBlock", "AttnBlock", "Downsample", "Upsample"]
+__all__ = ["BatchNorm", "GroupNorm32", "ResBlock", "AttnBlock", "Downsample", "Upsample"]
+
+
+class BatchNorm(nn.Module):
+    def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-5, scale_std: float = 0.0) -> None:
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+        if scale_std:
+            with torch.no_grad():
+                self.scale.normal_(1.0, scale_std)
+
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        if train:
+            dims = (0, *range(2, x.dim()))
+            mean = torch.mean(x, dim=dims)
+            var = torch.clamp(torch.mean(torch.square(x), dim=dims) - torch.square(mean), min=0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+                self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        shape = (-1, *[1] * (x.dim() - 2))
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 def conv3x3(c_in: int, c_out: int) -> nn.Conv2d:

@@ -30,7 +30,7 @@ import torch
 
 from ..utils.bridge import flax_param_paths, flax_tree
 
-__all__ = ["checkpoint_path", "latest_checkpoint", "list_checkpoints", "load_model_from",
+__all__ = ["checkpoint_file", "checkpoint_path", "latest_checkpoint", "list_checkpoints", "load_model_from",
            "restore_checkpoint", "save_checkpoint", "state_tree"]
 
 _FILE = "state.pt"
@@ -38,6 +38,11 @@ _FILE = "state.pt"
 
 def _ckpt_dir(work_dir: str) -> str:
     return os.path.join(os.path.abspath(work_dir), "checkpoints")
+
+
+def checkpoint_file(path: str) -> str:
+    """The file a checkpoint directory holds once its save is complete."""
+    return os.path.join(os.path.abspath(path), _FILE)
 
 
 def checkpoint_path(work_dir: str, step: int) -> str:
@@ -51,7 +56,7 @@ def list_checkpoints(work_dir: str) -> list[str]:
     entries = []
     for name in os.listdir(d):
         m = re.fullmatch(r"iter_(\d+)", name)
-        if m and os.path.exists(os.path.join(d, name, _FILE)):
+        if m and os.path.exists(checkpoint_file(os.path.join(d, name))):
             entries.append((int(m.group(1)), os.path.join(d, name)))
     return [p for _, p in sorted(entries)]
 
@@ -121,7 +126,7 @@ def save_checkpoint(work_dir: str, algorithm: Any, state: Any, step: int) -> str
 
 
 def _load(path: str) -> dict[str, Any]:
-    return torch.load(os.path.join(os.path.abspath(path), _FILE), map_location="cpu", weights_only=True)
+    return torch.load(checkpoint_file(path), map_location="cpu", weights_only=True)
 
 
 @torch.no_grad()

@@ -17,6 +17,18 @@ move the same weights alike:
   ``weight_decay · p`` to ``u`` before the learning rate, so the decay is
   scaled by the schedule's value (0 at the first warm-up step);
 - ``sgd``: optax ``trace`` momentum;
+- ``lars``: ``optax.lars`` as optax 0.2.6 chains it:
+  ``add_decayed_weights(weight_decay, weight_decay_mask)`` ->
+  ``masked(scale_by_trust_ratio(trust_coefficient, eps), trust_ratio_mask)``
+  -> ``scale_by_learning_rate`` -> ``trace(momentum, nesterov)``. The trust
+  ratio is per tensor, ``trust_coefficient · ‖p‖ / (‖u‖ + eps)``, and 1
+  where either norm is 0 (a zero-initialised bias's first step is a plain
+  ``−lr · g``); the trace accumulates the update after the learning rate
+  (``torch.optim.SGD`` applies lr after its trace, which differs once lr
+  changes). Defaults: ``weight_decay`` 0, ``trust_coefficient`` 0.001,
+  ``eps`` 0, ``momentum`` 0.9, ``nesterov`` False. A mask is True (every
+  parameter) or a :class:`...utils.filters.NamedParametersFilter` spec over
+  the flax paths, True where it matches;
 - the schedule is read at the count of updates already applied (0 first),
   as ``scale_by_learning_rate`` reads it;
 - ``exclude``: a :class:`...utils.filters.NamedParametersFilter` spec over
@@ -24,8 +36,6 @@ move the same weights alike:
   JAX package's ``optax.masked`` chain, an excluded parameter gets a zero
   update, no weight decay and no moments, and ``grad_clip``'s global norm
   runs over the kept parameters only.
-
-``lars`` is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -38,8 +48,6 @@ import torch
 from ..utils.filters import mask_tree
 
 __all__ = ["Optimizer", "build_optimizer", "build_schedule"]
-
-_LARS = "ROADMAP.md queue A: the LARS optimizer (linear probe)"
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -101,21 +109,33 @@ class Optimizer:
         grad_clip: float | None = None,
         b1: float = 0.9,
         b2: float = 0.999,
-        eps: float = 1e-8,
+        eps: float | None = None,
         weight_decay: float | None = None,
         momentum: float | None = None,
         keep: Sequence[bool] | None = None,
+        nesterov: bool = False,
+        trust_coefficient: float = 0.001,
+        decay_mask: Sequence[bool] | None = None,
+        trust_mask: Sequence[bool] | None = None,
     ) -> None:
-        if kind not in ("adam", "adamw", "sgd"):
+        if kind not in ("adam", "adamw", "sgd", "lars"):
             raise ValueError(f"unknown optimizer {kind!r}")
         self.kind = kind
         self.schedule = schedule
         self.grad_clip = grad_clip
-        self.b1, self.b2, self.eps = b1, b2, eps
-        # optax.adamw's default decay; adam and sgd have none
-        self.weight_decay = (1e-4 if weight_decay is None else weight_decay) if kind == "adamw" else 0.0
-        self.momentum = momentum
+        self.b1, self.b2 = b1, b2
+        self.eps = eps if eps is not None else 0.0 if kind == "lars" else 1e-8
+        # optax's defaults: adamw decays by 1e-4, lars by 0; adam and sgd have no decay
+        if kind not in ("adamw", "lars"):
+            weight_decay = 0.0
+        elif weight_decay is None:
+            weight_decay = 1e-4 if kind == "adamw" else 0.0
+        self.weight_decay = weight_decay
+        self.momentum = 0.9 if momentum is None and kind == "lars" else momentum
         self.keep = None if keep is None else list(keep)
+        self.nesterov, self.trust_coefficient = nesterov, trust_coefficient
+        self.decay_mask = None if decay_mask is None else list(decay_mask)
+        self.trust_mask = None if trust_mask is None else list(trust_mask)
 
     def trained(self, items: Sequence[Any]) -> list[Any]:
         """The entries of ``items`` (one per parameter) that are not excluded."""
@@ -128,7 +148,7 @@ class Optimizer:
     def init(self, params: Sequence[torch.Tensor]) -> dict[str, Any]:
         params = self.trained(params)
         zeros = lambda: [torch.zeros_like(p) for p in params]  # noqa: E731
-        if self.kind == "sgd":
+        if self.kind in ("sgd", "lars"):
             return {"count": 0, "trace": zeros() if self.momentum else None}
         return {"count": 0, "mu": zeros(), "nu": zeros()}
 
@@ -143,6 +163,9 @@ class Optimizer:
             torch._foreach_mul_(grads, factor)
         lr = self.schedule(state["count"])
         state["count"] += 1
+        if self.kind == "lars":
+            self._lars(params, grads, state, lr)
+            return
         if self.kind == "sgd":
             updates = grads
             if self.momentum:
@@ -167,13 +190,31 @@ class Optimizer:
             torch._foreach_add_(updates, params, alpha=self.weight_decay)
         torch._foreach_add_(params, updates, alpha=-lr)
 
+    def _lars(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: dict, lr: float) -> None:
+        decay = self.trained(self.decay_mask or [True] * len(self.keep or params))
+        trust = self.trained(self.trust_mask or [True] * len(self.keep or params))
+        updates = []
+        for p, g, d, t in zip(params, grads, decay, trust):
+            u = g + self.weight_decay * p if d else g
+            if t:
+                p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+                ratio = self.trust_coefficient * p_norm / (u_norm + self.eps)
+                u = u * torch.where((p_norm == 0) | (u_norm == 0), 1.0, ratio)
+            updates.append(u * -lr)
+        if self.momentum:
+            trace = state["trace"]
+            torch._foreach_mul_(trace, self.momentum)
+            torch._foreach_add_(trace, updates)
+            updates = torch._foreach_add(updates, trace, alpha=self.momentum) if self.nesterov else trace
+        torch._foreach_add_(params, updates)
+
 
 def build_optimizer(cfg: Mapping[str, Any], paths: Sequence[str] | None = None) -> Optimizer:
-    """The optimizer a config names (``type`` adam | adamw | sgd, ``lr``,
+    """The optimizer a config names (``type`` adam | adamw | sgd | lars, ``lr``,
     ``schedule``, ``grad_clip``, ``exclude``, ``betas`` or ``b1``/``b2``,
     and the kind's own keywords). ``paths``: the flax path of each
-    parameter the optimizer will be given, in order; ``exclude`` needs
-    them."""
+    parameter the optimizer will be given, in order; ``exclude`` and LARS's
+    ``weight_decay_mask`` / ``trust_ratio_mask`` need them."""
     cfg = dict(cfg)
     kind = cfg.pop("type", "adam")
     lr = float(cfg.pop("lr", 1e-4))
@@ -187,6 +228,10 @@ def build_optimizer(cfg: Mapping[str, Any], paths: Sequence[str] | None = None) 
     betas = cfg.pop("betas", None)
     if betas is not None:
         cfg["b1"], cfg["b2"] = betas
-    if kind == "lars":
-        raise NotImplementedError(_LARS)
+    for key, arg in (("weight_decay_mask", "decay_mask"), ("trust_ratio_mask", "trust_mask")):
+        mask = cfg.pop(key, True)
+        if mask is not True:
+            if paths is None:
+                raise ValueError(f"{key} needs the parameters' flax paths")
+            cfg[arg] = mask_tree(paths, mask, value=True)
     return Optimizer(kind, schedule, float(grad_clip) if grad_clip else None, **cfg)

@@ -10,8 +10,9 @@ batch is pinned and copied with ``non_blocking`` on a copy stream, the
 compute stream waits on the copy's event, and the device tensors are
 ``record_stream``-ed to the compute stream so the allocator does not reuse
 them while a step still reads them. ``Validator.run`` runs ``eval_step``
-over its loader into the configured metrics (and with ``visual`` dumps
-images).
+over its loader into the configured metrics, built with the loader's
+dataset as the JAX runner builds them (``FIDMetric`` reads its
+``fid_path``), and with ``visual`` dumps images.
 
 Data order is the JAX runner's: its ``init_state`` draws one batch from a
 fresh epoch (to trace the model), so training starts at the loader's next
@@ -211,7 +212,8 @@ class Validator(_RunnerBase):
             self.state = state
         elif self.state is None:
             self.init_state()
-        metric_objs = {name: MetricRegistry.build(cfg) for name, cfg in self.metric_cfgs.items()}
+        metric_objs = {name: MetricRegistry.build(cfg, dataset=self.dataloader.dataset)
+                       for name, cfg in self.metric_cfgs.items()}
         n = len(self.dataloader)
         if Store.DRY_RUN:
             n = min(n, 2)

@@ -6,14 +6,20 @@ model it is held against: the tokenizers (VQGAN, FSQ, the ViTs of VQ-KD,
 the ViT and ConvNeXt teachers), the discriminators (PatchGAN's
 ``params`` and ``batch_stats``, StyleGAN2's equalised-lr kernels kept in
 flax's layouts) and LPIPS through :func:`state_dict_from_flax`, Llama and
-GPT-2 through :func:`llama_params_from_flax`, and a VQ-KD, Cluster or
-CVQ-VAE state's ``extra`` through :func:`extra_from_flax`. :func:`params_to_flax`,
+GPT-2 through :func:`llama_params_from_flax`, the Inception network and
+the linear probe's head through :func:`state_dict_from_flax`, and a VQ-KD,
+Cluster, CVQ-VAE or probe state's ``extra`` through :func:`extra_from_flax`. :func:`params_to_flax`,
 :func:`batch_stats_to_flax` and :func:`extra_to_flax` read the port's
 tensors back in flax's layout, for holding updated weights, optimizer
 moments, EMA shadows and codebook statistics against the JAX package's.
 :func:`flax_param_paths` names each parameter by its flax path, which the
 optimizer's ``exclude`` filter matches; :func:`flax_tree` nests a module's
 own tensors by those paths, the layout of the port's checkpoints.
+
+``nn.BatchNorm2d`` (the Inception network's, with pytorch-fid's names)
+maps its ``weight``/``bias`` to flax's ``scale``/``bias`` and its running
+``mean``/``var`` to ``batch_stats``; its ``num_batches_tracked`` has no
+flax leaf and is left to ``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -126,6 +132,12 @@ def _flax_leaves(module: nn.Module) -> Iterator[tuple[str, tuple[str, ...], str]
             yield prefix + "weight", path + ("scale",), "same"
             yield prefix + "bias", path + ("bias",), "same"
             return
+        if isinstance(mod, nn.BatchNorm2d):  # Inception's; num_batches_tracked has no flax leaf
+            yield prefix + "weight", path + ("scale",), "same"
+            yield prefix + "bias", path + ("bias",), "same"
+            yield prefix + "running_mean", path + ("mean",), "stats"
+            yield prefix + "running_var", path + ("var",), "stats"
+            return
         if isinstance(mod, (nn.Conv2d, nn.Linear)):
             yield prefix + "weight", path + ("kernel",), "conv" if isinstance(mod, nn.Conv2d) else "dense"
             if mod.bias is not None:
@@ -182,8 +194,9 @@ def state_dict_from_flax(
     unused = (set(_flatten(params)) | {f"batch_stats.{k}" for k in _flatten(batch_stats or {})}) - used
     if unused:
         raise ValueError(f"flax leaves not consumed: {sorted(unused)}")
-    if want.keys() - out.keys():
-        raise ValueError(f"port parameters not filled: {sorted(want.keys() - out.keys())}")
+    unfilled = {k for k in want.keys() - out.keys() if not k.endswith("num_batches_tracked")}
+    if unfilled:
+        raise ValueError(f"port parameters not filled: {sorted(unfilled)}")
     return out
 
 
@@ -250,12 +263,22 @@ def flax_param_paths(module: nn.Module) -> dict[str, str]:
 
 
 def extra_from_flax(algorithm: Any, state: Any, extra: Mapping[str, Any]) -> None:
-    """A JAX VQ-KD / Cluster / CVQ-VAE state's ``extra`` into the port's,
-    in place: ``teacher_params`` into the algorithm's teacher, CVQ's
-    ``probability`` and ``anchor_cache``, and ``initialized`` as a host
-    bool."""
+    """A JAX VQ-KD / Cluster / CVQ-VAE / linear-probe state's ``extra`` into
+    the port's, in place: ``teacher_params`` into the algorithm's teacher,
+    ``ir_params`` into its tokenizer, the probe's ``bn_stats`` into the
+    head's running statistics, CVQ's ``probability`` and ``anchor_cache``,
+    and ``initialized`` as a host bool."""
     if "teacher_params" in extra:
         algorithm.teacher.load_state_dict(state_dict_from_flax(algorithm.teacher, extra["teacher_params"]))
+    if "ir_params" in extra:
+        algorithm.ir_model.load_state_dict(state_dict_from_flax(algorithm.ir_model, extra["ir_params"]))
+    if "bn_stats" in extra:
+        live = flax_tree(state.model, stats=True)
+        for path, value in _flatten(extra["bn_stats"]).items():
+            node = live
+            for part in path.split("."):
+                node = node[part]
+            node.copy_(torch.from_numpy(np.array(value, np.float32)))
     for key in ("probability", "anchor_cache"):
         if key in extra:
             state.extra[key].copy_(torch.from_numpy(np.array(extra[key], np.float32)))
@@ -269,6 +292,10 @@ def extra_to_flax(algorithm: Any, state: Any) -> dict[str, Any]:
     out: dict[str, Any] = {}
     if "teacher_params" in state.extra:
         out["teacher_params"] = params_to_flax(algorithm.teacher, state.extra["teacher_params"])
+    if "ir_params" in state.extra:
+        out["ir_params"] = params_to_flax(algorithm.ir_model, state.extra["ir_params"])
+    if "bn_stats" in state.extra:
+        out["bn_stats"] = batch_stats_to_flax(state.model, state.extra["bn_stats"])
     for key in ("probability", "anchor_cache"):
         if key in state.extra:
             out[key] = state.extra[key].detach().cpu().numpy().copy()
