@@ -72,6 +72,23 @@ exits non-zero:
    finishes with 256 codes in range, the shared column stays within its
    cap, each K2 kernel of phase 5 launches, no plain version on the card;
    effective tokens/s, images/min and the efficiency report per pattern.
+7a. ``serving_w8a8``: Llama-medium INT8 (phase 4's weights, fused) with
+   ``quantize_mode="w8a8"``: activations quantised per row to int8 and
+   every projection and the head an int8 x int8 -> int32 ``torch._int_mm``
+   (cuBLASLt; JAX computes this product with XLA, no Pallas kernel), the
+   weight padded to a multiple of 16 and laid out column-major once. Each
+   product exact against its int32 plain version at the fused projections'
+   shapes, the head's F = 17385 (padded to 17392) and 7 rows (padded to
+   17), timed beside K2 at the same shape; one decode step on phase 4's
+   inputs against the same step through the plain versions (each block
+   1e-2 of max|out| as in decode_step; the logits 1e-1 of max|ref|, twice
+   decode_step's: the activations' int8 rounding amplifies K3's bf16
+   summation-order differences; argmax 0.9) and
+   against the weight-only model's step (the quantisation's error:
+   relative L2 <= 0.25, argmax >= 0.5; and block 0's update alone); then
+   ``ARServer(paged=True)`` serving 16 requests: K3 24 and ``_int_mm`` 97
+   a decode step, **K2 0**, every request 256 codes in range, every page
+   freed, no plain version on the card.
 8. ``generate``: ``generate()`` as bench.py's ar section runs it: Llama-
    medium bf16 with INT8 weights, unfused (7 K2 launches a layer and the
    head: 169 a forward), B = 64 rows of class 0, 256 tokens, INT8 dense
@@ -131,6 +148,19 @@ exits non-zero:
    plain version on the card; then the step's features looked up by the
    kernel and by the plain version (codes equal except near-ties). Median
    step ms on the host clock per part, images/s, peak GiB.
+12a. ``hybrid_train``: ``VQGANVQKDAlgorithm`` at full width (no shipped
+   config names it; ``hybrid_config()``): phase 12's trainer with the model
+   a ``VQGANVQKDModel`` whose branch is configs/vqkd's ``ViTDecoder``
+   (depth 3, 32 -> 512 features) on the 16 x 16 code grid behind a 1x1
+   ``ConvConnector`` (22,470,944 parameters), distilling the frozen CLIP
+   ViT-B/16 teacher (projection 512, random init) at 224 px, its 14 x 14
+   map resized to 16 x 16; the codebook update is the config's own
+   ``normalize``. Batch 12 of random 256 px images: 3 steps gates off, 3
+   from ``discriminator_start``. Gates: finite losses, ``loss_distill`` >
+   0; every generator tensor and every branch tensor moved; the
+   discriminator only with the GAN on; the teacher bit-identical; K1 once
+   a step and its codes against the plain lookup at (3072, 16384, 8); no
+   plain version on the card. Step ms per part, peak GiB.
 13. ``vqgan_anchor``: configs/regression/train_anchor.py as it defines it:
    2000 steps at batch 16 on the port's ``SyntheticDataset`` (128 images of
    32 px, shuffled each epoch), seed 3407, the discriminator from step
@@ -198,6 +228,15 @@ exits non-zero:
    every transformer parameter changed and no tokenizer parameter, launches
    per step K4-fwd 48 (24 + 24 remat re-runs), dkv 24, dq 24, K1 once per
    image step, no plain version on the card.
+17a. ``ar_train_remat_dots``: phase 17's model under ``remat_policy="dots"``
+   (selective checkpointing: the projections' ``aten.mm`` outputs kept,
+   the rest re-run), full remat and no remat, on the codes batch: the loss
+   and every gradient of one pass each (dots against full: losses equal,
+   gradients within 1e-6 relative L2), ``aten.mm`` calls in each backward
+   (dots equal to no remat's, fewer than full remat's: the backward re-runs
+   no product), the peak memory above the resting state (full < dots <
+   none); then 3 train steps under each on the host clock. K4-fwd 48,
+   dkv 24, dq 24 a dots step.
 18. ``ar_flash_vs_einsum``: one step's loss and gradients on 64 rows of the
    codes batch with the same weights through flash and through the einsum
    attention (``flash=False``): loss within 1e-2 relative, every
@@ -354,13 +393,15 @@ exits non-zero:
 35. ``fsq_train_profile``, ``vqgan_stylegan2_train_profile``,
    ``vqkd_convnext_train_profile``, ``ar_gpt2_profile``: one step of
    phases 23, 24, 26 and 27 under torch.profiler, as phase 32.
+35a. ``hybrid_train_profile``: one GAN-on step of phase 12a, as phase 32.
 36. ``kernels``: per kernel, launches in its path's run (phase 5 for the
    server's: K2's kernels that the serving shapes' plans name, and K3;
    phase 10 for the lookup (and its launches in phases 12, 14, 15, 17,
    20-22d and 23-27, and its times at the train shapes, the zoo's
    (3072, 8192, 256) l2 and cosine and the probe's (16384, 8192, 256) l2),
    phase 17 for the three flash kernels (and their launches in phases 22
-   and 22c); K2's
+   and 22c), and K1 in phase 12a, K3 (and K2's 0) in phase 7a and K4 in
+   phase 17a; K2's
    rows also give their launches in phases 7, 8 and 22c, and phase 6's times
    at the dense path's shapes), device time per call, the bound, the plain
    version's and the yardstick's time.
@@ -390,6 +431,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense tensor-core bf16
 F32_FLOPS = 67e12  # float32 outside the tensor cores
+INT8_OPS = 1979e12  # dense tensor-core int8
 CSRC = "vector_quantization_tpu_torch/csrc"  # the kernels' sources, from the repo's root
 
 # Llama-medium C2I (configs/ar/transformers/llama.py, bench.py serving recipe)
@@ -422,22 +464,24 @@ def emit(obj: dict) -> None:
 def zero_launches() -> None:
     """Set every kernel wrapper's launch count to 0 (before a path's run)."""
     from vector_quantization_tpu_torch.ops import flash_attention as fa
-    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul
+    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, int8_mm
     from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention
     from vector_quantization_tpu_torch.ops.vq_lookup import nearest_codes
 
-    int8_matmul.launches = paged_decode_attention.launches = nearest_codes.launches = 0
+    int8_matmul.launches = paged_decode_attention.launches = nearest_codes.launches = int8_mm.calls = 0
     int8_matmul.design_launches = dict.fromkeys(int8_matmul.design_launches, 0)
     fa.flash_attention_fwd.launches = fa.flash_bwd_dkv.launches = fa.flash_bwd_dq.launches = 0
 
 
 def read_launches() -> tuple[dict, int]:
     """Every kernel's launch count (``int8_matmul`` is K2's split-K kernel,
-    ``int8_matmul_wide`` its wide kernel, both behind one wrapper), and the
-    number of times any plain version ran on a CUDA tensor so far."""
+    ``int8_matmul_wide`` its wide kernel, both behind one wrapper), the
+    w8a8 path's ``torch._int_mm`` calls (``int8_mm``: a library call, no
+    kernel of the repo), and the number of times any plain version ran on a
+    CUDA tensor so far."""
     from vector_quantization_tpu_torch.ops import flash_attention as fa
     from vector_quantization_tpu_torch.ops.int8_matmul import (
-        DESIGNS, int8_matmul, int8_matmul_reference,
+        DESIGNS, int8_matmul, int8_matmul_reference, int8_mm, int8_mm_reference,
     )
     from vector_quantization_tpu_torch.ops.paged_attention import (
         paged_decode_attention, paged_decode_attention_reference,
@@ -450,8 +494,10 @@ def read_launches() -> tuple[dict, int]:
                 "nearest_codes": nearest_codes.launches,
                 "flash_attention_fwd": fa.flash_attention_fwd.launches,
                 "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
-                "flash_bwd_dq": fa.flash_bwd_dq.launches}
-    plain = (int8_matmul_reference.cuda_calls + paged_decode_attention_reference.cuda_calls
+                "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                "int8_mm": int8_mm.calls}
+    plain = (int8_matmul_reference.cuda_calls + int8_mm_reference.cuda_calls
+             + paged_decode_attention_reference.cuda_calls
              + nearest_codes_reference.cuda_calls + fa.flash_attention_reference.cuda_calls
              + fa.flash_attention_bwd_reference.cuda_calls)
     return launches, plain
@@ -801,10 +847,12 @@ def medium_int8_params(seed: int) -> dict:
     return quantize_params_int8(medium_flax_params(seed))
 
 
-def make_medium(seed: int, dev, fused: bool = True, max_length: int = MEDIUM_MAX_LENGTH):
+def make_medium(seed: int, dev, fused: bool = True, max_length: int = MEDIUM_MAX_LENGTH,
+                quantize_mode: str = "auto"):
     """Llama-medium bf16 with INT8 weights (fused projections unless
-    ``fused=False``), weights made from ``seed`` with numpy in the flax
-    layout and loaded via the bridge."""
+    ``fused=False``; activations quantised too under ``quantize_mode``
+    "w8a8"), weights made from ``seed`` with numpy in the flax layout and
+    loaded via the bridge."""
     from vector_quantization_tpu_torch.models.transformers.llama import (
         LlamaTransformer, fuse_llama_params,
     )
@@ -814,7 +862,7 @@ def make_medium(seed: int, dev, fused: bool = True, max_length: int = MEDIUM_MAX
     if fused:
         params = fuse_llama_params(params)
     model = LlamaTransformer(vocabulary_size=VOCAB, max_length=max_length, dtype="bfloat16",
-                             quantize=True, fused_qkv=fused, **MEDIUM)
+                             quantize=True, quantize_mode=quantize_mode, fused_qkv=fused, **MEDIUM)
     model.load_state_dict(llama_params_from_flax(params))
     return model.to(dev).eval()
 
@@ -855,11 +903,11 @@ def decode_positions() -> tuple[np.random.Generator, np.ndarray]:
     return rng, pos
 
 
-def phase_decode_step(model, dev, gen):
-    from vector_quantization_tpu_torch.models.transformers import llama as llama_mod
-    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul_reference
-    from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention_reference
-
+def decode_inputs(model, dev, gen):
+    """One decode step's inputs at the serving shape: an INT8 paged pool
+    of random codes and scales (``gen``), each row's pages under its
+    position (:func:`decode_positions`), tokens; and ``clone()``, a fresh
+    copy of the pool for each run of the step."""
     b, ps, p_slot = SLOTS, PAGE_SIZE, P_SLOT
     num_pages = 1 + b * p_slot
     cache = model.init_paged_cache(b, num_pages, ps, p_slot, dtype=torch.int8, device=dev)
@@ -881,6 +929,16 @@ def phase_decode_step(model, dev, gen):
         return cache._replace(**{f: getattr(cache, f).clone()
                                  for f in ("k", "v", "k_scale", "v_scale")})
 
+    return tokens, positions, clone
+
+
+def phase_decode_step(model, dev, gen):
+    from vector_quantization_tpu_torch.models.transformers import llama as llama_mod
+    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul_reference
+    from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention_reference
+
+    b = SLOTS
+    tokens, positions, clone = decode_inputs(model, dev, gen)
     blocks = model.blocks()
     ins, outs = [], []
     hooks = [blk.register_forward_pre_hook(lambda m, a: ins.append(a[0].clone()))
@@ -3109,6 +3167,326 @@ def phase_ar_gpt2(vqgan, dev, seed: int):
                                                 batch=GPT2_BATCH, step=state.step)
 
 
+# the last single-device slice: the VQGAN + VQ-KD hybrid, w8a8 serving and
+# selective checkpointing
+HYBRID_TEACHER_IMAGE = 224  # CLIP ViT-B/16's own input: a 14 x 14 map, resized to the 16 x 16 grid
+HYBRID_BRANCH_PARAMS = 22_470_944  # the branch: the 8 -> 32 connector and the 3-block decoder to 512
+W8A8_REQUESTS = 16
+# one w8a8 decode step's logits against the weight-only step's (the same
+# weights, pool and tokens): the activations' per-row int8 rounding (JAX's
+# docstring: ~0.5% relative a product) compounded over 24 bf16 layers of
+# random weights, which amplify any perturbation (decode_step's bf16
+# summation order alone moves the logits by 2.7e-2-3.0e-2 of max|ref|); a
+# relative L2 error and a share of equal argmaxes, set at about twice the
+# first measurement (0.120, 0.766; NVIDIA H100 80GB HBM3, 700 W)
+W8A8_REL_L2_LIMIT, W8A8_ARGMAX_MIN = 0.25, 0.5
+# the w8a8 step through the card's kernels against the same step through the
+# plain versions: each block alone within decode_step's 1e-2 of max|out|;
+# the logits after 24 layers within 1e-1 of max|ref| (decode_step's 5e-2
+# doubled: the activation quantisation turns K3's bf16 summation-order
+# differences into whole int8 steps, which the random weights amplify;
+# measured 2.4e-2 and 4.3e-2 in two runs, argmax agreement 0.98 and 1.0)
+W8A8_PLAIN_LIMIT = 1e-1
+DOTS_GRAD_REL_LIMIT = 1e-6  # remat_policy="dots" against full remat: the same kernels, expected exact
+
+
+def hybrid_config() -> dict:
+    """The hybrid's algorithm config (no shipped config names it): the
+    LlamaGen VQGAN trainer of ``VQGAN_CONFIG`` (16384 x 8 unit codebook,
+    PatchGAN, LPIPS, its own ``normalize`` update) with the model made a
+    ``VQGANVQKDModel`` whose branch is ``configs/vqkd``'s decoder (a
+    ``ViTDecoder`` of depth 3 to 512 features, ``in_channels`` 32) on the
+    16 x 16 code grid behind a ``ConvConnector``, and the VQ-KD config's
+    teacher (``CLIPTeacher``, projection 512) at 224 px, its 14 x 14 map
+    resized to 16 x 16."""
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    root = Path(__file__).resolve().parent
+    cfg = Config.load(str(root / VQGAN_CONFIG))["trainer"]["algorithm"]
+    vqkd = Config.load(str(root / VQKD_CONFIG))["trainer"]["algorithm"]
+    cfg["type"] = "VQGANVQKDAlgorithm"
+    cfg["model"] = dict(cfg["model"], type="VQGANVQKDModel", vqkd_pre_decode=dict(type="ConvConnector"),
+                        vqkd_decoder=dict(vqkd["model"]["decoder"], img_size=GRID))
+    cfg["teacher"] = dict(vqkd["teacher"], image_size=HYBRID_TEACHER_IMAGE, output_size=GRID)
+    return cfg
+
+
+def phase_hybrid_train(dev, seed: int):
+    """``VQGANVQKDAlgorithm`` at :func:`hybrid_config`'s full width, f32:
+    the VQGAN's weights from :func:`load_random_flax_weights`, the branch,
+    the teacher, the discriminator and LPIPS at their own init under
+    ``torch.manual_seed(seed)``; batch 12 of random 256 px images, 3 steps
+    with the GAN gates off and 3 from ``discriminator_start``."""
+    from vector_quantization_tpu_torch.data.base import pixel_encode
+    from vector_quantization_tpu_torch.registries import AlgorithmRegistry
+
+    torch.manual_seed(seed)
+    algo = AlgorithmRegistry.build(hybrid_config(), device=dev)
+    model, disc, teacher = algo.model, algo.discriminator, algo.teacher
+    branch = {k: v.clone() for k, v in model.state_dict().items() if k.startswith("vqkd_")}
+    load_random_flax_weights(model, seed)
+    model.load_state_dict(branch, strict=False)  # the branch keeps its own init
+    del branch
+    rng = np.random.default_rng(seed + 9)
+    u8 = torch.from_numpy(rng.integers(0, 256, (VQGAN_TRAIN_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8))
+    batch = {"image": pixel_encode(u8.to(dev)), "original_image": u8.to(dev)}
+    state = algo.init_state(seed)
+    teacher_before = snapshot(teacher)
+    n_branch = sum(p.numel() for n, p in model.named_parameters() if n.startswith("vqkd_"))
+    branch_names = [k for k in model.state_dict() if k.startswith("vqkd_")]
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    _, plain0 = read_launches()
+    parts, ok = {}, True
+    for part, start in (("gates_off", 0), ("gan_on", algo.d_start)):
+        state.step = start
+        g_before, d_before = snapshot(model), snapshot(disc)
+        rows = []
+        for _ in range(VQGAN_TRAIN_STEPS):
+            k1_before = read_launches()[0]["nearest_codes"]
+            (state, metrics), seconds = _timed(lambda: algo.train_step(state, batch))
+            metrics = {k: float(v) for k, v in metrics.items()}
+            rows.append({"step": state.step - 1, "ms": 1e3 * seconds, "metrics": metrics,
+                         "k1_launches": read_launches()[0]["nearest_codes"] - k1_before})
+        g_moved, d_moved = moved(model, g_before), moved(disc, d_before)
+        del g_before, d_before
+        step_ms = float(np.median([r["ms"] for r in rows]))
+        gan = part == "gan_on"
+        parts[part] = {"start_step": start, "steps": rows, "step_ms_median": step_ms,
+                       "images_per_s": VQGAN_TRAIN_BATCH / step_ms * 1e3,
+                       "generator_tensors_moved": len(g_moved), "generator_tensors": len(model.state_dict()),
+                       "branch_tensors_moved": sum(k in g_moved for k in branch_names),
+                       "branch_tensors": len(branch_names),
+                       "discriminator_tensors_moved": len(d_moved)}
+        ok = ok and all(np.isfinite(list(r["metrics"].values())).all() and r["k1_launches"] == 1
+                        and r["metrics"]["loss_distill"] > 0 for r in rows)
+        ok = ok and all(k in g_moved for k in branch_names) and (len(d_moved) > 0) == gan
+        ok = ok and all((r["metrics"]["g_loss"] != 0) == gan for r in rows)
+    launches, plain = read_launches()
+    plain_runs = plain - plain0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    teacher_same = not moved(teacher, teacher_before)
+    rep = codes_vs_plain(model, batch["image"])
+    ok = (ok and teacher_same and plain_runs == 0 and rep["ok"] and n_branch == HYBRID_BRANCH_PARAMS
+          and launches["nearest_codes"] == 2 * VQGAN_TRAIN_STEPS
+          and sum(p.numel() for n, p in model.named_parameters() if not n.startswith("vqkd_")) == VQGAN_PARAMS)
+    emit({"phase": "hybrid_train", "config": f"{VQGAN_CONFIG} + configs/vqkd decoder and CLIP teacher",
+          "dtype": "float32", "generator_params": sum(p.numel() for p in model.parameters()),
+          "branch_params": n_branch, "teacher_params": sum(p.numel() for p in teacher.parameters()),
+          "teacher_grid": [teacher.image_size, teacher.output_size], "codebook_update": algo.codebook_update,
+          "batch": VQGAN_TRAIN_BATCH, "image_size": IMAGE_SIZE, "parts": parts, "peak_memory_gib": peak_gib,
+          "launches": launches, "plain_runs_on_cuda": plain_runs, "teacher_unchanged": teacher_same,
+          "codes_vs_plain": {k: rep[k] for k in ("shape", "rows", "differ", "excused", "near_tie_rows", "tol")}})
+    if not ok:
+        raise SystemExit("hybrid_train: a check failed (see the hybrid_train line)")
+
+    def profile_hybrid_step() -> None:
+        profile_train_step("hybrid_train_profile", lambda: algo.train_step(state, batch),
+                           batch=VQGAN_TRAIN_BATCH, step=state.step)
+
+    return launches, profile_hybrid_step
+
+
+def int_mm_row(dev, gen, name: str, b: int, d: int, f: int) -> dict:
+    """``int8_mm`` (``torch._int_mm``) against its plain version (exact
+    int32 sums) at (b, d) x (d, f), with the weight padded as
+    ``prepare_w8a8`` pads it; device times per call by CUDA graph (the
+    weight rotated through enough copies to exceed the L2), beside K2's
+    weight-only call at the same shape."""
+    from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, int8_mm, int8_mm_reference, prepare_w8a8
+
+    a = torch.randint(-127, 128, (b, d), generator=gen, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (d, f), generator=gen, device=dev, dtype=torch.int8)
+    scale = torch.rand(f, generator=gen, device=dev) * 0.02
+    wp, sp = prepare_w8a8(w, scale)
+    got, want = int8_mm(a, wp), int8_mm_reference(a, wp)
+    int8_mm_reference.cuda_calls -= 1  # a comparison, not the path
+    copies = max(1, -(-64 * 2**20 // (d * wp.shape[1])))
+    ws = [wp.clone() for _ in range(copies)]
+    x = torch.randn(b, d, generator=gen, device=dev).to(torch.bfloat16)
+    ms = graph_ms([functools.partial(int8_mm, a, wi) for wi in ws])
+    plain_ms = graph_ms([functools.partial(int8_mm_reference, a, ws[0])], replays=3)
+    k2_ms = graph_ms([functools.partial(int8_matmul, x, w, scale)])
+    int8_mm.calls = 0
+    int8_mm_reference.cuda_calls -= 2  # graph_ms's eager warm-up and its capture
+    bound_ms = 1e3 * max((b * d + d * f + 4 * b * f) / HBM_BYTES_PER_S, 2 * b * d * f / INT8_OPS)
+    return {"shape": name, "B": b, "D": d, "F": f, "F_padded": wp.shape[1], "exact": bool(torch.equal(got, want)),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "k2_weight_only_ms": k2_ms}
+
+
+def phase_serving_w8a8(dev, gen, seed: int):
+    """Llama-medium INT8 with ``quantize_mode="w8a8"`` (fused projections,
+    the INT8 head, paged INT8 pool): each projection's int8 product against
+    its plain version; one decode step through ``torch._int_mm`` and K3
+    against the same step through their plain versions (decode_step's
+    limits), and against the weight-only model's step (the activations'
+    quantisation error); then ``ARServer(paged=True)`` serving 16
+    requests."""
+    from vector_quantization_tpu_torch.models.transformers import llama as llama_mod
+    from vector_quantization_tpu_torch.ops import int8_matmul as im
+    from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention_reference
+    from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook
+    from vector_quantization_tpu_torch.tasks.serving import ARServer
+
+    d, f = MEDIUM["hidden_size"], MEDIUM["ffn_dim"]
+    rows = [int_mm_row(dev, gen, name, b, din, fout) for name, b, din, fout in (
+        ("qkv", SLOTS, d, 3 * d), ("o", SLOTS, d, d), ("gate_up", SLOTS, d, 2 * f), ("down", SLOTS, f, d),
+        ("lm_head", SLOTS, d, VOCAB), ("lm_head_7_rows", 7, d, VOCAB))]
+    model = make_medium(seed, dev, quantize_mode="w8a8")
+    ref = make_medium(seed, dev)
+    tokens, positions, clone = decode_inputs(model, dev, gen)
+    blocks = model.blocks()
+    ins, outs = [], []
+    hooks = [blk.register_forward_pre_hook(lambda m, a: ins.append(a[0].clone())) for blk in blocks]
+    hooks += [blk.register_forward_hook(lambda m, a, o: outs.append(o.clone())) for blk in blocks]
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    zero_launches()
+    with torch.inference_mode():
+        got, _ = model(tokens, clone(), slot_positions=positions)
+        step_launches, _ = read_launches()
+        for hk in hooks:
+            hk.remove()
+        saved = im.int8_mm, llama_mod.paged_decode_attention
+        im.int8_mm, llama_mod.paged_decode_attention = im.int8_mm_reference, paged_decode_attention_reference
+        try:
+            plain, _ = model(tokens, clone(), slot_positions=positions)
+            c = clone()  # each block alone on the kernel path's own input
+            block_err = max(rel(blk(ins[i], positions[:, None], c, i, positions), outs[i])
+                            for i, blk in enumerate(blocks))
+        finally:
+            im.int8_mm, llama_mod.paged_decode_attention = saved
+        want, _ = ref(tokens, clone(), slot_positions=positions)
+        # the first block's own quantisation error: one input through both
+        # models' block 0, its update (output - input) compared
+        x0 = ins[0]
+        d_w8a8 = blocks[0](x0, positions[:, None], clone(), 0, positions).float() - x0.float()
+        d_ref = ref.blocks()[0](x0, positions[:, None], clone(), 0, positions).float() - x0.float()
+        first_block_rel_l2 = float(torch.linalg.vector_norm(d_w8a8 - d_ref) / torch.linalg.vector_norm(d_ref))
+        wall = {"w8a8": step_wall(model, tokens, clone(), positions),
+                "weight_only": step_wall(ref, tokens, clone(), positions)}
+        device = {"w8a8": step_device(model, tokens, clone(), positions),
+                  "weight_only": step_device(ref, tokens, clone(), positions)}
+    del ref, ins, outs
+    plain_err = rel(got, plain)
+    plain_agree = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
+    g, w = got.float().flatten(1), want.float().flatten(1)
+    rel_l2 = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+    max_rel = float((g - w).abs().max() / w.abs().max())
+    agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+    server = ARServer(
+        model, None, TokenCodebook(NUM_CATEGORIES + 1, CODEBOOK), image_tokens=IMAGE_TOKENS,
+        batch_slots=SLOTS, sampler=SAMPLER, cfg_alpha=1.75, uncond_token=NUM_CATEGORIES,
+        steps_per_sync=STEPS_PER_SYNC, cache_dtype=torch.int8, paged=True, page_size=PAGE_SIZE, seed=seed,
+        device=dev,
+    )
+    rids = [server.submit(category=i % NUM_CATEGORIES) for i in range(W8A8_REQUESTS)]
+    steps = []
+    hook = model.register_forward_pre_hook(lambda *a: steps.append(1))
+    zero_launches()
+    _, plain0 = read_launches()
+    done, seconds = _timed(lambda: dict(server.run_until_drained()))
+    hook.remove()
+    launches, plain = read_launches()
+    n = len(steps)
+    per_step = {k: v / n for k, v in launches.items()}
+    ok = (all(r["exact"] for r in rows) and rel_l2 <= W8A8_REL_L2_LIMIT and agree >= W8A8_ARGMAX_MIN
+          and plain_err <= W8A8_PLAIN_LIMIT and block_err <= 1e-2 and plain_agree >= 0.9
+          and step_launches["paged_decode_attention"] == MEDIUM["num_layers"]
+          and step_launches["int8_mm"] == 4 * MEDIUM["num_layers"] + 1
+          and sorted(done) == rids and len(server._free_pages) == server._total_pages
+          and all(c.shape == (IMAGE_TOKENS,) and (c >= 0).all() and (c < CODEBOOK).all() for c in done.values())
+          and launches["paged_decode_attention"] == MEDIUM["num_layers"] * n
+          and launches["int8_mm"] == (4 * MEDIUM["num_layers"] + 1) * n
+          and launches["int8_matmul"] == launches["int8_matmul_wide"] == 0 and plain == plain0)
+    emit({"phase": "serving_w8a8", "quantize_mode": "w8a8", "B": SLOTS, "vocab": VOCAB, **MEDIUM,
+          "int_mm": rows, "decode_step": {
+              "max_abs_err_over_max_ref_vs_plain": plain_err, "limit": W8A8_PLAIN_LIMIT,
+              "argmax_agree_frac_vs_plain": plain_agree, "per_block_max_err_over_max_ref": block_err,
+              "per_block_limit": 1e-2, "first_block_update_rel_l2_vs_weight_only": first_block_rel_l2,
+              "rel_l2_vs_weight_only": rel_l2, "rel_l2_limit": W8A8_REL_L2_LIMIT,
+              "max_abs_err_over_max_ref": max_rel, "argmax_agree_frac": agree, "argmax_min": W8A8_ARGMAX_MIN,
+              "launches": step_launches, "eager_step_ms_host_clock": {k: 1e3 * v for k, v in wall.items()},
+              "device_ms_per_step_profiler": {k: 1e3 * v for k, v in device.items()}},
+          "requests": W8A8_REQUESTS, "finished": len(done), "decode_steps": n, "wall_s": seconds,
+          "effective_tokens_per_s": W8A8_REQUESTS * IMAGE_TOKENS / seconds, "launches": launches,
+          "launches_per_step": per_step, "plain_runs_on_cuda": plain - plain0,
+          "pages_free": len(server._free_pages), "pages_total": server._total_pages})
+    if not ok:
+        raise SystemExit("serving_w8a8: a check failed (see the serving_w8a8 line)")
+    return launches
+
+
+def phase_ar_train_remat_dots(algo, batch) -> dict:
+    """The ``ar_train`` model (flash on) under ``remat_policy="dots"``,
+    against full remat and no remat on the same weights and tokens (the
+    codes batch, its categories as given): the loss and every gradient;
+    ``aten.mm`` calls in each backward (a dispatch mode); the peak memory
+    above the resting state; then 3 train steps under each, timed on the
+    host clock, with the kernels' launches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from vector_quantization_tpu_torch.tasks.sequence_modeling import pack_c2i_tokens
+
+    class MMs(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+            return func(*args, **(kwargs or {}))
+
+    model = algo.model
+    tokens = pack_c2i_tokens(batch["category"], batch["codes"], algo.image_codebook)
+    params = list(model.parameters())
+    policies = {"full": (True, None), "dots": (True, "dots"), "none": (False, None)}
+    grads, out = {}, {}
+    for name, (remat, policy) in policies.items():
+        model.remat, model.remat_policy = remat, policy
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = model(tokens, fused_ce_targets=tokens)
+        with MMs() as mms:
+            g = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        out[name] = {"loss": float(loss.detach()), "backward_mm_calls": mms.n,
+                     "peak_gib_above_resting": (torch.cuda.max_memory_allocated() - base) / 2**30}
+        grads[name] = g
+        del loss
+    rel = max(float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp(min=1e-30))
+              for a, b in zip(grads["dots"], grads["full"]))
+    del grads
+    n_layers = model.num_layers
+    for name, (remat, policy) in policies.items():
+        model.remat, model.remat_policy = remat, policy
+        zero_launches()
+        state = algo.init_state(0)
+        times = [1e3 * _timed(lambda: algo.train_step(state, batch))[1] for _ in range(3)]
+        launches, _ = read_launches()
+        out[name].update(step_ms_host_clock=times, step_ms_median=float(np.median(times)),
+                         launches_per_step={k: launches[k] / 3 for k in
+                                            ("flash_attention_fwd", "flash_bwd_dkv", "flash_bwd_dq")})
+        if name == "dots":
+            dots_launches = launches
+    model.remat, model.remat_policy = True, None
+    want = {"flash_attention_fwd": 2 * n_layers, "flash_bwd_dkv": n_layers, "flash_bwd_dq": n_layers}
+    peaks = [out[k]["peak_gib_above_resting"] for k in ("full", "dots", "none")]
+    ok = (out["dots"]["loss"] == out["full"]["loss"] == out["none"]["loss"] and rel <= DOTS_GRAD_REL_LIMIT
+          and out["dots"]["backward_mm_calls"] == out["none"]["backward_mm_calls"]
+          < out["full"]["backward_mm_calls"]
+          and peaks[0] < peaks[1] < peaks[2] and out["dots"]["launches_per_step"] == want)
+    emit({"phase": "ar_train_remat_dots", "config": AR_CONFIG, "flash": True, "batch": AR_CODES_BATCH,
+          "seq": SEQ, "policies": out, "grad_rel_l2_max_dots_vs_full": rel, "grad_limit": DOTS_GRAD_REL_LIMIT,
+          "expected_launches_per_step": want})
+    if not ok:
+        raise SystemExit("ar_train_remat_dots: a check failed (see the ar_train_remat_dots line)")
+    return dots_launches
+
+
 def phase_zoo(vqgan, dev, seed: int) -> tuple[dict, list]:
     """The five phases of the tokenizer zoo and GPT-2: their K1 launches by
     phase, and one-step profiles of four of them (run after the others'
@@ -3161,6 +3539,8 @@ def main() -> int:
     dense_launches = phase_serving_dense(model, dev, args.seed, args.requests, k2_kernels)
     del model
     torch.cuda.empty_cache()
+    w8a8_launches = phase_serving_w8a8(dev, gen, args.seed)
+    torch.cuda.empty_cache()
     gen_launches, profile_generate = phase_generate(dev, args.seed)
     k_vq = phase_vq_lookup(dev, gen)
     torch.cuda.empty_cache()
@@ -3170,6 +3550,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     vqgan_algo, _ = make_vqgan_algorithm(VQGAN_CONFIG, args.seed, dev)
     vqgan_launches, profile_vqgan, vqgan_step_ms = phase_vqgan_train(vqgan_algo, dev, args.seed)
+    torch.cuda.empty_cache()
+    hybrid_launches, profile_hybrid = phase_hybrid_train(dev, args.seed)
     torch.cuda.empty_cache()
     phase_vqgan_anchor(dev)
     torch.cuda.empty_cache()
@@ -3184,6 +3566,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     algo, ar_cfg = make_ar_algorithm(args.seed, dev, vqgan)
     ar_launches, ar_state, codes_batch = phase_ar_train(algo, ar_cfg, dev, args.seed)
+    dots_launches = phase_ar_train_remat_dots(algo, codes_batch)
+    torch.cuda.empty_cache()
     phase_ar_flash_vs_einsum(algo, ar_state, codes_batch)
     phase_ar_generate(algo, ar_state, dev, args.seed)
     torch.cuda.empty_cache()
@@ -3203,6 +3587,7 @@ def main() -> int:
     profile_tokenizer()
     profile_ar_step(algo, ar_state, codes_batch)
     profile_vqgan()
+    profile_hybrid()
     profile_vqkd()
     profile_cluster()
     for profile in zoo_profiles:
@@ -3213,14 +3598,18 @@ def main() -> int:
         k["launches_by_path"] = {"serving": launches[k["name"]],
                                  "generate": gen_launches[k["name"]],
                                  "serving_dense": dense_launches[k["name"]],
-                                 "ar_generation_eval": gen_eval_launches[k["name"]]}
+                                 "ar_generation_eval": gen_eval_launches[k["name"]],
+                                 "serving_w8a8": w8a8_launches[k["name"]]}
         k["dense_path_shapes"] = [{key: r[key] for key in ("shape", "B", "D", "F", "ms", "plain_ms",
                                                            "library_ms", "bound_ms", "max_abs_err")}
                                   for r in k2_dense_rows if r["plan"]["design"] == k["design"]]
     k_attn["launches"] = launches[k_attn["name"]]
+    k_attn["launches_by_path"] = {"serving": launches[k_attn["name"]],
+                                  "serving_w8a8": w8a8_launches[k_attn["name"]]}
     k_vq["launches"] = tok_launches["nearest_codes"]
     k_vq["launches_by_path"] = {"tokenizer": tok_launches["nearest_codes"],
                                 "vqgan_train": vqgan_launches["nearest_codes"],
+                                "hybrid_train": hybrid_launches["nearest_codes"],
                                 "vqkd_train": vqkd_launches["nearest_codes"],
                                 "cluster_train": cluster_launches["nearest_codes"],
                                 "ar_train": ar_launches["nearest_codes"],
@@ -3232,7 +3621,8 @@ def main() -> int:
     for k in k_flash:
         k["launches"] = ar_launches[k["name"]]
         k["launches_by_path"] = {"ar_train": ar_launches[k["name"]], "cli_ar": cli_ar_launches[k["name"]],
-                                 "ar_generation_eval": gen_eval_launches[k["name"]]}
+                                 "ar_generation_eval": gen_eval_launches[k["name"]],
+                                 "ar_train_remat_dots": dots_launches[k["name"]]}
     emit({"kernels": [*k_int8, k_attn, k_vq, *k_flash]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

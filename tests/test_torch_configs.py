@@ -16,9 +16,11 @@ probe's (``configs/ic``), the six domain VQGAN and VQ-KD configs (the
 algorithm on the meta device, both datasets over a folder of JPEGs written
 here), ``configs/fid/interface.py`` over the synthetic dataset and
 ``configs/ar/generation_eval.py`` with its ``FIDMetric`` and
-``AccuracyMetric``.
+``AccuracyMetric``. The VQGAN + VQ-KD hybrid, which no shipped config
+names, builds at the full width ``chip_smoke.py`` trains it at.
 """
 
+import runpy
 from pathlib import Path
 
 import numpy as np
@@ -35,8 +37,9 @@ from vector_quantization_tpu_torch.utils.config import Config
 REPO = Path(__file__).resolve().parents[1]
 CONFIGS = sorted(str(p.relative_to(REPO)) for p in (REPO / "configs").rglob("*.py"))
 
-# registry types the port does not have yet (ROADMAP.md queue A)
-QUEUED = {"VQGANVQKDAlgorithm", "VQGANVQKDModel"}  # the hybrid
+# registry types the port does not have yet (ROADMAP.md queue A): none since
+# the hybrid's (VQGANVQKDAlgorithm, VQGANVQKDModel)
+QUEUED: set[str] = set()
 QUEUED_OPTIMIZERS: set[str] = set()
 # registered, but building it raises
 QUEUED_BUILDS: set[str] = set()
@@ -182,3 +185,25 @@ def test_generation_eval_config_builds_its_metrics():
     assert metrics["fid"].pred == "generated_image" and metrics["fid"].random_init
     assert type(metrics["accuracy"]).__name__ == "AccuracyMetric"
     assert cfg["algorithm"]["eval_generate"] is True
+
+
+def test_hybrid_builds_at_full_width():
+    """The full-width hybrid ``chip_smoke.py`` trains (no shipped config
+    names it): the LlamaGen VQGAN (16384 x 8, 256 px) with VQ-KD's
+    3-block decoder to 512 features on its 16 x 16 grid and the CLIP
+    ViT-B/16 teacher (224 px, 14 x 14 resized to 16 x 16), on the meta
+    device."""
+    smoke = runpy.run_path(str(REPO / "chip_smoke.py"), run_name="chip_smoke_config")
+    cfg = smoke["hybrid_config"]()
+    with torch.device("meta"):
+        algo = AlgorithmRegistry.build(cfg, device="meta")
+    model, teacher = algo.model, algo.teacher
+    assert type(model).__name__ == "VQGANVQKDModel" and tuple(model.quantizer.codebook.shape) == (16384, 8)
+    assert algo.codebook_update == {"type": "normalize"}  # the LlamaGen config's own
+    dec = model.vqkd_decoder
+    assert (dec.in_channels, dec.out_channels) == (32, 512) == (model.vqkd_pre_decode.conv.out_channels,
+                                                                 teacher.out_channels)
+    assert (teacher.image_size, teacher.output_size, teacher.backbone.pos_embed.shape[1]) == (224, 16, 197)
+    branch = sum(p.numel() for n, p in model.named_parameters() if n.startswith("vqkd_"))
+    assert (sum(p.numel() for p in model.parameters()) - branch, branch) == (69_593_227,
+                                                                            smoke["HYBRID_BRANCH_PARAMS"])

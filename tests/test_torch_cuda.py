@@ -731,3 +731,48 @@ def test_inception_features_on_card_match_cpu(dev):
         got = model.to(dev)(images.to(dev)).cpu()
     assert got.shape == (4, 2048)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("b,d,f", [(64, 1024, 3072), (64, 2816, 1024), (64, 1024, 17385), (7, 1024, 17385),
+                                   (1, 64, 40), (16, 32, 8)])
+def test_int_mm_w8a8_matches_plain(dev, b, d, f):
+    # torch._int_mm against the exact int32 sums: the serving projections,
+    # the lm head's F = 17385 padded once to a multiple of 8, and fewer than
+    # 17 rows (padded with zeros per call, sliced back)
+    g = torch.Generator(device=dev).manual_seed(b + d + f)
+    x = torch.randn(b, d, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (d, f), generator=g, device=dev, dtype=torch.int8)
+    s = torch.rand(f, generator=g, device=dev) * 0.02
+    wp, sp = im.prepare_w8a8(w, s)
+    assert wp.shape[1] % im.W8A8_ALIGN == 0 and wp.shape[1] - f < im.W8A8_ALIGN
+    xq, xs = im.quantize_rows_int8(x)
+    calls = im.int8_mm.calls
+    got = im.int8_mm(xq, wp)
+    assert im.int8_mm.calls == calls + 1 and got.dtype == torch.int32 and got.shape == (b, wp.shape[1])
+    assert torch.equal(got, im.int8_mm_reference(xq, wp))
+    out = im.int8_matmul_w8a8(x, wp, sp, f)
+    want = (im.int8_mm_reference(xq, w).float() * xs * s)
+    assert out.shape == (b, f) and torch.equal(out, want)
+
+
+def test_llama_remat_dots_step_on_card_equals_full_remat(dev):
+    # a small flash model: the loss and gradients under remat_policy="dots"
+    # equal full remat's; the launches per step are full remat's (the
+    # forward kernel re-runs in the backward either way)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 300, (4, 257))).to(dev)
+    out = {}
+    for policy in (None, "dots"):
+        model = LlamaTransformer(vocabulary_size=300, hidden_size=128, num_layers=3, num_heads=2, ffn_dim=256,
+                                 dtype="bfloat16", remat=True, remat_policy=policy, flash=True).to(dev)
+        with torch.no_grad():
+            model.lm_head.copy_(torch.randn(model.lm_head.shape, generator=torch.Generator().manual_seed(2))
+                                .to(dev) * 0.02)
+        before = (fa.flash_attention_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+        loss = model(tokens, fused_ce_targets=tokens)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        after = (fa.flash_attention_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (6, 3, 3)
+        out[policy] = (loss, grads)
+    assert torch.equal(out[None][0], out["dots"][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[None][1], out["dots"][1]))

@@ -123,13 +123,44 @@ def test_registry_builds_config_dict():
     ],
 )
 def test_paths_of_later_slices_raise(kwargs):
-    tt = LlamaTransformer(**TINY, remat=True, **kwargs)
-    tokens = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt(tokens, fused_ce_targets=tokens)
+    """The option that was a later slice's runs now: the training loss and
+    its gradients under ``remat_policy="dots"`` equal full remat's
+    (``tests/test_torch_llama_train.py`` holds it to JAX's)."""
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 32, (2, 9)).astype(np.int32))
+    out = []
+    for policy in (None, kwargs["remat_policy"]):
+        tt = LlamaTransformer(**TINY, remat=True, remat_policy=policy)
+        tt.load_state_dict(llama_params_from_flax(_float_params()))
+        loss = tt(tokens, fused_ce_targets=tokens)
+        out.append((loss, torch.autograd.grad(loss, list(tt.parameters()))))
+    (l0, g0), (l1, g1) = out
+    assert torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
 
 
 @pytest.mark.parametrize("kwargs", [dict(quantize_mode="w8a8"), dict(paged_kernel=False)])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        LlamaTransformer(**TINY, **kwargs)
+    """``paged_kernel=False`` (the gather attention on the card) still
+    raises. ``quantize_mode="w8a8"`` is ported: its case holds the w8a8
+    paged decode (fused INT8 weights, INT8 pool) to JAX's step by step."""
+    if "paged_kernel" in kwargs:
+        with pytest.raises(NotImplementedError):
+            LlamaTransformer(**TINY, **kwargs)
+        return
+    params = jax.tree_util.tree_map(np.asarray, jax_fuse(jax_quantize(_float_params())))
+    jt = JaxLlama(**TINY, quantize=True, fused_qkv=True, paged_kernel=True, **kwargs)
+    tt = LlamaTransformer(**TINY, quantize=True, fused_qkv=True, **kwargs)
+    tt.load_state_dict(llama_params_from_flax(params))
+    params = jax.tree_util.tree_map(jnp.asarray, params)
+    table = np.asarray([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
+    jc = jt.init_paged_cache(2, num_pages=9, page_size=4, pages_per_slot=4, dtype=jnp.int8)
+    jc = jc._replace(page_table=jnp.asarray(table))
+    tc = tt.init_paged_cache(2, 9, 4, 4, dtype=torch.int8, device="cpu")
+    tc.page_table.copy_(torch.from_numpy(table))
+    toks = np.asarray([[3], [5]], np.int32)
+    with torch.inference_mode():
+        for step in range(5):
+            pos = np.asarray([step, step + 2], np.int32)
+            jl, jc = jt.apply({"params": params}, jnp.asarray(toks), jc, slot_positions=jnp.asarray(pos))
+            tl, tc = tt(torch.from_numpy(toks), tc, slot_positions=torch.from_numpy(pos))
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
+            toks = np.asarray(jnp.argmax(jl[:, -1:], axis=-1)).astype(np.int32)

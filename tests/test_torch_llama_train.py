@@ -102,14 +102,59 @@ def test_training_forward_matches_jax(flash):
         assert _rel(g, want[name]) <= 1e-4, name
 
 
+@pytest.mark.parametrize("policy", [None, "dots"])
 @pytest.mark.parametrize("flash", [False, True])
-def test_remat_changes_nothing(flash):
+def test_remat_changes_nothing(flash, policy):
+    """Full remat and ``remat_policy="dots"`` (the projections' products
+    kept, the rest re-run) give the loss and gradients of no remat, bit for
+    bit; under "dots" the backward re-runs no ``aten.mm`` (it does exactly
+    no remat's products), under full remat it re-runs the blocks' own."""
     params, tokens = _params(), _tokens(seed=4)
     loss0, g0 = _port_loss_and_grads(_port(params, flash=flash), tokens)
-    loss1, g1 = _port_loss_and_grads(_port(params, flash=flash, remat=True), tokens)
+    loss1, g1 = _port_loss_and_grads(_port(params, flash=flash, remat=True, remat_policy=policy), tokens)
     assert loss0 == loss1
     for name in g0:
         assert torch.equal(g0[name], g1[name]), name
+    mms = [_backward_mms(_port(params, flash=flash, remat=remat, remat_policy=policy), tokens)
+           for remat in (False, True)]
+    assert (mms[1] == mms[0]) == (policy == "dots") and mms[1] >= mms[0]
+
+
+def _backward_mms(model, tokens):
+    """``aten.mm`` calls in the backward of the fused loss."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += func is torch.ops.aten.mm.default
+            return func(*args, **(kwargs or {}))
+
+    t = torch.from_numpy(tokens)
+    loss = model(t, fused_ce_targets=t)
+    with Count():
+        torch.autograd.grad(loss, list(model.parameters()))
+    return Count.n
+
+
+def test_remat_dots_matches_jax():
+    """The loss and every gradient under ``remat_policy="dots"`` against the
+    JAX model's (``nn.remat`` with ``dots_with_no_batch_dims_saveable``),
+    einsum attention: JAX's remat cannot trace the Pallas kernel's
+    interpret mode (its callbacks carry effects). The port's flash path
+    under "dots" equals its full remat, which is held to JAX's above."""
+    params, tokens = _params(), _tokens(seed=6)
+    jt = JaxLlama(**TINY, remat=True, remat_policy="dots")
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jt.apply({"params": p}, jnp.asarray(tokens), fused_ce_targets=jnp.asarray(tokens))
+    ))(jax.tree_util.tree_map(jnp.asarray, params))
+    loss, grads = _port_loss_and_grads(_port(params, remat=True, remat_policy="dots"), tokens)
+    assert abs(loss - float(jloss)) <= 1e-5 * float(jloss)
+    want = _flat(jax.tree_util.tree_map(np.asarray, dict(jgrads)))
+    assert set(grads) == set(want)
+    for name, g in grads.items():
+        assert _rel(g, want[name]) <= 1e-4, name
 
 
 def test_bridge_round_trip_and_unported_options():
@@ -117,6 +162,5 @@ def test_bridge_round_trip_and_unported_options():
     back = _flat(llama_params_to_flax(_port(params)))
     for name, value in _flat(params).items():
         np.testing.assert_array_equal(back[name], value)
-    tokens = torch.from_numpy(_tokens())
-    with pytest.raises(NotImplementedError, match="dots"):
-        _port(params, remat=True, remat_policy="dots")(tokens, fused_ce_targets=tokens)
+    with pytest.raises(ValueError, match="remat_policy"):
+        _port(params, remat=True, remat_policy="everything")

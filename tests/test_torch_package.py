@@ -14,7 +14,7 @@ import torch
 import vector_quantization_tpu_torch
 from vector_quantization_tpu_torch.models.transformers.llama import LlamaTransformer
 from vector_quantization_tpu_torch.ops import flash_attention as fa
-from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul
+from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_w8a8, int8_mm
 from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention
 from vector_quantization_tpu_torch.ops.vq_lookup import nearest_codes, vq_quantize
 from vector_quantization_tpu_torch.registries import AlgorithmRegistry, ModelRegistry
@@ -116,6 +116,7 @@ def test_all_submodules_listed():
         "vector_quantization_tpu_torch.cli.test",
         "vector_quantization_tpu_torch.cli.tokenize",
         "vector_quantization_tpu_torch.cli.demo",
+        "vector_quantization_tpu_torch.algorithms.exp_vqgan_vqkd",
     } <= names
 
 
@@ -170,14 +171,30 @@ def test_vqkd_and_cluster_algorithms_default_to_cuda(monkeypatch, config):
         AlgorithmRegistry.build(cfg)
 
 
+def test_hybrid_algorithm_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config.load(str(REPO / "configs/regression/smoke_anchor.py"))["trainer"]["algorithm"]
+    cfg["type"] = "VQGANVQKDAlgorithm"
+    cfg["model"] = dict(cfg["model"], type="VQGANVQKDModel", vqkd_pre_decode=dict(type="ConvConnector"),
+                        vqkd_decoder=dict(type="ViTDecoder", img_size=16, patch_size=1, in_channels=8,
+                                          out_channels=16, embed_dim=32, depth=1, num_heads=2))
+    cfg["teacher"] = dict(type="PixelTeacher", patch_size=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AlgorithmRegistry.build(cfg)
+    algo = AlgorithmRegistry.build(cfg, device="cpu")
+    modules = (algo.model, algo.discriminator, algo.teacher)
+    assert {t.device.type for m in modules for t in [*m.parameters(), *m.buffers()]} == {"cpu"}
+
+
 def test_cpu_calls_never_count_launches():
     k4 = (fa.flash_attention_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches)
     x = torch.ones(1, 5, 2, 32, requires_grad=True)
     fa.flash_attention(x, x, x).sum().backward()
     assert (fa.flash_attention_fwd.launches, fa.flash_bwd_dkv.launches, fa.flash_bwd_dq.launches) == k4
-    i0, a0, v0 = int8_matmul.launches, paged_decode_attention.launches, nearest_codes.launches
+    i0, a0, v0, m0 = int8_matmul.launches, paged_decode_attention.launches, nearest_codes.launches, int8_mm.calls
     x = torch.ones(2, 8)
     int8_matmul(x, torch.ones(8, 4, dtype=torch.int8), torch.full((4,), 0.5))
+    int8_matmul_w8a8(x, torch.ones(8, 8, dtype=torch.int8), torch.full((8,), 0.5))
     pool = torch.zeros(1, 2, 4, 2, 8)
     paged_decode_attention(
         torch.ones(2, 2, 8), pool, pool, torch.zeros(2, 1, dtype=torch.int32),
@@ -185,7 +202,8 @@ def test_cpu_calls_never_count_launches():
     )
     nearest_codes(torch.ones(3, 8), torch.ones(5, 8), "cosine")
     vq_quantize(torch.ones(3, 8), torch.ones(5, 8))
-    assert (int8_matmul.launches, paged_decode_attention.launches, nearest_codes.launches) == (i0, a0, v0)
+    assert (int8_matmul.launches, paged_decode_attention.launches, nearest_codes.launches,
+            int8_mm.calls) == (i0, a0, v0, m0)
 
 
 def test_pack_c2i_tokens():

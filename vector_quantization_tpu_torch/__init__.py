@@ -45,7 +45,12 @@ Covered so far:
   (``models.metrics``, ``training.metrics.FIDMetric``), ``python -m
   vector_quantization_tpu_torch.cli.{fid,val}``, the domain datasets
   (``data.domains``) and the linear probe (``algorithms.classification``)
-  with the LARS optimizer.
+  with the LARS optimizer;
+- the VQGAN + VQ-KD hybrid (``algorithms.exp_vqgan_vqkd``), the weight
+  converters of ``utils.converters`` (taming VQGAN, LPIPS's VGG16, CLIP's
+  visual tower, GPT-2, HF Llama, BEiT-v2 VQ-KD; LPIPS loads from
+  ``$PRETRAINED/lpips``), the Llama's ``quantize_mode="w8a8"``
+  (``ops.int8_matmul.int8_matmul_w8a8``) and ``remat_policy="dots"``.
 """
 
 __version__ = "0.7.0"
@@ -54,6 +59,7 @@ from . import registries  # noqa: F401
 # importing these registers their classes under the configs' type names
 from .algorithms import ar as _ar  # noqa: F401
 from .algorithms import classification as _classification  # noqa: F401
+from .algorithms import exp_vqgan_vqkd as _exp_vqgan_vqkd  # noqa: F401
 from .algorithms import vqgan as _vqgan_algorithm  # noqa: F401
 from .algorithms import vqkd as _vqkd  # noqa: F401
 from .data import datasets as _datasets  # noqa: F401

@@ -14,12 +14,13 @@ it. Algorithms built from a config run on CUDA unless built with
 
 from __future__ import annotations
 
+import os
 from typing import Any, Mapping
 
 import torch
 from torch import nn
 
-from ..models.losses.lpips import LPIPS
+from ..models.losses.lpips import LPIPS, lpips_state_dict
 from ..models.losses.recon import cosine_loss, l1_loss, mse_loss
 from ..ops import codebook as cb_ops
 from ..ops.distances import normalize, pairwise_distance
@@ -28,6 +29,7 @@ from ..tasks.image_tokenization import model_device
 from ..training.optim import Optimizer, build_optimizer
 from ..training.state import TrainState
 from ..utils.bridge import flax_param_paths, flax_tree
+from ..utils.flags import Store
 
 __all__ = ["Algorithm", "ReconstructionAlgorithm", "apply_codebook_update"]
 
@@ -190,7 +192,18 @@ class ReconstructionAlgorithm(Algorithm):
         self.recon_losses = dict(recon_losses or {"l1": {}, "mse": {}})
         self.codebook_update = dict(codebook_update) if codebook_update else None
         self.lazy_kmeans_init = dict(lazy_kmeans_init) if lazy_kmeans_init is not None else None
-        self.lpips_module = LPIPS().to(self.device) if "lpips" in self.recon_losses else None
+        self.lpips_module = self._build_lpips() if "lpips" in self.recon_losses else None
+
+    def _build_lpips(self) -> LPIPS:
+        """LPIPS with the pretrained VGG16 + lin weights from
+        ``$PRETRAINED/lpips`` where that directory exists (torchvision's and
+        LPIPS's torch files, :func:`...models.losses.lpips.lpips_state_dict`),
+        else at its random init (smoke runs), on the algorithm's device."""
+        module = LPIPS()
+        pretrained = os.path.join(Store.PRETRAINED, "lpips")
+        if os.path.isdir(pretrained):
+            module.load_state_dict(lpips_state_dict(pretrained))
+        return module.to(self.device)
 
     def extra_modules(self) -> dict[str, tuple[nn.Module, bool]]:
         out = super().extra_modules()
@@ -203,7 +216,7 @@ class ReconstructionAlgorithm(Algorithm):
 
     def _init_lpips(self, extra: dict[str, Any]) -> dict[str, Any]:
         """``extra["lpips_params"]``: the frozen LPIPS weights by name (the
-        module's own; random init: no converted VGG weights are ported)."""
+        module's own: pretrained or random, see :meth:`_build_lpips`)."""
         if self.lpips_module is not None:
             extra["lpips_params"] = dict(self.lpips_module.named_parameters())
         return extra

@@ -14,15 +14,25 @@ dropout mode before the ``lin`` convs is not ported: nothing calls it).
 The weights are frozen (``requires_grad=False``): the JAX package keeps
 them in the state's ``extra`` and never differentiates them. Children keep
 flax's names (``vgg.conv{i}``, ``lin{i}``) for the bridge.
+:func:`lpips_state_dict` reads the pretrained weights from the two torch
+files they are published as (where the JAX package reads its converted
+orbax tree).
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["LPIPS"]
+from ...utils.converters import convert_vgg16_lpips, load_torch_state_dict
+
+__all__ = ["LPIPS", "LPIPS_LIN_FILE", "LPIPS_VGG_FILE", "lpips_state_dict"]
+
+LPIPS_VGG_FILE = "vgg16.pth"  # torchvision's vgg16 state dict (vgg16-397923af.pth)
+LPIPS_LIN_FILE = "vgg.pth"  # LPIPS's lin 1x1 convs, ``{i}.weight`` or ``lins.{i}.weight``
 
 _MEAN = (-0.030, -0.088, -0.188)
 _STD = (0.458, 0.448, 0.450)
@@ -74,3 +84,13 @@ class LPIPS(nn.Module):
             lin = getattr(self, f"lin{i}")(torch.square(fp - ft))
             total = total + torch.mean(lin, dim=(1, 2, 3)).mean()
         return total
+
+
+def lpips_state_dict(directory: str) -> dict[str, torch.Tensor]:
+    """An ``LPIPS`` state dict from ``directory``'s ``LPIPS_VGG_FILE`` and
+    ``LPIPS_LIN_FILE`` (both needed), through ``convert_vgg16_lpips``."""
+    paths = [os.path.join(directory, name) for name in (LPIPS_VGG_FILE, LPIPS_LIN_FILE)]
+    missing = [p for p in paths if not os.path.isfile(p)]
+    if missing:
+        raise FileNotFoundError(f"LPIPS weights: {', '.join(missing)} not found")
+    return convert_vgg16_lpips(*(load_torch_state_dict(p) for p in paths))

@@ -10,7 +10,11 @@ INT8 lm head.
   f32, probabilities cast to ``dtype`` before the product with v) or, with
   ``flash=True`` and T > 1, the flash attention kernels
   (``ops/flash_attention.py``); per-block rematerialisation with
-  ``torch.utils.checkpoint`` (``remat=True``); logits from the f32 (or
+  ``torch.utils.checkpoint`` (``remat=True``): the whole block re-run in
+  the backward, or with ``remat_policy="dots"`` selective checkpointing
+  that keeps the projections' products (``aten.mm``/``addmm``, the dots
+  with no batch dimension, as JAX's ``dots_with_no_batch_dims_saveable``)
+  and re-runs the rest; logits from the f32 (or
   ``head_dtype``) head, the INT8 head (``quantize=True``), or with
   ``fused_ce_targets`` the scalar teacher-forced CE of the logits-free head
   (``ops/fused_ce.py``).
@@ -29,22 +33,23 @@ INT8 lm head.
 Parameter names and layouts follow the flax module: projection weights are
 ``(in, out)`` (``kernel`` or ``w_int8`` + ``scale``), the embedding and
 norms are f32, so ``utils/bridge.py`` maps a flax param tree one to one.
-``remat_policy="dots"`` and ``quantize_mode="w8a8"`` are later slices: calls
-that need them raise ``NotImplementedError``.
+``quantize_mode="w8a8"`` runs the INT8 projections and head through
+``int8_matmul_w8a8`` (activations quantised per row, int8 x int8 -> int32).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ...ops.flash_attention import flash_attention
 from ...ops.fused_ce import fused_next_token_ce
-from ...ops.int8_matmul import int8_matmul
+from ...ops.int8_matmul import int8_matmul, int8_matmul_w8a8, prepare_w8a8
 from ...ops.paged_attention import paged_decode_attention
 from ...ops.paged_kv import PagedKVCache, init_paged_cache, paged_update, quant_kv
 from ...registries import TransformerRegistry
@@ -63,8 +68,6 @@ __all__ = [
     "resolve_dtype",
 ]
 
-_REMAT_DOTS = "ROADMAP.md queue A: remat_policy='dots' (selective checkpointing)"
-_W8A8_SLICE = "ROADMAP.md queue A: int8_matmul_w8a8"
 _NEG_MASK = -1e9  # the reference's additive causal mask
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -143,17 +146,52 @@ def resize_rows(a: torch.Tensor, rows: int, shift: int = 0) -> torch.Tensor:
     return out
 
 
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``remat_policy="dots"``: keep the outputs of the products with no
+    batch dimension (a ``Dense`` projection reaches ``aten.mm``), re-run
+    everything else (``bmm``, the flash attention's ``autograd.Function``,
+    RMSNorm, RoPE, SwiGLU)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXTS = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+
+class _W8A8Weights:
+    """An int8 weight and its scale as ``int8_matmul_w8a8`` takes them
+    (:func:`...ops.int8_matmul.prepare_w8a8`), made again only when either
+    tensor is replaced or written (a load, a move to another device)."""
+
+    def __init__(self) -> None:
+        self._key: tuple | None = None
+        self._prepared: tuple[torch.Tensor, torch.Tensor] | None = None
+
+    def __call__(self, w_int8: torch.Tensor, scale: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        key = (w_int8.data_ptr(), w_int8._version, scale.data_ptr(), scale._version)
+        if key != self._key:
+            self._key, self._prepared = key, prepare_w8a8(w_int8, scale)
+        return self._prepared
+
+
 class Int8Dense(nn.Module):
-    """Weight-only INT8 linear (no bias): an int8 ``(in, out)`` weight and a
-    per-output f32 scale; ``int8_matmul`` dequantises inside the product.
+    """INT8 linear (no bias): an int8 ``(in, out)`` weight and a per-output
+    f32 scale. ``mode`` "w8a8": ``int8_matmul_w8a8`` (x quantised per row);
+    else weight-only, ``int8_matmul`` dequantising inside the product.
     Returns the input's dtype, as the flax module does."""
 
-    def __init__(self, in_features: int, features: int) -> None:
+    def __init__(self, in_features: int, features: int, mode: str = "auto") -> None:
         super().__init__()
+        self.mode = mode
         self.register_buffer("w_int8", torch.zeros(in_features, features, dtype=torch.int8))
         self.register_buffer("scale", torch.full((features,), 0.01, dtype=torch.float32))
+        self._w8a8 = _W8A8Weights()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode == "w8a8":
+            w, s = self._w8a8(self.w_int8, self.scale)
+            return int8_matmul_w8a8(x, w, s, self.scale.shape[0]).to(x.dtype)
         return int8_matmul(x, self.w_int8, self.scale).to(x.dtype)
 
 
@@ -279,6 +317,7 @@ class LlamaBlock(nn.Module):
         quantize: bool,
         fused_qkv: bool,
         flash: bool = False,
+        quantize_mode: str = "auto",
     ) -> None:
         super().__init__()
         self.num_heads = num_heads
@@ -289,7 +328,7 @@ class LlamaBlock(nn.Module):
         d = hidden_size
 
         def dense(fin, fout):
-            return Int8Dense(fin, fout) if quantize else Dense(fin, fout, dtype)
+            return Int8Dense(fin, fout, quantize_mode) if quantize else Dense(fin, fout, dtype)
 
         self.input_norm = RMSNorm(d, dtype)
         if fused_qkv:
@@ -388,7 +427,8 @@ class LlamaTransformer(nn.Module):
 
     ``quantize_mode`` "auto", "pallas" and "xla" name the JAX package's
     backends for one function; here all three run ``int8_matmul`` (the
-    CUDA kernel on the card). "w8a8" is not ported and raises.
+    CUDA kernel on the card). "w8a8" quantises the activations too: the
+    projections and the INT8 head run ``int8_matmul_w8a8``.
 
     Weights start as the reference initialises them (N(0, 0.02)
     projections and embedding, zero lm head) from ``seed``; serving loads
@@ -422,9 +462,7 @@ class LlamaTransformer(nn.Module):
         seed: int = 0,
     ) -> None:
         super().__init__()
-        if quantize_mode == "w8a8":
-            raise NotImplementedError(f"quantize_mode='w8a8': {_W8A8_SLICE}")
-        if quantize_mode not in ("auto", "pallas", "xla"):
+        if quantize_mode not in ("auto", "pallas", "xla", "w8a8"):
             raise ValueError(f"unknown quantize_mode {quantize_mode!r}")
         if paged_kernel is False:
             # the gather path is the kernel's plain version: the port runs
@@ -456,7 +494,8 @@ class LlamaTransformer(nn.Module):
         for i in range(num_layers):
             self.add_module(
                 f"layer{i}",
-                LlamaBlock(hidden_size, num_heads, ffn_dim, self.dtype, quantize, fused_qkv, flash),
+                LlamaBlock(hidden_size, num_heads, ffn_dim, self.dtype, quantize, fused_qkv, flash,
+                           quantize_mode),
             )
         self.final_norm = RMSNorm(hidden_size, self.dtype)
         if quantize:
@@ -464,6 +503,7 @@ class LlamaTransformer(nn.Module):
                 "lm_head_int8", torch.zeros(hidden_size, vocabulary_size, dtype=torch.int8)
             )
             self.register_buffer("lm_head_scale", torch.zeros(vocabulary_size))
+            self._w8a8_head = _W8A8Weights()
         else:
             self.lm_head = nn.Parameter(torch.zeros(hidden_size, vocabulary_size))
         self._init_weights(seed)
@@ -501,12 +541,17 @@ class LlamaTransformer(nn.Module):
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """Final hidden states (B, T, D) -> logits (B, T, V) float32: the
-        INT8 head through ``int8_matmul``, else the float head in
-        ``head_dtype`` (None = f32) with f32 sums."""
+        INT8 head through ``int8_matmul`` (``int8_matmul_w8a8`` under
+        "w8a8"), else the float head in ``head_dtype`` (None = f32) with f32
+        sums."""
         b, t = x.shape[:2]
         if self.quantize:
             xh = x.reshape(b * t, self.hidden_size).to(self.dtype)
-            logits = int8_matmul(xh, self.lm_head_int8, self.lm_head_scale)
+            if self.quantize_mode == "w8a8":
+                w, s = self._w8a8_head(self.lm_head_int8, self.lm_head_scale)
+                logits = int8_matmul_w8a8(xh, w, s, self.vocabulary_size)
+            else:
+                logits = int8_matmul(xh, self.lm_head_int8, self.lm_head_scale)
             return logits.reshape(b, t, self.vocabulary_size)
         hd = self.head_dtype or torch.float32
         return torch.matmul(x.to(hd).float(), self.lm_head.to(hd).float())
@@ -566,15 +611,16 @@ class LlamaTransformer(nn.Module):
         x = self.embedding[tokens.long()].to(self.dtype)
         positions = torch.arange(t, device=tokens.device).expand(b, t)
         remat = self.remat and torch.is_grad_enabled()
-        if remat and self.remat_policy == "dots":
-            raise NotImplementedError(_REMAT_DOTS)
+        # "dots": selective checkpointing, the projections' products kept
+        contexts = {"context_fn": _DOTS_CONTEXTS} if self.remat_policy == "dots" else {}
         if fused_ce_targets is not None and self.quantize:
             raise ValueError("fused_ce_targets is a training-path loss (float head)")
         for block in self.blocks():
             if remat:
-                # full per-block remat: only block inputs are kept; the
-                # backward re-runs the block (and its attention kernel)
-                x = checkpoint(block, x, positions, use_reentrant=False)
+                # per-block remat: the block inputs are kept (and under
+                # "dots" the projections' outputs); the backward re-runs
+                # the rest of the block, its attention kernel included
+                x = checkpoint(block, x, positions, use_reentrant=False, **contexts)
             else:
                 x = block(x, positions)
         x = self.final_norm(x)

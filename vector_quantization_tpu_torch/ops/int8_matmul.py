@@ -13,6 +13,12 @@ and a block's share fits, the split-K design (``csrc/int8_matmul.cu``)
 elsewhere. A CPU tensor goes through the plain version
 :func:`int8_matmul_reference`, which repeats the kernels' arithmetic step by
 step. The choice is made by the tensor's device alone.
+
+``int8_matmul_w8a8`` is the JAX package's dynamic-activation variant: x
+quantised per row to int8, an int8 x int8 -> int32 product, rescaled by the
+row and column scales. JAX computes that product with ``lax.dot_general``,
+outside any Pallas kernel, so on the card it is ``torch._int_mm`` (the int8
+tensor cores through cuBLASLt), and its plain version the exact int32 sums.
 """
 
 from __future__ import annotations
@@ -27,8 +33,9 @@ from . import _build
 from .device import H100, Card, card
 
 __all__ = [
-    "DESIGNS", "H100", "Card", "Plan", "card", "int8_matmul", "int8_matmul_reference",
-    "occupancy", "plan", "plan_for", "split_k", "split_k_plan", "wide_plan",
+    "DESIGNS", "H100", "Card", "Plan", "W8A8_ALIGN", "W8A8_MIN_ROWS", "card", "int8_matmul",
+    "int8_matmul_reference", "int8_matmul_w8a8", "int8_mm", "int8_mm_reference", "occupancy", "plan",
+    "plan_for", "prepare_w8a8", "quantize_rows_int8", "split_k", "split_k_plan", "wide_plan",
 ]
 
 _BN, _BM, _BK = 128, 64, 32  # the split-K kernel's tile sizes (csrc/int8_matmul.cu)
@@ -255,3 +262,82 @@ def int8_matmul(
 
 int8_matmul.launches = 0  # every launch
 int8_matmul.design_launches = dict.fromkeys(DESIGNS, 0)  # the launches of each design
+
+
+# -- dynamic-activation INT8 (w8a8) ---------------------------------------------
+
+# torch._int_mm on CUDA takes more than 16 rows, and a depth and a width
+# that are multiples of 8; the weight's width is padded to 16 (cuBLASLt
+# refused a (17, 64) x (64, 40) product on the H100)
+W8A8_MIN_ROWS, W8A8_ALIGN = 17, 16
+
+
+def quantize_rows_int8(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, D) -> (int8 (B, D), f32 scales (B, 1)): per row ``xs = max(max|x|
+    / 127, 1e-8)`` and ``clip(round(x / xs), -127, 127)``, rounding half to
+    even, in f32."""
+    x2 = x2.float()
+    xs = torch.clamp_min(x2.abs().amax(dim=1, keepdim=True) / 127.0, 1e-8)
+    return torch.clamp(torch.round(x2 / xs), -127, 127).to(torch.int8), xs
+
+
+def int8_mm_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version: int8 (M, K) x int8 (K, N) -> the exact int32 sums,
+    computed in float64 (every partial sum, at most 127² K, is an integer
+    below 2^53, so exact in any order)."""
+    if a.is_cuda:
+        int8_mm_reference.cuda_calls += 1
+    return torch.matmul(a.double(), b.double()).to(torch.int32)
+
+
+int8_mm_reference.cuda_calls = 0
+
+
+def int8_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """int8 (M, K) x int8 (K, N) -> int32 (M, N). CUDA tensors go through
+    ``torch._int_mm`` (the int8 tensor cores, through cuBLASLt), their rows
+    padded with zeros to ``W8A8_MIN_ROWS`` where fewer; K and N must be
+    multiples of 8 (:func:`prepare_w8a8` pads a weight's N and lays it out
+    once). CPU tensors take :func:`int8_mm_reference`."""
+    if not a.is_cuda:
+        return int8_mm_reference(a, b)
+    m = a.shape[0]
+    if m < W8A8_MIN_ROWS:
+        a = torch.nn.functional.pad(a, (0, 0, 0, W8A8_MIN_ROWS - m))
+    out = torch._int_mm(a.contiguous(), b)
+    int8_mm.calls += 1
+    return out[:m]
+
+
+int8_mm.calls = 0  # torch._int_mm calls
+
+
+def prepare_w8a8(w_int8: torch.Tensor, scale: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A weight (D, F) and its scale (F,) as :func:`int8_matmul_w8a8` takes
+    them: F padded by zero columns to a multiple of ``W8A8_ALIGN``, and the
+    weight stored column-major (a (D, F) view of its contiguous transpose),
+    the layout cuBLASLt's int8 kernels read fastest (3.7-10.8x row-major's
+    time at the serving shapes on the H100). Done once per weight, never
+    per call; :func:`int8_matmul_w8a8` slices the output back to F."""
+    pad = -w_int8.shape[1] % W8A8_ALIGN
+    if pad:
+        w_int8 = torch.nn.functional.pad(w_int8, (0, pad))
+        scale = torch.nn.functional.pad(scale, (0, pad))
+    return w_int8.t().contiguous().t(), scale
+
+
+def int8_matmul_w8a8(
+    x: torch.Tensor, w_int8: torch.Tensor, scale: torch.Tensor, features: int | None = None
+) -> torch.Tensor:
+    """Dynamic-activation INT8 matmul (``vector_quantization_tpu/ops/
+    int8_matmul.py`` ``int8_matmul_w8a8``): x (..., D) quantised per row by
+    :func:`quantize_rows_int8`, an int8 x int8 -> int32 product
+    (:func:`int8_mm`), then ``acc.float() * xs * scale`` in that order ->
+    (..., F) float32. ``features``: the output's F where ``w_int8`` and
+    ``scale`` carry :func:`prepare_w8a8`'s padding."""
+    lead = x.shape[:-1]
+    xq, xs = quantize_rows_int8(x.reshape(-1, x.shape[-1]))
+    out = int8_mm(xq, w_int8).float() * xs * scale
+    if features is not None and features != out.shape[1]:
+        out = out[:, :features]
+    return out.reshape(*lead, -1)
