@@ -249,6 +249,42 @@ exits non-zero:
    on phase 17's model and state (CFG as the config sets it, alpha 1.75,
    its top-k 600 / top-p 0.92 sampler), 8 classes, then phase 10's VQGAN
    decoder: images (8, 256, 256, 3), finite; seconds per image.
+19a. ``parallel_two_ranks``: two processes spawned on the one card (the
+   kernels built above, loaded, not rebuilt), a ``gloo`` group over a file
+   store carrying CUDA tensors (all-reduce, broadcast), each rank half of
+   every global batch under ``DataParallelStrategy``: a reduced-depth
+   LlamaGen VQGAN (one block a level, GAN on: PatchGAN's BatchNorm and the
+   adaptive weight over both ranks; 4 images of 256 px) and Llama-medium's
+   width at 4 layers with flash (16 code grids), SGD, TF32 off, 2 steps;
+   against one process with the whole batches: the update's relative L2
+   <= 2e-6 for the f32 VQGAN and <= 3e-2 for the Llama (bf16 activations
+   round differently per split), the two ranks' weights bit-equal; K1 once a step, K4
+   launched, no plain version on the card.
+19b. ``parallel_dp``: under a one-rank NCCL group (torchrun's variables set
+   in this process, ``parallel.mesh.init_distributed``; destroyed after),
+   ``build_runner`` on overlays of the LlamaGen VQGAN config (batch 12) and
+   the VQ-KD config (batch 64 of 224 px) with their ``DataParallelStrategy``,
+   2 steps each (host ms per step, synchronised), against the same overlays
+   with ``SingleDeviceStrategy`` from the same seed: the first step's loss
+   and every gradient the optimizer gets within 1e-5 (of the loss, of the
+   model's largest gradient), each step's reported, VQ-KD's k-means
+   codebook within 1e-6 after both steps; K1 once a step (VQ-KD: 11 on the
+   first, the lazy init's 10 iterations); one more step under
+   torch.profiler shows NCCL's all-reduce; no plain version on the card.
+19c. ``parallel_fsdp``: phase 17's model and config, its step at 128 x 257
+   with flash under ``FSDPStrategy`` over ``{"dp": 1, "fsdp": 1}`` (one-rank
+   NCCL group): the loss and every gradient the optimizer gets equal the
+   unwrapped step's (limit 1e-5 of max|ref|), K4 48/24/24 a step, the
+   profile shows the reduce-scatter and the all-gathers; step ms (median
+   of steps 2-3) and peak GiB beside ``ar_train``'s.
+19d. ``parallel_tp``: configs/ar/c2i_llama_medium_tp_imagenet.py with tp=1
+   (its mesh and ``TPStrategy``), Llama-medium with flash and this script's
+   weights: one step's loss and gradients equal the unwrapped step's
+   (1e-5), K4 48/24/24, the profile's all-reduce; then
+   ``ARServer(strategy=TPStrategy, paged=True)`` at Llama-medium width with
+   INT8 weights and KV serving 16 requests against the server without a
+   strategy from the same seed: the same tokens, 256 codes in range each,
+   every page freed, K2 and K3 launched, no plain version on the card.
 20. ``cli_vqgan``: ``python -m vector_quantization_tpu_torch.cli.train``'s
    ``main`` in this process on an overlay of
    configs/llamagen/vqgan_imagenet_ddp.py written to a temporary directory:
@@ -401,7 +437,7 @@ exits non-zero:
    (3072, 8192, 256) l2 and cosine and the probe's (16384, 8192, 256) l2),
    phase 17 for the three flash kernels (and their launches in phases 22
    and 22c), and K1 in phase 12a, K3 (and K2's 0) in phase 7a and K4 in
-   phase 17a; K2's
+   phase 17a, and their launches in phases 19a-19d; K2's
    rows also give their launches in phases 7, 8 and 22c, and phase 6's times
    at the dense path's shapes), device time per call, the bound, the plain
    version's and the yardstick's time.
@@ -2224,7 +2260,7 @@ def phase_ar_train(algo, cfg, dev, seed: int):
           and all(launches[k] == v for k, v in want.items()))
     if not ok:
         raise SystemExit("ar_train: a check failed (see the ar_train line)")
-    return launches, state, codes_batch
+    return launches, state, codes_batch, row
 
 
 
@@ -3513,6 +3549,522 @@ def phase_zoo(vqgan, dev, seed: int) -> tuple[dict, list]:
     torch.cuda.empty_cache()
     return out, profiles
 
+# -- parallelism: the strategies under torch.distributed ---------------------
+# One card: each strategy runs under a one-rank NCCL group at full width
+# (its collectives over one rank), and the data-parallel path also runs in
+# two processes sharing the card over gloo (CUDA tensors through gloo's
+# all-reduce and broadcast). The cross-rank meaning is held by the CPU tests
+# (tests/test_torch_parallel.py).
+TP_CONFIG = "configs/ar/c2i_llama_medium_tp_imagenet.py"
+# VQ-KD at vqkd_train's batch 64: 12,544 features >= 8192 codes, so the
+# lazy init runs its k-means (at 32 it copies the 6,272 features instead)
+PAR_STEPS, PAR_VQKD_BATCH, PAR_SERVE_REQUESTS = 2, 64, 16
+PAR_AR_STEPS = 3  # timed AR steps; the first warms up (the gathers' first allocations)
+# one-rank strategy step vs the unwrapped (or SingleDeviceStrategy) step: the
+# loss, and each gradient the optimizer gets, relative to its max|ref| (the
+# Llama's) or to the model's largest gradient (the tokenizers': a conv bias
+# that GroupNorm cancels has a true gradient of 0 and holds rounding noise,
+# which cuDNN's summation order changes from run to run)
+PAR_GRAD_REL = 1e-5
+# VQ-KD's EMA k-means codebook (unit rows) after the lazy init and 2 steps,
+# DP vs SingleDeviceStrategy: read 6.0e-8-1.2e-7 on an H100 (f32 rounding of
+# the step-2 features, whose weights Adam moved by +-lr where a gradient is
+# rounding noise); the limit is ~8x that
+PAR_CODEBOOK_ABS = 1e-6
+# two ranks x half the batch vs one rank x the whole batch (SGD, TF32 off):
+# the update over all tensors, relative L2, each model's limit ~3x its
+# reading on an H100. The f32 VQGAN read 5.5e-7. The Llama computes in
+# bf16: its activations and their gradients round to 8 bits differently on
+# each split of the batch (9.8e-3)
+TWO_RANK_UPDATE_REL = {"vqgan": 2e-6, "ar": 3e-2}
+TWO_RANK_BATCH, TWO_RANK_AR_BATCH, TWO_RANK_AR_LAYERS = 4, 16, 4
+# SGD: the VQGAN's updates reach ~1 at lr 1e-3; the Llama's gradients are
+# ~1e-2, so its lr is 0.5, lifting its updates well above f32 rounding of
+# the weights (~1e-7), which at lr 1e-3 was 2% of the largest update
+TWO_RANK_LR = {"vqgan": 1e-3, "ar": 0.5}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def one_rank_group():
+    """The default process group from torchrun's variables, set here: one
+    rank, NCCL (``parallel.mesh.init_distributed``); destroyed on exit."""
+    import os
+
+    import torch.distributed as dist
+    from vector_quantization_tpu_torch.parallel.mesh import init_distributed
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        if not init_distributed("cuda") or dist.get_backend() != "nccl":
+            raise SystemExit("parallel: no one-rank NCCL group")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def profiled(fn):
+    """``fn()`` under torch.profiler (CPU and CUDA): (its result, the names
+    of its collectives' events (``c10d::`` ops and NCCL's own), host
+    seconds)."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=activities) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    names = {e.key for e in prof.key_averages()}
+    return out, sorted(n for n in names if "nccl" in n.lower() or n.startswith("c10d::")), seconds
+
+
+def has_collective(names: list[str], op: str) -> bool:
+    return any(op in n.lower().replace("_", "") for n in names)
+
+
+def overlay_runner(tmp: Path, name: str, base: str, body: str, dev):
+    """``build_runner``'s trainer on an overlay of ``base``."""
+    from vector_quantization_tpu_torch.training.runner import build_runner
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    return build_runner(Config.load(write_overlay(tmp, name, base, body)), "trainer", device=dev,
+                        work_dir=str(tmp / name))
+
+
+def phase_parallel_dp(tmp: Path, dev) -> dict:
+    """Two steps of the LlamaGen VQGAN and two of VQ-KD through
+    ``build_runner`` with the configs' ``DataParallelStrategy`` under a
+    one-rank NCCL group (each step's host ms, synchronised), against the
+    same steps under ``SingleDeviceStrategy`` from the same seed: each
+    step's loss and the gradients the optimizer gets, the first step's
+    held to ``PAR_GRAD_REL`` of the model's largest gradient (Adam then
+    moves rounding-noise elements by +-lr, so step 2 starts from weights
+    that differ), VQ-KD's codebook to ``PAR_CODEBOOK_ABS``; then one more DP step under torch.profiler for
+    the all-reduce."""
+    from vector_quantization_tpu_torch.parallel.sharding import DataParallelStrategy, SingleDeviceStrategy
+
+    runs = {"vqgan": (VQGAN_CONFIG, VQGAN_TRAIN_BATCH, IMAGE_SIZE, PAR_STEPS),
+            "vqkd": (VQKD_CONFIG, PAR_VQKD_BATCH, TEACHER_IMAGE, 11 + PAR_STEPS - 1)}  # the lazy init: 10 + 1
+    rows, total, ok = {}, {"nearest_codes": 0}, True
+
+    def recorded_run(runner, times: list | None = None):
+        """``runner.run()``; each step's loss and optimizer gradients (and
+        its host ms into ``times``)."""
+        step, losses = runner.algorithm.train_step, []
+
+        def traced(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))  # synchronises
+            if times is not None:
+                times.append(1e3 * (time.perf_counter() - t0))
+            return state, metrics
+
+        runner.algorithm.train_step = traced
+        with recorded_steps(runner.algorithm.tx(), apply=True) as grads:
+            runner.run()
+        del runner.algorithm.train_step
+        return losses, grads
+
+    for name, (base, batch, size, want_k1) in runs.items():
+        body = f"""
+trainer = dict(
+    dataset=dict(_delete_=True, type='SyntheticDataset', size={2 * batch}, image_size={size}, num_categories=1000),
+    dataloader=dict(_delete_=True, batch_size_in_total={batch}, num_workers=2),
+    max_iters={PAR_STEPS}, callbacks=[],
+)
+"""
+        with one_rank_group():
+            dp = overlay_runner(tmp, f"dp_{name}", base, body, dev)
+            times = []
+            zero_launches()
+            _, plain0 = read_launches()
+            dp_losses, dp_grads = recorded_run(dp, times)
+            launches, plain = read_launches()
+            strategy = dp.strategy
+            group_ok = type(strategy) is DataParallelStrategy and strategy.data_group is not None
+            single = overlay_runner(tmp, f"single_{name}", base, body + (
+                "trainer.update(mesh={'dp': 1}, strategy=dict(type='SingleDeviceStrategy'))\n"), dev)
+            losses, grads = recorded_run(single)
+            codebook = None
+            if name == "vqkd":
+                codebook = float((dp.algorithm.model.quantizer.codebook
+                                  - single.algorithm.model.quantizer.codebook).abs().max())
+            # one more step under torch.profiler: the gradients' all-reduce over NCCL
+            host = {k: v for k, v in next(iter(dp.dataloader)).items() if k != "id_"}
+            batch_dev = strategy.shard_batch(host)
+            _, nccl, _ = profiled(lambda: strategy.train_step(dp.algorithm, dp.state, batch_dev))
+        loss_err = [abs(a - b) / abs(b) for a, b in zip(dp_losses, losses)]
+        grad_err = [grads_err_of_largest(a, b) for a, b in zip(dp_grads, grads)]
+        row = {"config": base, "strategy": type(strategy).__name__, "mesh": strategy.mesh.shape,
+               "batch": batch, "steps": PAR_STEPS, "step_ms_host_clock": times, "launches": launches,
+               "plain_runs_on_cuda": plain - plain0, "collectives": nccl, "single": type(single.strategy).__name__,
+               "losses": dp_losses, "single_losses": losses, "loss_rel_err": loss_err, "grads_max_err_of_largest": grad_err,
+               "grads_max_rel_err_per_tensor": [grads_rel_err(a, b) for a, b in zip(dp_grads, grads)],
+               "limit_step1": PAR_GRAD_REL}
+        ok = (ok and group_ok and isinstance(single.strategy, SingleDeviceStrategy) and single.state.step == PAR_STEPS
+              and len(times) == PAR_STEPS and len(dp_grads) == len(grads) == PAR_STEPS
+              and launches["nearest_codes"] == want_k1 and plain == plain0 and has_collective(nccl, "allreduce")
+              and all(np.isfinite(dp_losses)) and loss_err[0] <= PAR_GRAD_REL and grad_err[0] <= PAR_GRAD_REL)
+        if codebook is not None:
+            row.update(codebook_max_abs_diff=codebook, codebook_limit=PAR_CODEBOOK_ABS)
+            ok = ok and codebook <= PAR_CODEBOOK_ABS
+        rows[name] = row
+        total["nearest_codes"] += launches["nearest_codes"]
+        del dp, single, dp_grads, grads
+        torch.cuda.empty_cache()
+    emit({"phase": "parallel_dp", **rows})
+    if not ok:
+        raise SystemExit("parallel_dp: a check failed (see the parallel_dp line)")
+    return total
+
+
+@contextlib.contextmanager
+def recorded_steps(tx, apply: bool):
+    """``tx.step`` recording each call's gradients (as the optimizer gets
+    them, before the clip); ``apply=False`` leaves the parameters as they
+    are (the unwrapped reference)."""
+    seen: list = []
+    step = tx.step
+
+    def spy(params, grads, state, **kw):
+        seen.append([g.detach().clone() for g in grads])
+        if apply:
+            step(params, grads, state, **kw)
+
+    tx.step = spy
+    try:
+        yield seen
+    finally:
+        del tx.step
+
+
+def grads_rel_err(got: list, want: list) -> float:
+    return max(float((g - w).abs().max() / w.abs().max().clamp(min=1e-30)) for g, w in zip(got, want))
+
+
+def grads_err_of_largest(got: list, want: list) -> float:
+    """The largest gradient difference over the model's largest gradient."""
+    return (max(float((g - w).abs().max()) for g, w in zip(got, want))
+            / max(float(w.abs().max()) for w in want))
+
+
+def strategy_ar_step(algo, strategy, batch, seed: int) -> dict:
+    """The AR step unwrapped (loss and gradients, no update), then the same
+    step through ``strategy`` (bound, attached, sharded) from a state of
+    the same seed (the same CFG draw): ``PAR_AR_STEPS`` steps on the host
+    clock (ms, the median of all but the first; peak memory), then one
+    under torch.profiler for the collectives; K4's launches per step, and
+    the first step's loss and gradients against the unwrapped ones."""
+    ref_state = algo.init_state(seed)
+    with recorded_steps(algo.tx(), apply=False) as ref:
+        _, ref_metrics = algo.train_step(ref_state, batch)
+    ref_loss = float(ref_metrics["loss"])
+    del ref_state
+    torch.cuda.empty_cache()
+    strategy.bind(algo)
+    state = algo.init_state(seed)
+    strategy.attach(algo, state)
+    strategy.shard_state(algo, state)
+    zero_launches()
+    _, plain0 = read_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step = [], [], []
+
+    def step():
+        nonlocal state
+        before = read_launches()[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = strategy.train_step(algo, state, batch)
+        losses.append(float(metrics["loss"]))  # synchronises
+        times.append(time.perf_counter() - t0)
+        after = read_launches()[0]
+        per_step.append({k: after[k] - before[k] for k in ("flash_attention_fwd", "flash_bwd_dkv", "flash_bwd_dq")})
+
+    with recorded_steps(algo.tx(), apply=True) as got:
+        step()
+        first = got.pop()
+        for _ in range(PAR_AR_STEPS - 1):
+            step()
+            got.clear()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _, nccl, _ = profiled(step)
+        got.clear()
+    launches, plain = read_launches()
+    err = grads_rel_err(first, ref[0])
+    strategy.unshard_state(algo, state)
+    algo.strategy = None
+    del ref, first, state
+    torch.cuda.empty_cache()
+    return {"losses": losses, "unwrapped_loss": ref_loss, "loss_rel_err": abs(losses[0] - ref_loss) / abs(ref_loss),
+            "grads_max_rel_err": err, "limit": PAR_GRAD_REL, "k4_per_step": per_step,
+            "step_ms_host_clock": [1e3 * t for t in times[:PAR_AR_STEPS]],
+            "step_ms_median": 1e3 * float(np.median(times[1:PAR_AR_STEPS])),
+            "peak_memory_gib": peak, "launches": launches, "plain_runs_on_cuda": plain - plain0,
+            "nccl_events": nccl}
+
+
+def ar_step_ok(row: dict, n_layers: int) -> bool:
+    want = {"flash_attention_fwd": 2 * n_layers, "flash_bwd_dkv": n_layers, "flash_bwd_dq": n_layers}
+    return (row["loss_rel_err"] <= PAR_GRAD_REL and row["grads_max_rel_err"] <= PAR_GRAD_REL
+            and all(s == want for s in row["k4_per_step"]) and row["plain_runs_on_cuda"] == 0
+            and all(np.isfinite(row["losses"])))
+
+
+def phase_parallel_fsdp(algo, cfg, dev, seed: int, ar_row: dict) -> dict:
+    """Phase 17's Llama-medium C2I step at 128 x 257 with flash under
+    ``FSDPStrategy`` over ``fsdp=1`` (the shards whole, their collectives
+    over one rank): K4 48/24/24 a step, loss and gradients equal the
+    unwrapped step's; step ms and peak memory beside ``ar_train``'s."""
+    from vector_quantization_tpu_torch.parallel.mesh import make_mesh
+    from vector_quantization_tpu_torch.parallel.sharding import FSDPStrategy
+
+    rng = np.random.default_rng(seed + 3)
+    batch = {"codes": torch.from_numpy(rng.integers(0, CODEBOOK, (AR_CODES_BATCH, GRID, GRID))).to(dev),
+             "category": torch.from_numpy(rng.integers(0, NUM_CATEGORIES, AR_CODES_BATCH)).to(dev)}
+    with one_rank_group():
+        strategy = FSDPStrategy(make_mesh({"dp": -1, "fsdp": 1}, device_type="cuda"), device=dev)
+        row = strategy_ar_step(algo, strategy, batch, seed)
+    nccl = row["nccl_events"]
+    n_layers = cfg["transformer"]["num_layers"]
+    row.update(phase="parallel_fsdp", strategy="FSDPStrategy", mesh=strategy.mesh.shape,
+               sharded_params=len(strategy._param_entries), params=len(list(algo.model.parameters())),
+               batch=AR_CODES_BATCH, seq=SEQ,
+               ar_train_codes_step_ms_median=ar_row["codes_step_ms_median"],
+               ar_train_peak_memory_gib=ar_row["peak_memory_gib"])
+    emit(row)
+    if not (ar_step_ok(row, n_layers) and row["sharded_params"] > 0
+            and has_collective(nccl, "reducescatter") and has_collective(nccl, "allgather")):
+        raise SystemExit("parallel_fsdp: a check failed (see the parallel_fsdp line)")
+    return row["launches"]
+
+
+def phase_parallel_tp(vqgan, dev, seed: int) -> dict:
+    """configs/ar/c2i_llama_medium_tp_imagenet.py with tp=1: its strategy
+    and mesh, one Llama-medium step with flash equal to the unwrapped step;
+    then ``ARServer(strategy=TPStrategy, paged=True)`` at Llama-medium
+    width with INT8 weights and KV serving 16 requests against the server
+    without a strategy, same seed: equal tokens."""
+    from vector_quantization_tpu_torch.parallel.mesh import make_mesh
+    from vector_quantization_tpu_torch.registries import AlgorithmRegistry, StrategyRegistry
+    from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook
+    from vector_quantization_tpu_torch.tasks.serving import ARServer
+    from vector_quantization_tpu_torch.utils.bridge import load_ar_from_flax
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    cfg = Config.load(str(Path(__file__).resolve().parent / TP_CONFIG))
+    trainer = cfg["trainer"]
+    acfg = trainer["algorithm"]
+    acfg["transformer"]["flash"] = True
+    acfg["ir"] = vqgan
+    algo = AlgorithmRegistry.build(acfg, device=dev)
+    vocab = algo.model.vocabulary_size  # no CFG token in this config: 17384
+    params = medium_flax_params(seed + 2)
+    params.update(embedding=params["embedding"][:vocab], lm_head=params["lm_head"][:, :vocab])
+    load_ar_from_flax(algo, params)
+    rng = np.random.default_rng(seed + 5)
+    batch = {"codes": torch.from_numpy(rng.integers(0, CODEBOOK, (AR_CODES_BATCH, GRID, GRID))).to(dev),
+             "category": torch.from_numpy(rng.integers(0, NUM_CATEGORIES, AR_CODES_BATCH)).to(dev)}
+    serve = dict(image_tokens=IMAGE_TOKENS, batch_slots=SLOTS, sampler=SAMPLER, cfg_alpha=1.75,
+                 uncond_token=NUM_CATEGORIES, steps_per_sync=STEPS_PER_SYNC, cache_dtype=torch.int8, paged=True,
+                 page_size=PAGE_SIZE, seed=seed, device=dev)
+
+    def serve_all(strategy=None):
+        server = ARServer(make_medium(seed, dev), None, TokenCodebook(NUM_CATEGORIES + 1, CODEBOOK),
+                          strategy=strategy, **serve)
+        for i in range(PAR_SERVE_REQUESTS):
+            server.submit(category=(7 * i) % NUM_CATEGORIES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = dict(server.run_until_drained())
+        torch.cuda.synchronize()
+        return server, done, time.perf_counter() - t0
+
+    _, want, plain_wall = serve_all()
+    torch.cuda.empty_cache()
+    with one_rank_group():
+        mesh = make_mesh({**trainer["mesh"], "tp": 1}, device_type="cuda")
+        strategy = StrategyRegistry.build(trainer["strategy"], mesh=mesh, device=dev)
+        row = strategy_ar_step(algo, strategy, batch, seed)
+        nccl = row["nccl_events"]
+        del algo
+        torch.cuda.empty_cache()
+        zero_launches()
+        _, plain0 = read_launches()
+        server_strategy = StrategyRegistry.build(trainer["strategy"], mesh=mesh, device=dev)
+        server, done, wall = serve_all(server_strategy)
+        launches, plain = read_launches()
+    same = sorted(done) == sorted(want) and all(np.array_equal(done[r], want[r]) for r in want)
+    serving = {"requests": PAR_SERVE_REQUESTS, "wall_s": wall, "tokens_per_s": PAR_SERVE_REQUESTS * IMAGE_TOKENS / wall,
+               "unsharded_wall_s": plain_wall, "tokens_equal_unsharded": same, "launches": launches,
+               "plain_runs_on_cuda": plain - plain0, "cache_heads": int(server.cache.k.shape[-2]),
+               "pages_free": len(server._free_pages), "pages_total": server._total_pages}
+    n_layers = acfg["transformer"]["num_layers"]
+    row.update(phase="parallel_tp", config=TP_CONFIG, strategy=type(strategy).__name__, mesh=mesh.shape,
+               sharded_tensors=len(strategy._param_entries), batch=AR_CODES_BATCH, server=serving)
+    emit(row)
+    ok = (ar_step_ok(row, n_layers) and row["sharded_tensors"] > 0 and has_collective(nccl, "allreduce")
+          and same and len(done) == PAR_SERVE_REQUESTS
+          and all(c.shape == (IMAGE_TOKENS,) and (c >= 0).all() and (c < CODEBOOK).all() for c in done.values())
+          and len(server._free_pages) == server._total_pages and server._pages_reserved == 0
+          and k2_launches(launches) > 0 and launches["paged_decode_attention"] > 0 and plain == plain0)
+    if not ok:
+        raise SystemExit("parallel_tp: a check failed (see the parallel_tp line)")
+    return {"train": row["launches"], "serving": launches}
+
+
+def two_rank_models(dev, seed: int):
+    """The reduced-depth models of ``parallel_two_ranks``, alike in every
+    process: the LlamaGen VQGAN at full width with one block per level (its
+    PatchGAN and LPIPS as configured), and Llama-medium's width at 4 layers
+    with flash (fed codes), SGD, made from ``seed``."""
+    from vector_quantization_tpu_torch.registries import AlgorithmRegistry
+    from vector_quantization_tpu_torch.utils.bridge import load_ar_from_flax
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    root = Path(__file__).resolve().parent
+    sgd = {"type": "sgd", "lr": TWO_RANK_LR["vqgan"]}
+    vcfg = Config.load(str(root / VQGAN_CONFIG))["trainer"]["algorithm"]
+    for part in ("encoder", "decoder"):
+        vcfg["model"][part]["depth_mult"] = 1
+    vcfg.update(optimizer=sgd, d_optimizer=sgd)
+    torch.manual_seed(seed)
+    vqgan = AlgorithmRegistry.build(vcfg, device=dev)
+    load_random_flax_weights(vqgan.model, seed)
+    acfg = Config.load(str(root / AR_CONFIG))["trainer"]["algorithm"]
+    acfg["transformer"].update(flash=True, num_layers=TWO_RANK_AR_LAYERS)
+    acfg["optimizer"] = {"type": "sgd", "lr": TWO_RANK_LR["ar"]}
+    ar = AlgorithmRegistry.build(acfg, device=dev)
+    params = {k: v for k, v in medium_flax_params(seed + 2).items()
+              if not k.startswith("layer") or int(k[5:]) < TWO_RANK_AR_LAYERS}
+    load_ar_from_flax(ar, params)
+    return vqgan, ar
+
+
+def two_rank_train(rank: int, world: int, dev, seed: int) -> dict:
+    """Both models' two steps on this rank's rows of each global batch
+    under ``DataParallelStrategy`` (over the group's ranks; one process: no
+    group), the VQGAN's with the GAN on; the starting and the updated
+    weights on the host, and the launches."""
+    from vector_quantization_tpu_torch.parallel.mesh import make_mesh
+    from vector_quantization_tpu_torch.parallel.sharding import DataParallelStrategy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    vqgan, ar = two_rank_models(dev, seed)
+    rng = np.random.default_rng(seed + 9)
+    images = [{"image": rng.uniform(-1, 1, (TWO_RANK_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)}
+              for _ in range(2)]
+    codes = [{"codes": rng.integers(0, CODEBOOK, (TWO_RANK_AR_BATCH, GRID, GRID)),
+              "category": rng.integers(0, NUM_CATEGORIES, TWO_RANK_AR_BATCH)} for _ in range(2)]
+    out = {}
+    zero_launches()
+    _, plain0 = read_launches()
+    for name, algo, batches in (("vqgan", vqgan, images), ("ar", ar, codes)):
+        out[f"{name}_start"] = {k: v.detach().cpu().clone() for k, v in algo.model.state_dict().items()}
+        strategy = DataParallelStrategy(make_mesh(device_type="cuda"), device=dev)
+        strategy.bind(algo)
+        state = algo.init_state(seed)
+        if name == "vqgan":
+            state.step = VQGAN_D_START  # the GAN on: PatchGAN's BatchNorm, the adaptive weight
+        strategy.attach(algo, state)
+        strategy.shard_state(algo, state)
+        for b in batches:
+            n = next(iter(b.values())).shape[0] // world
+            local = {k: torch.from_numpy(np.ascontiguousarray(v[rank * n:(rank + 1) * n])).to(dev)
+                     for k, v in b.items()}
+            state, _ = strategy.train_step(algo, state, local)
+        strategy.unshard_state(algo, state)
+        out[name] = {k: v.detach().cpu() for k, v in algo.model.state_dict().items()}
+        del state
+    launches, plain = read_launches()
+    out["launches"], out["plain_runs_on_cuda"] = launches, plain - plain0
+    return out
+
+
+def two_rank_child(rank: int, tmp: str, seed: int) -> None:
+    """A spawned rank of ``parallel_two_ranks``: gloo over a file store,
+    the one card, the kernels the parent built (loaded, not rebuilt)."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(str(Path(tmp) / "store"), 2), rank=rank, world_size=2)
+    try:
+        torch.save(two_rank_train(rank, 2, torch.device("cuda", 0), seed), str(Path(tmp) / f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel_two_ranks(tmp: Path, dev, seed: int) -> dict:
+    """Two processes on the one card (spawned after the build), each with
+    half of every global batch, through gloo's all-reduce on CUDA tensors:
+    the updated weights of a reduced-depth VQGAN (GAN on: PatchGAN's
+    BatchNorm over both ranks, the adaptive weight) and Llama (K4) against
+    one process with the whole batch."""
+    import torch.multiprocessing as mp
+
+    work = tmp / "two_ranks"
+    work.mkdir()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(two_rank_child, args=(str(work), seed), nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > 300:
+                raise SystemExit("parallel_two_ranks: the ranks did not finish within 300 s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(str(work / f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    one = two_rank_train(0, 1, dev, seed)
+    torch.cuda.empty_cache()
+    rows, ok = {}, True
+    for name in ("vqgan", "ar"):
+        start = one[f"{name}_start"]
+        keys = [k for k in start if start[k].is_floating_point()]
+        want = torch.cat([(one[name][k] - start[k]).reshape(-1) for k in keys])
+        diff = torch.cat([(got[0][name][k] - one[name][k]).reshape(-1) for k in keys])
+        rel = float(diff.norm() / want.norm().clamp(min=1e-30))
+        replicas = all(torch.equal(got[0][name][k], got[1][name][k]) for k in start)
+        same_start = all(torch.equal(got[0][f"{name}_start"][k], start[k]) for k in start)
+        rows[name] = {"update_norm": float(want.norm()), "max_update": float(want.abs().max()),
+                      "max_abs_diff_two_vs_one": float(diff.abs().max()), "rel_l2": rel,
+                      "limit": TWO_RANK_UPDATE_REL[name], "replicas_equal": replicas, "same_start": same_start}
+        ok = ok and float(want.norm()) > 0 and rel <= TWO_RANK_UPDATE_REL[name] and replicas and same_start
+    launches = got[0]["launches"]
+    row = {"phase": "parallel_two_ranks", "ranks": 2, "backend": "gloo", "tensors_on": "cuda",
+           "global_batch": {"vqgan": TWO_RANK_BATCH, "ar": TWO_RANK_AR_BATCH}, "ar_layers": TWO_RANK_AR_LAYERS,
+           "optimizer": {k: f"sgd lr {v}" for k, v in TWO_RANK_LR.items()}, "tf32": False, "ranks_s": ranks_s, **rows,
+           "launches_rank0": launches, "launches_one_process": one["launches"],
+           "plain_runs_on_cuda": [g["plain_runs_on_cuda"] for g in got] + [one["plain_runs_on_cuda"]]}
+    emit(row)
+    ok = (ok and launches["nearest_codes"] == 2 and launches["flash_attention_fwd"] > 0
+          and not any(row["plain_runs_on_cuda"]))
+    if not ok:
+        raise SystemExit("parallel_two_ranks: a check failed (see the parallel_two_ranks line)")
+    return launches
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3565,11 +4117,20 @@ def main() -> int:
     k_flash = phase_flash_attention(dev, gen)
     torch.cuda.empty_cache()
     algo, ar_cfg = make_ar_algorithm(args.seed, dev, vqgan)
-    ar_launches, ar_state, codes_batch = phase_ar_train(algo, ar_cfg, dev, args.seed)
+    ar_launches, ar_state, codes_batch, ar_row = phase_ar_train(algo, ar_cfg, dev, args.seed)
     dots_launches = phase_ar_train_remat_dots(algo, codes_batch)
     torch.cuda.empty_cache()
     phase_ar_flash_vs_einsum(algo, ar_state, codes_batch)
     phase_ar_generate(algo, ar_state, dev, args.seed)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        two_rank_launches = phase_parallel_two_ranks(Path(tmp), dev, args.seed)
+        torch.cuda.empty_cache()
+        par_dp_launches = phase_parallel_dp(Path(tmp), dev)
+    torch.cuda.empty_cache()
+    fsdp_launches = phase_parallel_fsdp(algo, ar_cfg, dev, args.seed, ar_row)
+    torch.cuda.empty_cache()
+    tp_launches = phase_parallel_tp(vqgan, dev, args.seed)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -3599,13 +4160,15 @@ def main() -> int:
                                  "generate": gen_launches[k["name"]],
                                  "serving_dense": dense_launches[k["name"]],
                                  "ar_generation_eval": gen_eval_launches[k["name"]],
-                                 "serving_w8a8": w8a8_launches[k["name"]]}
+                                 "serving_w8a8": w8a8_launches[k["name"]],
+                                 "parallel_tp_serving": tp_launches["serving"][k["name"]]}
         k["dense_path_shapes"] = [{key: r[key] for key in ("shape", "B", "D", "F", "ms", "plain_ms",
                                                            "library_ms", "bound_ms", "max_abs_err")}
                                   for r in k2_dense_rows if r["plan"]["design"] == k["design"]]
     k_attn["launches"] = launches[k_attn["name"]]
     k_attn["launches_by_path"] = {"serving": launches[k_attn["name"]],
-                                  "serving_w8a8": w8a8_launches[k_attn["name"]]}
+                                  "serving_w8a8": w8a8_launches[k_attn["name"]],
+                                  "parallel_tp_serving": tp_launches["serving"][k_attn["name"]]}
     k_vq["launches"] = tok_launches["nearest_codes"]
     k_vq["launches_by_path"] = {"tokenizer": tok_launches["nearest_codes"],
                                 "vqgan_train": vqgan_launches["nearest_codes"],
@@ -3617,12 +4180,16 @@ def main() -> int:
                                 **cli_eval_launches,
                                 "cli_ar": cli_ar_launches["nearest_codes"], "cli_val": cli_val_launches,
                                 "ar_generation_eval": gen_eval_launches["nearest_codes"], **probe_launches,
-                                **zoo_launches}
+                                **zoo_launches, "parallel_dp": par_dp_launches["nearest_codes"],
+                                "parallel_two_ranks_rank0": two_rank_launches["nearest_codes"]}
     for k in k_flash:
         k["launches"] = ar_launches[k["name"]]
         k["launches_by_path"] = {"ar_train": ar_launches[k["name"]], "cli_ar": cli_ar_launches[k["name"]],
                                  "ar_generation_eval": gen_eval_launches[k["name"]],
-                                 "ar_train_remat_dots": dots_launches[k["name"]]}
+                                 "ar_train_remat_dots": dots_launches[k["name"]],
+                                 "parallel_fsdp": fsdp_launches[k["name"]],
+                                 "parallel_tp": tp_launches["train"][k["name"]],
+                                 "parallel_two_ranks_rank0": two_rank_launches[k["name"]]}
     emit({"kernels": [*k_int8, k_attn, k_vq, *k_flash]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -776,3 +776,133 @@ def test_llama_remat_dots_step_on_card_equals_full_remat(dev):
         out[policy] = (loss, grads)
     assert torch.equal(out[None][0], out["dots"][0])
     assert all(torch.equal(a, b) for a, b in zip(out[None][1], out["dots"][1]))
+
+
+# -- the strategies under a one-rank NCCL group -------------------------------------
+
+
+@pytest.fixture
+def nccl_one_rank(dev, monkeypatch):
+    """The default group from torchrun's variables (one rank, NCCL, a free
+    localhost port), destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vector_quantization_tpu_torch.parallel.mesh import init_distributed
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+                 "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(k, v)
+    assert init_distributed("cuda") and dist.get_backend() == "nccl"
+    yield dev
+    dist.destroy_process_group()
+
+
+def _tiny_ar(dev, flash=True):
+    from pathlib import Path
+
+    from vector_quantization_tpu_torch.registries import AlgorithmRegistry
+    from vector_quantization_tpu_torch.utils.config import Config
+
+    cfg = Config.load(str(Path(__file__).resolve().parents[1] / "configs/regression/ar_anchor.py"))
+    cfg = cfg["trainer"]["algorithm"]
+    cfg["transformer"].update(flash=flash, dtype="bfloat16")  # the kernels take bf16
+    torch.manual_seed(0)
+    algo = AlgorithmRegistry.build(cfg, device=dev)
+    with torch.no_grad():
+        algo.model.lm_head.normal_(0.0, 0.05)
+    rng = np.random.default_rng(0)
+    batch = {"codes": torch.from_numpy(rng.integers(0, 64, (8, 8, 8))).to(dev),
+             "category": torch.from_numpy(rng.integers(0, 10, 8)).to(dev)}
+    return algo, batch
+
+
+def _grads_of_one_step(algo, state, batch, strategy=None):
+    """(loss, the gradients the optimizer got) of one step; the update is
+    applied only under ``strategy``."""
+    seen = []
+    tx = algo.tx()
+    step = tx.step
+
+    def spy(params, grads, opt_state, **kw):
+        seen.append([g.detach().clone() for g in grads])
+        if strategy is not None:
+            step(params, grads, opt_state, **kw)
+
+    tx.step = spy
+    try:
+        if strategy is None:
+            _, m = algo.train_step(state, batch)
+        else:
+            _, m = strategy.train_step(algo, state, batch)
+    finally:
+        del tx.step
+    return float(m["loss"]), seen[0]
+
+
+@pytest.mark.parametrize("kind", ["FSDPStrategy", "TPStrategy", "DataParallelStrategy"])
+def test_one_rank_strategy_ar_step_equals_the_unwrapped_step(nccl_one_rank, kind):
+    # the AR anchor's tiny Llama with flash (K4) under each strategy over a
+    # one-rank NCCL group: the loss and every gradient equal the unwrapped
+    # step's within 1e-6 of max|ref| (its collectives reduce over one rank),
+    # K4 launched, no plain version on the card
+    from vector_quantization_tpu_torch.parallel.mesh import make_mesh
+    from vector_quantization_tpu_torch.registries import StrategyRegistry
+
+    dev = nccl_one_rank
+    algo, batch = _tiny_ar(dev)
+    ref_loss, ref = _grads_of_one_step(algo, algo.init_state(3), batch)
+    axes = {"FSDPStrategy": {"dp": -1, "fsdp": 1}, "TPStrategy": {"dp": -1, "tp": 1}}.get(kind, {"dp": -1})
+    extra = {"min_size": 256} if kind == "FSDPStrategy" else {}
+    strategy = StrategyRegistry.build({"type": kind, **extra}, mesh=make_mesh(axes, device_type="cuda"),
+                                      device=dev)
+    strategy.bind(algo)
+    state = algo.init_state(3)
+    strategy.attach(algo, state)
+    strategy.shard_state(algo, state)
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_reference.cuda_calls)
+    loss, got = _grads_of_one_step(algo, state, batch, strategy)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.launches - before[0] > 0 and fa.flash_attention_reference.cuda_calls == before[1]
+    assert abs(loss - ref_loss) <= 1e-6 * abs(ref_loss)
+    assert len(got) == len(ref)
+    for g, w in zip(got, ref):
+        assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max().clamp(min=1e-30))
+    if kind != "DataParallelStrategy":
+        assert strategy._param_entries
+    strategy.unshard_state(algo, state)
+
+
+def test_one_rank_tp_server_equals_the_unsharded_server(nccl_one_rank):
+    # a tiny INT8 fused Llama served paged with and without TPStrategy(tp=1):
+    # the same tokens from the same seed; K2 and K3 launched, pages freed
+    from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention as k3
+    from vector_quantization_tpu_torch.parallel.mesh import make_mesh
+    from vector_quantization_tpu_torch.parallel.sharding import TPStrategy
+    from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook
+    from vector_quantization_tpu_torch.tasks.serving import ARServer
+
+    dev = nccl_one_rank
+    tiny = dict(vocabulary_size=48, hidden_size=128, num_layers=2, num_heads=2, ffn_dim=256, max_length=64)
+    recipe = dict(image_tokens=16, batch_slots=4, sampler={"temperature": 1.0, "top_k": 8}, cfg_alpha=1.5,
+                  uncond_token=10, steps_per_sync=4, paged=True, page_size=8, cache_dtype=torch.int8,
+                  device=dev, seed=5)
+    out = {}
+    for tp in (False, True):
+        model = LlamaTransformer(**tiny, quantize=True, fused_qkv=True, dtype="bfloat16", seed=1)
+        strategy = TPStrategy(make_mesh({"dp": -1, "tp": 1}, device_type="cuda"), device=dev) if tp else None
+        server = ARServer(model, None, TokenCodebook(11, 32), strategy=strategy, **recipe)
+        for c in (1, 4, 7):
+            server.submit(category=c)
+        before = (int8_matmul.launches, k3.launches)
+        out[tp] = dict(server.run_until_drained())
+        torch.cuda.synchronize()
+        assert int8_matmul.launches > before[0] and k3.launches > before[1]
+        assert len(server._free_pages) == server._total_pages
+    assert out[True].keys() == out[False].keys() == {0, 1, 2}
+    for rid in out[False]:
+        assert np.array_equal(out[True][rid], out[False][rid])

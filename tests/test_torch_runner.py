@@ -33,7 +33,7 @@ from vector_quantization_tpu.training import checkpoints as jax_ckpt
 from vector_quantization_tpu.training.runner import build_runner as jax_build_runner
 from vector_quantization_tpu.training.state import TrainState as JaxTrainState
 from vector_quantization_tpu.utils.config import load_config as jax_load_config
-from vector_quantization_tpu_torch.parallel.mesh import make_mesh
+from vector_quantization_tpu_torch.parallel.mesh import Mesh, make_mesh, resolve_axes
 from vector_quantization_tpu_torch.registries import AlgorithmRegistry, StrategyRegistry
 from vector_quantization_tpu_torch.training import callbacks
 from vector_quantization_tpu_torch.training import checkpoints as ckpt
@@ -317,15 +317,27 @@ def test_build_runner_defaults_to_cuda(monkeypatch):
 
 
 def test_multi_device_strategies_raise():
+    # one process: the mesh spans one rank; a mesh that does not multiply
+    # out raises ValueError, as the JAX package's make_mesh does
     assert make_mesh({"dp": -1}).shape == make_mesh().shape == {"dp": 1}
     for axes in ({"dp": -1, "fsdp": 2}, {"dp": 2}, {"dp": -1, "tp": 2}):
-        with pytest.raises(NotImplementedError, match="Parallelism"):
+        with pytest.raises(ValueError, match="devices"):
             make_mesh(axes)
-    for name in ("FSDPStrategy", "TPStrategy"):
-        with pytest.raises(NotImplementedError, match="Parallelism"):
-            StrategyRegistry.build({"type": name})
-    for name in ("SingleDeviceStrategy", "DataParallelStrategy"):
-        batch = StrategyRegistry.build({"type": name}, device="cpu").shard_batch(
+    assert resolve_axes({"dp": -1, "tp": 2}, 8) == {"dp": 4, "tp": 2}
+    # a mesh of more than one rank needs the world's process groups; one
+    # device's strategy refuses it
+    with pytest.raises(ValueError, match="process groups"):
+        Mesh({"dp": 4, "tp": 2}, device_type="cpu")
+    # TPStrategy without a tp axis or with unknown rules raises; the others build
+    with pytest.raises(ValueError, match="tp"):
+        StrategyRegistry.build({"type": "TPStrategy"}, device="cpu")
+    with pytest.raises(ValueError, match="rule set"):
+        StrategyRegistry.build({"type": "TPStrategy", "rules": "gpt2"}, mesh=make_mesh({"dp": 1, "tp": 1}),
+                               device="cpu")
+    for name in ("SingleDeviceStrategy", "DataParallelStrategy", "FSDPStrategy"):
+        strategy = StrategyRegistry.build({"type": name}, device="cpu")
+        assert (strategy.data_size, strategy.data_rank, strategy.data_group) == (1, 0, None)
+        batch = strategy.shard_batch(
             {"image": np.ones((2, 3), np.float32), "category": np.arange(2, dtype=np.int32)})
         assert batch["image"].dtype == torch.float32 and batch["category"].tolist() == [0, 1]
 

@@ -195,7 +195,7 @@ def test_undersized_pool_queues_requests():
     "kw,exc",
     [
         (dict(sync_chunk=0), ValueError),
-        (dict(strategy=object()), NotImplementedError),
+        (dict(strategy=object()), TypeError),
         (dict(num_pages=2), ValueError),
         (dict(batch_slots=3), ValueError),
         (dict(uncond_token=None), ValueError),

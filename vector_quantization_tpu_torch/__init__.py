@@ -50,10 +50,14 @@ Covered so far:
   converters of ``utils.converters`` (taming VQGAN, LPIPS's VGG16, CLIP's
   visual tower, GPT-2, HF Llama, BEiT-v2 VQ-KD; LPIPS loads from
   ``$PRETRAINED/lpips``), the Llama's ``quantize_mode="w8a8"``
-  (``ops.int8_matmul.int8_matmul_w8a8``) and ``remat_policy="dots"``.
+  (``ops.int8_matmul.int8_matmul_w8a8``) and ``remat_policy="dots"``;
+- parallelism over ``torch.distributed`` (``parallel``: the mesh, data,
+  FSDP and tensor parallelism, the collectives), the global-batch
+  statistics under them (BatchNorm, the codebook updates, the metrics),
+  tensor-parallel serving and ``utils.debug``'s sync assert.
 """
 
-__version__ = "0.7.0"
+__version__ = "0.8.0"
 
 from . import registries  # noqa: F401
 # importing these registers their classes under the configs' type names

@@ -133,7 +133,10 @@ class ARAlgorithm(Algorithm):
             codes = self.encode_image_tokens(batch["image"].to(self.device))
         category = batch["category"].to(self.device, torch.int32)
         if self.cfg is not None and train:
-            u = torch.rand(category.shape, generator=state.rng, device=self.device)
+            # the global batch's draw, this rank's rows of it
+            b = category.shape[0]
+            n, r = (1, 0) if self.strategy is None else (self.strategy.data_size, self.strategy.data_rank)
+            u = torch.rand((n * b,), generator=state.rng, device=self.device)[r * b:(r + 1) * b]
             category = torch.where(u < self.cfg, self.uncondition_token, category)
         return pack_c2i_tokens(category, codes, self.image_codebook)
 
@@ -152,7 +155,7 @@ class ARAlgorithm(Algorithm):
         else:
             loss = next_token_ce(model(tokens), tokens)
         grads = list(torch.autograd.grad(loss, params))
-        self.tx().step(params, grads, state.opt_state)
+        self.apply_gradients(self.tx(), params, grads, state.opt_state)
         state.step += 1
         return state, {"loss": loss.detach()}
 

@@ -8,7 +8,11 @@ An algorithm owns the trained model and the optimizer config and exposes
 ``init_state``, ``train_step`` and ``eval_step``. Where the JAX package's
 steps are pure functions that return a new state, the port's update the
 state's parameters, optimizer moments and ``extra`` in place and return
-it. Algorithms built from a config run on CUDA unless built with
+it. A step's gradients go through :meth:`Algorithm.apply_gradients`, the
+strategy's seam (``parallel/sharding.py``: averaged over the data axes,
+sharded parameters stepped on their shards); the codebook's statistics,
+the lazy k-means init and CVQ's anchors run over the global batch with
+the strategy's data group, as the JAX package's global arrays do. Algorithms built from a config run on CUDA unless built with
 ``device="cpu"`` (``AlgorithmRegistry.build(cfg, device="cpu")``).
 """
 
@@ -24,6 +28,7 @@ from ..models.losses.lpips import LPIPS, lpips_state_dict
 from ..models.losses.recon import cosine_loss, l1_loss, mse_loss
 from ..ops import codebook as cb_ops
 from ..ops.distances import normalize, pairwise_distance
+from ..parallel.collectives import all_gather_cat, broadcast_
 from ..registries import AlgorithmRegistry, ModelRegistry
 from ..tasks.image_tokenization import model_device
 from ..training.optim import Optimizer, build_optimizer
@@ -44,10 +49,12 @@ def apply_codebook_update(
     codes: torch.Tensor | None = None,
     extra: dict[str, Any] | None = None,
     generator: torch.Generator | None = None,
+    group=None,
 ) -> None:
     """The configured non-gradient codebook update, applied to the
     ``codebook`` parameter (and ``extra``) in place, from the step's
-    quantizer features ``x`` (its ``aux["x"]``) and ``codes``:
+    quantizer features ``x`` (its ``aux["x"]``) and ``codes``, this rank's
+    rows of the global batch where ``group`` is the data group:
 
     - ``{"type": "normalize"}``: the spherical re-projection
       ``e · rsqrt(Σ e² + 1e-12)`` of every row;
@@ -59,6 +66,9 @@ def apply_codebook_update(
       ``extra["probability"]``. The anchors ``multinomial`` and ``random``
       draw from ``generator`` (the state's); ``cached`` also reads
       ``extra["anchor_cache"]`` and leaves this step's anchors there.
+      Over a group the features and distances are all-gathered first (the
+      JAX package's arrays are global there whatever ``sync`` says), so
+      every rank draws the same anchors.
     """
     kind = cfg["type"]
     if kind == "normalize":
@@ -66,15 +76,16 @@ def apply_codebook_update(
     elif kind == "kmeans":
         codebook.copy_(cb_ops.kmeans_update(
             codebook, x, codes, decay=cfg.get("decay", 0.99),
-            normalize_input=cfg.get("normalize_input", True), renormalize=cfg.get("renormalize", True)))
+            normalize_input=cfg.get("normalize_input", True), renormalize=cfg.get("renormalize", True),
+            group=group))
     elif kind == "cvq":
-        x = x.reshape(-1, x.shape[-1])
+        x = all_gather_cat(x.reshape(-1, x.shape[-1]), group)
         d = pairwise_distance(x, codebook, "l2")
         anchor = cfg.get("anchor", "nearest")
         anchors = cb_ops.cvq_anchors(x, d, anchor, generator, extra.get("anchor_cache"))
         new, p = cb_ops.cvq_update(codebook, extra["probability"], x, d, codes,
                                    ema_decay=cfg.get("ema_decay", 0.99), eps=cfg.get("eps", 1e-3),
-                                   anchors=anchors)
+                                   anchors=anchors, group=group)
         codebook.copy_(new)
         extra["probability"] = p
         if anchor == "cached":
@@ -85,7 +96,11 @@ def apply_codebook_update(
 
 class Algorithm:
     """Base: owns model + optimizer (+ an EMA shadow of the model's
-    parameters when ``ema_decay`` is set); subclasses define the loss."""
+    parameters when ``ema_decay`` is set); subclasses define the loss.
+    ``strategy`` is the runner's (``Strategy.bind`` sets it; None: one
+    device, nothing reduced)."""
+
+    strategy = None
 
     def __init__(
         self,
@@ -129,6 +144,20 @@ class Algorithm:
                     p.requires_grad_(False)
         return self._tx
 
+    @property
+    def data_group(self):
+        """The strategy's data group (None: one process)."""
+        return None if self.strategy is None else self.strategy.data_group
+
+    def apply_gradients(self, tx: Optimizer, params: list[torch.Tensor], grads: list[torch.Tensor],
+                        opt_state: dict) -> None:
+        """``tx.step`` through the strategy (gradients of this rank's rows
+        -> the global batch's)."""
+        if self.strategy is None:
+            tx.step(params, grads, opt_state)
+        else:
+            self.strategy.apply_gradients(tx, params, grads, opt_state)
+
     def init_state(self, seed: int = 0) -> TrainState:
         """Step 0: the model's current weights, fresh optimizer moments, and
         a generator seeded with ``seed`` on the model's device."""
@@ -171,6 +200,7 @@ class ReconstructionAlgorithm(Algorithm):
     update). ``model`` is a config (built on ``device``) or a module."""
 
     codebook_name = "quantizer.codebook"
+    codebook_path = ("quantizer", "codebook")  # in param_tree (SyncCheckCallback)
 
     def __init__(
         self,
@@ -269,13 +299,15 @@ class ReconstructionAlgorithm(Algorithm):
         if self.codebook_update is not None:
             x, codes = (None, None) if qout is None else (qout.aux["x"], qout.codes)
             apply_codebook_update(self.codebook_update, state.model.get_parameter(self.codebook_name),
-                                  x, codes, state.extra, state.rng)
+                                  x, codes, state.extra, state.rng, self.data_group)
 
     @torch.no_grad()
     def _maybe_lazy_init(self, state: TrainState, image: torch.Tensor) -> None:
-        """On the first step: the codebook from k-means over this batch's
-        features (:func:`...ops.codebook.kmeans_init`, drawing from
-        ``state.rng``)."""
+        """On the first step: the codebook from k-means over the global
+        batch's features (:func:`...ops.codebook.kmeans_init` over the data
+        group's gathered rows, drawing from ``state.rng``, the same on every
+        rank); data rank 0's result is broadcast, so the replicas agree bit
+        for bit whatever order the device's atomics summed in."""
         if state.extra["initialized"]:
             return
         cfg = self.lazy_kmeans_init
@@ -283,7 +315,8 @@ class ReconstructionAlgorithm(Algorithm):
         feat = state.model.encode(image)
         codebook.copy_(cb_ops.kmeans_init(
             feat, codebook.shape[0], state.rng, iters=cfg.get("iters", 10),
-            normalize_input=cfg.get("normalize_input", True)).to(codebook.dtype))
+            normalize_input=cfg.get("normalize_input", True), group=self.data_group).to(codebook.dtype))
+        broadcast_(codebook.data, self.data_group)
         state.extra["initialized"] = True
 
     def _step_gradients(self, state: TrainState, total: torch.Tensor) -> None:
@@ -291,7 +324,7 @@ class ReconstructionAlgorithm(Algorithm):
         trained parameters."""
         params, tx = state.params(), self.tx()
         grads = torch.autograd.grad(total, tx.trained(params), allow_unused=True, materialize_grads=True)
-        tx.step(params, list(grads), state.opt_state)
+        self.apply_gradients(tx, params, list(grads), state.opt_state)
 
     # -- steps -------------------------------------------------------------
 

@@ -105,7 +105,7 @@ class ClassificationAlgorithm(Algorithm):
         loss = F.cross_entropy(state.model(feats, train=True), labels)
         params = state.params()
         grads = list(torch.autograd.grad(loss, self.tx().trained(params)))
-        self.tx().step(params, grads, state.opt_state)
+        self.apply_gradients(self.tx(), params, grads, state.opt_state)
         state.step += 1
         return state, {"loss": loss.detach()}
 

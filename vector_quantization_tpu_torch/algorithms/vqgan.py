@@ -61,6 +61,8 @@ G_LOSSES = {"vanilla": vanilla_g_loss, "non_saturating": non_saturating_g_loss}
 
 @AlgorithmRegistry.register()
 class VQGANAlgorithm(ReconstructionAlgorithm):
+    codebook_path = ("generator", "quantizer", "codebook")
+
     def __init__(
         self,
         *,
@@ -128,6 +130,8 @@ class VQGANAlgorithm(ReconstructionAlgorithm):
     def _aglw(self, r_loss, g_loss, last) -> torch.Tensor:
         (r_grad,) = torch.autograd.grad(r_loss, last, retain_graph=True)
         (g_grad,) = torch.autograd.grad(g_loss, last, retain_graph=True)
+        if self.strategy is not None:  # the global losses' gradients
+            self.strategy.reduce_mean([r_grad, g_grad])
         aglw = torch.linalg.vector_norm(r_grad) / (torch.linalg.vector_norm(g_grad) + 1e-4)
         return torch.clamp(aglw, 0.0, 1e4).detach() * self.aglw_gain
 
@@ -174,7 +178,7 @@ class VQGANAlgorithm(ReconstructionAlgorithm):
             d_loss = hinge_d_loss(logits_fake, logits_real)
             d_grads = torch.autograd.grad(d_loss + r1, d_params, allow_unused=True,
                                           materialize_grads=True)
-            self.d_tx().step(d_params, list(d_grads), state.d_opt_state)
+            self.apply_gradients(self.d_tx(), d_params, list(d_grads), state.d_opt_state)
 
         self.maybe_update_ema(state.extra, model)
         state.step += 1

@@ -6,7 +6,9 @@ PATH=VALUE ...] [--load-model-from CKPT ...] [--load-from CKPT]
 Python literals where they can be; ``--override`` patches dotted/indexed
 config paths; ``--device`` defaults to CUDA (``cpu`` runs the kernels' plain
 versions). The config's ``custom_imports`` are imported before a runner is
-built.
+built. Under ``torchrun`` every rank runs the command (``parallel.mesh.
+init_distributed`` starts the group from torchrun's environment); rank 0
+alone logs at INFO and writes ``run.log`` and ``config.json``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import os
 import sys
 from typing import Any
 
+from ..parallel.mesh import process_index
 from ..utils.config import Config, load_config
 
 __all__ = ["build_parser", "parse_kv", "prepare", "log_run"]
@@ -59,7 +62,7 @@ def prepare(args: argparse.Namespace) -> Config:
         handler = logging.StreamHandler()
         handler.setFormatter(logging.Formatter(_FORMAT))
         logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if process_index() == 0 else logging.WARNING)
     logger.propagate = False
     config = load_config(args.config, **parse_kv(args.config_options))
     config.override(parse_kv(args.override))
@@ -72,8 +75,11 @@ def prepare(args: argparse.Namespace) -> Config:
 
 def log_run(work_dir: str, config: Config) -> None:
     """The command line into ``work_dir/run.log``, the config into
-    ``work_dir/config.json``, and every later log line into ``run.log``."""
+    ``work_dir/config.json``, and every later log line into ``run.log``
+    (rank 0's; the other ranks write nothing)."""
     os.makedirs(work_dir, exist_ok=True)
+    if process_index():
+        return
     log_file = os.path.join(work_dir, "run.log")
     with open(log_file, "a") as f:
         f.write(" ".join(sys.argv) + "\n")

@@ -21,12 +21,13 @@ import itertools
 import logging
 import os
 
+import numpy as np
 import torch
 
 from ..data.loader import DataLoader
 from ..models.metrics.fid import FIDStatistics
 from ..models.metrics.inception import load_inception
-from ..parallel.mesh import init_distributed
+from ..parallel.mesh import host_allreduce_sum, init_distributed, process_index
 from ..registries import DatasetRegistry
 from ..tasks.image_tokenization import model_device
 from ..utils.flags import Store
@@ -41,7 +42,7 @@ def main(argv=None) -> str:
     parser.add_argument("--inception-weights", default=None)
     parser.add_argument("--split", default="validator")
     args = parser.parse_args(argv)
-    init_distributed()
+    init_distributed(args.device)
     config = prepare(args)
     device = model_device(args.device)
     split = config[args.split]
@@ -58,10 +59,14 @@ def main(argv=None) -> str:
             stats.update(model(torch.from_numpy(batch["original_image"]).to(device)).cpu().numpy())
             if i % 10 == 0:
                 logger.info("fid cache: %d/%d batches", i, n)
+    # every process's rows: the float64 sums added over the processes
+    stats.n = int(host_allreduce_sum(np.asarray(stats.n, np.int64)))
+    stats.sum, stats.sum_outer = host_allreduce_sum(stats.sum), host_allreduce_sum(stats.sum_outer)
     fid_path = args.fid_path or dataset.fid_path or os.path.join("work_dirs", args.name, f"{dataset.name}_fid.npz")
-    os.makedirs(os.path.dirname(fid_path) or ".", exist_ok=True)
-    stats.save(fid_path)
-    logger.info("saved FID stats (n=%d) to %s", stats.n, fid_path)
+    if process_index() == 0:
+        os.makedirs(os.path.dirname(fid_path) or ".", exist_ok=True)
+        stats.save(fid_path)
+        logger.info("saved FID stats (n=%d) to %s", stats.n, fid_path)
     return fid_path
 
 

@@ -19,7 +19,7 @@ def main(argv=None) -> dict[str, float]:
     parser = build_parser(__doc__)
     parser.add_argument("--visual", default=None, help="regex over memo keys to dump as images")
     args = parser.parse_args(argv)
-    init_distributed()
+    init_distributed(args.device)
     config = prepare(args)
     validator = build_runner(config, "validator", device=args.device, work_dir=args.work_dir)
     if args.visual:

@@ -27,7 +27,7 @@ def main(argv=None) -> str:
     parser.add_argument("--train", action="store_true", help="tokenize the trainer's split")
     parser.add_argument("--output", default=None)
     args = parser.parse_args(argv)
-    init_distributed()
+    init_distributed(args.device)
     config = prepare(args)
     cfg = config.copy()
     if args.train:

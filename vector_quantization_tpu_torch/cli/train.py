@@ -17,7 +17,7 @@ from .common import build_parser, log_run, prepare
 
 def main(argv=None):
     args = build_parser(__doc__).parse_args(argv)
-    init_distributed()
+    init_distributed(args.device)
     config = prepare(args)
     trainer = build_runner(config, "trainer", device=args.device, work_dir=args.work_dir)
     log_run(trainer.work_dir, config)

@@ -18,7 +18,7 @@ import logging
 import os
 import time
 
-from ..parallel.mesh import init_distributed
+from ..parallel.mesh import init_distributed, process_index
 from ..training.checkpoints import checkpoint_file
 from ..training.runner import build_runner
 from ..utils.flags import Store
@@ -83,13 +83,13 @@ def main(argv=None) -> dict[str, dict[str, float]]:
     parser.add_argument("--max-idle-rounds", type=int, default=None)
     parser.add_argument("--visual", default=None, help="regex over memo keys to dump as images")
     args = parser.parse_args(argv)
-    init_distributed()
+    init_distributed(args.device)
     config = prepare(args)
     validator = build_runner(config, "validator", device=args.device, work_dir=args.work_dir)
     if args.visual:
         validator.visual = {"pattern": args.visual, "keys": ["pred", "generated_image", "half_generated"],
                             **(validator.visual or {})}
-    writer = _writer(os.path.join(validator.work_dir, "tensorboard"))
+    writer = _writer(os.path.join(validator.work_dir, "tensorboard")) if process_index() == 0 else None
     monitor = CheckpointMonitor(os.path.join(validator.work_dir, "checkpoints"),
                                 max_idle_rounds=args.max_idle_rounds or (1 if Store.DRY_RUN else None))
     whitelist = set(args.load_from.split(",")) if args.load_from else None

@@ -16,7 +16,9 @@ that same variance, momentum 0.99 (``new = 0.99·old + 0.01·batch``),
 epsilon 1e-5; ``train=False`` normalises by the running statistics, the
 buffers ``mean`` and ``var`` (flax's ``batch_stats``). Its scale starts at
 1 (flax's default), or N(1, ``scale_std``) where that is given (PatchGAN's
-0.02); its bias at 0.
+0.02); its bias at 0. With ``group`` set (a strategy's data group) the batch
+mean and ``E[x²]`` are averaged over the group's ranks, forward and
+backward, so the statistics are the global batch's, as under GSPMD.
 """
 
 from __future__ import annotations
@@ -27,12 +29,28 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_reduce_sum, group_size
+
 __all__ = ["BatchNorm", "GroupNorm32", "ResBlock", "AttnBlock", "Downsample", "Upsample"]
+
+
+class _GroupMean(torch.autograd.Function):
+    """The mean over a process group, forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x.clone(), group) / group_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.clone(), ctx.group) / group_size(ctx.group), None
 
 
 class BatchNorm(nn.Module):
     def __init__(self, channels: int, momentum: float = 0.99, eps: float = 1e-5, scale_std: float = 0.0) -> None:
         super().__init__()
+        self.group = None  # the data group the batch statistics span
         self.momentum, self.eps = momentum, eps
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -46,7 +64,10 @@ class BatchNorm(nn.Module):
         if train:
             dims = (0, *range(2, x.dim()))
             mean = torch.mean(x, dim=dims)
-            var = torch.clamp(torch.mean(torch.square(x), dim=dims) - torch.square(mean), min=0.0)
+            mean_sq = torch.mean(torch.square(x), dim=dims)
+            if self.group is not None:
+                mean, mean_sq = _GroupMean.apply(torch.stack([mean, mean_sq]), self.group).unbind()
+            var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
                 self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)

@@ -35,6 +35,18 @@ Parameter names and layouts follow the flax module: projection weights are
 norms are f32, so ``utils/bridge.py`` maps a flax param tree one to one.
 ``quantize_mode="w8a8"`` runs the INT8 projections and head through
 ``int8_matmul_w8a8`` (activations quantised per row, int8 x int8 -> int32).
+
+Tensor parallelism (:func:`shard_llama_tp`, ``parallel.sharding.TPStrategy``)
+replaces the weights by one rank's shards in place, Megatron-style over a
+process group: q/k/v and gate/up column-parallel (each rank holds its heads'
+q, k and v and its own gate and up columns, also in the fused ``q|k|v`` and
+``gate|up`` layouts, an INT8 projection's scales split with its columns),
+o and down row-parallel with their outputs summed over the group; the
+embedding and the lm head split over the vocabulary where it divides, the
+logits gathered before sampling or the CE (the fused CE gathers the head's
+weight). A module that does not divide (heads, ffn or vocabulary by the
+group's size) stays replicated. Each rank runs the attention kernels on its
+own heads, and its caches hold its own heads.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ from ...ops.fused_ce import fused_next_token_ce
 from ...ops.int8_matmul import int8_matmul, int8_matmul_w8a8, prepare_w8a8
 from ...ops.paged_attention import paged_decode_attention
 from ...ops.paged_kv import PagedKVCache, init_paged_cache, paged_update, quant_kv
+from ...parallel.collectives import Layout, copy_to_group, gather_from_group, reduce_from_group
 from ...registries import TransformerRegistry
 
 __all__ = [
@@ -64,6 +77,7 @@ __all__ = [
     "quantize_params_int8",
     "fuse_llama_params",
     "make_dense_cache",
+    "shard_llama_tp",
     "resize_rows",
     "resolve_dtype",
 ]
@@ -187,12 +201,17 @@ class Int8Dense(nn.Module):
         self.register_buffer("w_int8", torch.zeros(in_features, features, dtype=torch.int8))
         self.register_buffer("scale", torch.full((features,), 0.01, dtype=torch.float32))
         self._w8a8 = _W8A8Weights()
+        self.tp_in = self.tp_out = None  # tensor parallel: column / row group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to_group(x, self.tp_in)
         if self.mode == "w8a8":
             w, s = self._w8a8(self.w_int8, self.scale)
-            return int8_matmul_w8a8(x, w, s, self.scale.shape[0]).to(x.dtype)
-        return int8_matmul(x, self.w_int8, self.scale).to(x.dtype)
+            out = int8_matmul_w8a8(x, w, s, self.scale.shape[0])
+        else:
+            out = int8_matmul(x, self.w_int8, self.scale)
+        # a row-parallel product's partial sums are reduced in f32
+        return reduce_from_group(out, self.tp_out).to(x.dtype)
 
 
 class Dense(nn.Module):
@@ -203,9 +222,11 @@ class Dense(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.zeros(in_features, features))
+        self.tp_in = self.tp_out = None  # tensor parallel: column / row group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        x = copy_to_group(x, self.tp_in)
+        return reduce_from_group(torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype)), self.tp_out)
 
 
 class RMSNorm(nn.Module):
@@ -321,6 +342,7 @@ class LlamaBlock(nn.Module):
     ) -> None:
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = hidden_size // num_heads
         self.flash = flash
         self.ffn_dim = ffn_dim
         self.dtype = dtype
@@ -347,13 +369,13 @@ class LlamaBlock(nn.Module):
         self.down_proj = dense(ffn_dim, d)
 
     def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        """input norm, q/k/v projections, RoPE: three (B, T, H, Dh)."""
-        b, t, d = x.shape
-        h = self.num_heads
-        dh = d // h
+        """input norm, q/k/v projections, RoPE: three (B, T, H, Dh) (H this
+        rank's heads under tensor parallelism)."""
+        b, t, _ = x.shape
+        h, dh = self.num_heads, self.head_dim
         y = self.input_norm(x)
         if self.fused_qkv:
-            q, k, v = self.qkv_proj(y).split(d, dim=-1)  # q|k|v
+            q, k, v = self.qkv_proj(y).split(h * dh, dim=-1)  # q|k|v
         else:
             q, k, v = self.q_proj(y), self.k_proj(y), self.v_proj(y)
         q = _rope(q.reshape(b, t, h, dh), positions)
@@ -377,7 +399,7 @@ class LlamaBlock(nn.Module):
         :func:`_dense_cache_attention`): writes at ``offset`` in place,
         then attends over the window under the additive ``mask``
         (B or 1, 1, T, S)."""
-        b, t, d = x.shape
+        b, t, _ = x.shape
         q, k, v = self._qkv(x, positions)
         if cache is None:
             if self.flash and t > 1:
@@ -398,7 +420,7 @@ class LlamaBlock(nn.Module):
             ).to(self.dtype)
         else:
             attn = _dense_cache_attention(q, k, v, cache, offset, mask, self.dtype)
-        x = x + self.o_proj(attn.reshape(b, t, d))
+        x = x + self.o_proj(attn.reshape(b, t, self.num_heads * self.head_dim))
         return self._ffn(x)
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
@@ -489,6 +511,10 @@ class LlamaTransformer(nn.Module):
         self.flash = flash
         self.head_dtype = resolve_dtype(head_dtype)
         self.fused_ce_chunk = fused_ce_chunk
+        # tensor parallel over the vocabulary: the group, and this rank's
+        # first row of the embedding (column of the head)
+        self.tp_vocab = None
+        self.vocab_start = 0
 
         self.embedding = nn.Parameter(torch.zeros(vocabulary_size, hidden_size))
         for i in range(num_layers):
@@ -539,22 +565,42 @@ class LlamaTransformer(nn.Module):
             return self._paged_forward(tokens, cache, slot_positions, row_starts)
         return self._dense_forward(tokens, cache, slot_positions, row_starts)
 
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank's attention and caches hold (all of them
+        without tensor parallelism)."""
+        return self.blocks()[0].num_heads
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings in ``dtype``; split over the vocabulary, each
+        rank looks up its own rows and the group sums them."""
+        if self.tp_vocab is None:
+            return self.embedding[tokens.long()].to(self.dtype)
+        local = tokens.long() - self.vocab_start
+        mine = (local >= 0) & (local < self.embedding.shape[0])
+        x = self.embedding[torch.where(mine, local, 0)] * mine[..., None]
+        return reduce_from_group(x, self.tp_vocab).to(self.dtype)
+
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """Final hidden states (B, T, D) -> logits (B, T, V) float32: the
         INT8 head through ``int8_matmul`` (``int8_matmul_w8a8`` under
         "w8a8"), else the float head in ``head_dtype`` (None = f32) with f32
-        sums."""
+        sums. Split over the vocabulary, each rank's columns are gathered."""
         b, t = x.shape[:2]
+        x = copy_to_group(x, self.tp_vocab)
         if self.quantize:
             xh = x.reshape(b * t, self.hidden_size).to(self.dtype)
+            cols = self.lm_head_scale.shape[0]
             if self.quantize_mode == "w8a8":
                 w, s = self._w8a8_head(self.lm_head_int8, self.lm_head_scale)
-                logits = int8_matmul_w8a8(xh, w, s, self.vocabulary_size)
+                logits = int8_matmul_w8a8(xh, w, s, cols)
             else:
                 logits = int8_matmul(xh, self.lm_head_int8, self.lm_head_scale)
-            return logits.reshape(b, t, self.vocabulary_size)
-        hd = self.head_dtype or torch.float32
-        return torch.matmul(x.to(hd).float(), self.lm_head.to(hd).float())
+            logits = logits.reshape(b, t, cols)
+        else:
+            hd = self.head_dtype or torch.float32
+            logits = torch.matmul(x.to(hd).float(), self.lm_head.to(hd).float())
+        return gather_from_group(logits, self.tp_vocab, -1)
 
     def _paged_forward(self, tokens, cache, slot_positions, row_starts):
         if row_starts is not None or slot_positions is None:
@@ -562,7 +608,7 @@ class LlamaTransformer(nn.Module):
         b, t = tokens.shape
         if t != 1:
             raise ValueError("slot_positions requires single-token decode")
-        x = self.embedding[tokens.long()].to(self.dtype)
+        x = self._embed(tokens)
         positions = slot_positions[:, None]
         for i, block in enumerate(self.blocks()):
             x = block(x, positions, cache, i, slot_positions)
@@ -595,7 +641,7 @@ class LlamaTransformer(nn.Module):
             if row_starts is not None:
                 mask = torch.where(col >= row_starts[:, None, None, None], mask, _NEG_MASK)
         int8_cache = cache.k_scale is not None
-        x = self.embedding[tokens.long()].to(self.dtype)
+        x = self._embed(tokens)
         for i, block in enumerate(self.blocks()):
             layer = (cache.k[i], cache.v[i])
             if int8_cache:
@@ -608,7 +654,7 @@ class LlamaTransformer(nn.Module):
         self, tokens: torch.Tensor, fused_ce_targets: torch.Tensor | None
     ) -> torch.Tensor:
         b, t = tokens.shape
-        x = self.embedding[tokens.long()].to(self.dtype)
+        x = self._embed(tokens)
         positions = torch.arange(t, device=tokens.device).expand(b, t)
         remat = self.remat and torch.is_grad_enabled()
         # "dots": selective checkpointing, the projections' products kept
@@ -628,7 +674,8 @@ class LlamaTransformer(nn.Module):
             # the chunk is clamped to the vocabulary's 128-multiple, as in
             # the reference (a tiny vocabulary gets one narrow chunk)
             chunk = min(self.fused_ce_chunk, -(-self.vocabulary_size // 128) * 128)
-            return fused_next_token_ce(x, self.lm_head, fused_ce_targets, chunk)
+            head = gather_from_group(self.lm_head, self.tp_vocab, 1)
+            return fused_next_token_ce(x, head, fused_ce_targets, chunk)
         return self._head(x)
 
     def init_cache(
@@ -643,7 +690,7 @@ class LlamaTransformer(nn.Module):
         dh = self.hidden_size // self.num_heads
         return make_dense_cache(
             self.num_layers, batch, self.max_length if rows is None else rows,
-            self.num_heads, dh, dtype, self.embedding.device if device is None else device,
+            self.local_heads, dh, dtype, self.embedding.device if device is None else device,
         )
 
     def init_paged_cache(
@@ -663,7 +710,7 @@ class LlamaTransformer(nn.Module):
             page_size,
             batch,
             pages_per_slot,
-            self.num_heads,
+            self.local_heads,
             self.hidden_size // self.num_heads,
             dtype,
             device,
@@ -724,3 +771,70 @@ def fuse_llama_params(params: dict) -> dict:
         else:
             out[key] = val
     return out
+
+
+def shard_llama_tp(model: LlamaTransformer, group, rank: int, size: int) -> list[tuple[nn.Module, str, Layout]]:
+    """``model``'s full weights replaced in place by rank ``rank``'s shards
+    of ``size`` over ``group``; returns (module, tensor name, layout) of
+    every tensor split. Attention is split by heads where ``size`` divides
+    them (q/k/v columns, o rows), the FFN where it divides ``ffn_dim``, the
+    embedding and lm head where it divides the vocabulary; the rest stays
+    replicated."""
+    entries: list[tuple[nn.Module, str, Layout]] = []
+
+    def split(dense: nn.Module, dim: int, parts: int = 1) -> None:
+        for key in ("kernel", "w_int8", "scale"):
+            if not hasattr(dense, key):
+                continue
+            d = 0 if (key == "scale" and dim == 1) else dim
+            if key == "scale" and dim == 0:
+                continue  # a row-parallel product's scale is its output's
+            layout = Layout(d, rank, size, group, parts)
+            full = getattr(dense, key)
+            local = layout.local(full.detach()).clone()
+            if isinstance(full, nn.Parameter):
+                full.data = local
+            else:
+                dense._buffers[key] = local
+            entries.append((dense, key, layout))
+        if dim == 1:
+            dense.tp_in = group
+        else:
+            dense.tp_out = group
+
+    with torch.no_grad():
+        for block in model.blocks():
+            if block.num_heads % size == 0:
+                if block.fused_qkv:
+                    split(block.qkv_proj, 1, 3)
+                else:
+                    for name in ("q_proj", "k_proj", "v_proj"):
+                        split(getattr(block, name), 1)
+                split(block.o_proj, 0)
+                block.num_heads //= size
+            if block.ffn_dim % size == 0:
+                if block.fused_qkv:
+                    split(block.gateup_proj, 1, 2)
+                else:
+                    split(block.gate_proj, 1)
+                    split(block.up_proj, 1)
+                split(block.down_proj, 0)
+                block.ffn_dim //= size
+        if model.vocabulary_size % size == 0:
+            n = model.vocabulary_size // size
+            model.tp_vocab, model.vocab_start = group, rank * n
+            layouts = [("embedding", Layout(0, rank, size, group))]
+            if model.quantize:
+                layouts += [("lm_head_int8", Layout(1, rank, size, group)),
+                            ("lm_head_scale", Layout(0, rank, size, group))]
+            else:
+                layouts.append(("lm_head", Layout(1, rank, size, group)))
+            for key, layout in layouts:
+                full = getattr(model, key)
+                local = layout.local(full.detach()).clone()
+                if isinstance(full, nn.Parameter):
+                    full.data = local
+                else:
+                    model._buffers[key] = local
+                entries.append((model, key, layout))
+    return entries

@@ -4,9 +4,11 @@ its k-means initialisation, and CVQ-VAE's anchor re-initialisation with
 its four anchor rules (nearest, as Cluster runs it; multinomial, random
 and cached, the last carrying the previous step's anchors).
 
-One process, one device: the JAX functions' ``axis_name`` reductions
-(``psum``, ``all_gather``) are not ported (ROADMAP.md queue A:
-Parallelism), and the JAX call sites pass ``axis_name=None``.
+The JAX functions' ``axis_name`` is ``group`` here, a ``torch.distributed``
+process group (None: one process, no collective): the histogram's and the
+cluster statistics' ``psum`` an all-reduce, the lazy init's and CVQ's
+``all_gather`` an all-gather of the rows, CVQ's ``pmean`` (``sync=False``)
+an all-reduce mean of the anchors.
 
 Every nearest-code assignment goes through :func:`.vq_lookup.nearest_codes`
 (the hand-written kernel on a CUDA tensor). Per-code sums are a scatter-add
@@ -21,6 +23,7 @@ from typing import Callable
 
 import torch
 
+from ..parallel.collectives import all_gather_cat, all_reduce_mean, all_reduce_sum
 from . import vq_lookup
 from .distances import normalize
 
@@ -41,13 +44,17 @@ __all__ = [
     "random_anchors",
 ]
 
-def code_histogram(codes: torch.Tensor, codebook_size: int) -> torch.Tensor:
-    """bincount of code ids -> (K,) int32."""
-    return torch.bincount(codes.reshape(-1).long(), minlength=codebook_size).to(torch.int32)
+def code_histogram(codes: torch.Tensor, codebook_size: int, group=None) -> torch.Tensor:
+    """bincount of code ids -> (K,) int32, summed over ``group``."""
+    hist = torch.bincount(codes.reshape(-1).long(), minlength=codebook_size).to(torch.int32)
+    return all_reduce_sum(hist, group)
 
 
-def code_frequency(codes: torch.Tensor, codebook_size: int) -> torch.Tensor:
-    return code_histogram(codes, codebook_size).float() / float(codes.numel())
+def code_frequency(codes: torch.Tensor, codebook_size: int, group=None) -> torch.Tensor:
+    n = float(codes.numel())
+    if group is not None:
+        n = all_reduce_sum(torch.tensor(n, device=codes.device), group)
+    return code_histogram(codes, codebook_size, group).float() / n
 
 
 def ema(old: torch.Tensor, new: torch.Tensor, decay) -> torch.Tensor:
@@ -58,14 +65,16 @@ def ema(old: torch.Tensor, new: torch.Tensor, decay) -> torch.Tensor:
 
 
 def cluster_stats(
-    x: torch.Tensor, codes: torch.Tensor, codebook_size: int
+    x: torch.Tensor, codes: torch.Tensor, codebook_size: int, group=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per code: (counts (K,) f32, feature sums (K, D) f32)."""
+    """Per code: (counts (K,) f32, feature sums (K, D) f32), summed over
+    ``group``."""
     x = x.reshape(-1, x.shape[-1]).float()
     codes = codes.reshape(-1).long()
     counts = torch.bincount(codes, minlength=codebook_size).float()
     sums = torch.zeros((codebook_size, x.shape[1]), dtype=torch.float32, device=x.device)
-    return counts, sums.index_add_(0, codes, x)
+    sums.index_add_(0, codes, x)
+    return all_reduce_sum(counts, group), all_reduce_sum(sums, group)
 
 
 def _centroids(counts, sums, fallback):
@@ -83,13 +92,15 @@ def kmeans_update(
     *,
     normalize_input: bool = True,
     renormalize: bool = True,
+    group=None,
 ) -> torch.Tensor:
     """One k-means/EMA step (VQ-KD): each code's centroid of the (normalised)
-    features assigned to it, the old entry where none was; renormalised;
-    EMA'd into the codebook with ``decay``; renormalised again."""
+    features assigned to it (counts and sums over ``group``), the old entry
+    where none was; renormalised; EMA'd into the codebook with ``decay``;
+    renormalised again."""
     if normalize_input:
         x = normalize(x.reshape(-1, x.shape[-1]))
-    counts, sums = cluster_stats(x, codes, codebook.shape[0])
+    counts, sums = cluster_stats(x, codes, codebook.shape[0], group)
     centroids = _centroids(counts, sums, codebook)
     if renormalize:
         centroids = normalize(centroids)
@@ -141,6 +152,7 @@ def kmeans_init(
     max_points: int = 2**20,
     chunk_elems: int = 2**27,
     draw: Callable[[int, int], torch.Tensor] | None = None,
+    group=None,
 ) -> torch.Tensor:
     """Data-dependent codebook init (VQ-KD's lazy init): features (…, D) ->
     a (K, D) codebook of unit rows.
@@ -150,9 +162,10 @@ def kmeans_init(
     and leave the rest zero; otherwise K distinct points are the start of
     :func:`kmeans_iterate`. ``draw(n, m)`` returns m distinct indices of
     [0, n), in that order the subsample's and then the start's; by default
-    ``torch.randperm`` under ``generator``."""
+    ``torch.randperm`` under ``generator``. Over ``group`` the features are
+    all-gathered first (rank order), so every rank runs the same k-means."""
     draw = draw or _randperm_draw(generator, x.device)
-    x = x.reshape(-1, x.shape[-1]).float()
+    x = all_gather_cat(x.reshape(-1, x.shape[-1]).float(), group)
     if normalize_input:
         x = normalize(x)
     n, dim = x.shape
@@ -241,17 +254,22 @@ def cvq_update(
     ema_decay: float,
     eps: float = 1e-3,
     anchors: torch.Tensor | None = None,
+    sync: bool = True,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One CVQ-VAE codebook step -> (new codebook, new probability): the
-    code frequency EMA'd into ``p``, and the per-code decay blending each
-    code's anchor into the codebook. ``anchors`` (K, D) are
+    code frequency over ``group`` EMA'd into ``p``, and the per-code decay
+    blending each code's anchor into the codebook. ``anchors`` (K, D) are
     :func:`cvq_anchors`' (default: the nearest, by the distances ``d``
-    (N, K)). (One device: the JAX function's ``sync``, gathering the
-    features across devices or averaging the anchors, changes nothing
-    here.)"""
+    (N, K), over the rows all-gathered where ``sync``, else averaged over
+    ``group``, as the JAX function's ``sync`` chooses)."""
     x = x.reshape(-1, x.shape[-1])
-    p = ema(p, code_frequency(codes, codebook.shape[0]), ema_decay)
+    p = ema(p, code_frequency(codes, codebook.shape[0], group), ema_decay)
     if anchors is None:
-        anchors = nearest_anchors(x, d)
+        if sync:
+            anchors = nearest_anchors(all_gather_cat(x, group), all_gather_cat(d, group))
+        else:
+            anchors = nearest_anchors(x, d)
+            all_reduce_mean([anchors], group)
     decay = cvq_decay(p, codebook.shape[0], ema_decay, eps)[:, None]
     return ema(codebook, anchors, decay).to(codebook.dtype), p

@@ -28,8 +28,16 @@ step in which other slots are mid-image.
   as positions grow and admits a request only when the pool can hold all
   of its pages.
 
-Tensor-parallel serving (``strategy=``) is a later slice and raises
-``NotImplementedError``.
+- **Tensor-parallel serving** (``strategy=TPStrategy(...)``): every rank of
+  the ``tp`` group runs the server on the same requests. The Llama's weights
+  are split Megatron-style (``models/transformers/llama.py``:
+  ``shard_llama_tp``) and the cache, dense or the paged pool, holds each
+  rank's own heads; the paged decode attention kernel runs on them. The
+  logits are gathered over the group before sampling, and every rank samples
+  from the same generator (seeded alike) over the same logits, so all ranks
+  pick the same token with no broadcast. As in the JAX package, the
+  shared-column engine and the dense cache's length-aware window stay off
+  under TP: the per-row scatter engine decodes over the full dense cache.
 """
 
 from __future__ import annotations
@@ -107,10 +115,10 @@ class ARServer:
         aligned: bool | None = None,
         device: torch.device | str | None = None,
     ) -> None:
-        if strategy is not None:
-            raise NotImplementedError(
-                "strategy= (tensor-parallel serving): ROADMAP.md queue A: Parallelism"
-            )
+        from ..parallel.sharding import TPStrategy
+
+        if strategy is not None and not isinstance(strategy, TPStrategy):
+            raise TypeError(f"ARServer serves under a TPStrategy, got {type(strategy).__name__}")
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -140,6 +148,9 @@ class ARServer:
         if params is not None:
             transformer.load_state_dict(params)
         self.transformer = transformer.to(device).eval()
+        self.strategy = strategy
+        if strategy is not None:
+            strategy.shard_module(self.transformer)
         self.device = device
         self.codebook = image_codebook
         self.image_tokens = image_tokens
@@ -179,8 +190,9 @@ class ARServer:
         else:
             # length-aware window: the dense cache holds the current
             # 64-column bucket and grows between chunks, so attention reads
-            # follow the live positions instead of the full capacity
-            self._window = min(64 * -(-steps_per_sync // 64), needed)
+            # follow the live positions instead of the full capacity (under
+            # TP the whole capacity, as in the JAX package)
+            self._window = min(64 * -(-steps_per_sync // 64), needed) if strategy is None else needed
             self.cache = self.transformer.init_cache(
                 batch_slots, dtype=cache_dtype, device=device, rows=self._window)
 
@@ -192,7 +204,7 @@ class ARServer:
 
         # shared-column engine: dense cache and relative positions (RoPE);
         # aligned=False forces the per-row scatter
-        self._shared_col = (aligned is not False and not paged
+        self._shared_col = (aligned is not False and not paged and strategy is None
                             and getattr(transformer, "supports_shared_column", False))
         self._sc_pending: tuple | None = None
         if self._shared_col:
@@ -298,7 +310,8 @@ class ARServer:
             if not self.paged:
                 # rows needed by the end of this chunk: every row advances
                 # one position per step, so the regrow needs no readback
-                self._resize_window(min(64 * -(-(max_pos + done + kk) // 64), self._needed))
+                if self.strategy is None:
+                    self._resize_window(min(64 * -(-(max_pos + done + kk) // 64), self._needed))
                 cache = self.cache
             for _ in range(kk):
                 logits, cache = self.transformer(tokens[:, None], cache, slot_positions=positions)

@@ -7,8 +7,11 @@ trainer never synchronises the device otherwise. ``CheckpointCallback``
 saves every ``interval`` steps and at the last. ``ProfileCallback`` records
 steps [start, start + steps) with ``torch.profiler`` into
 ``work_dir/profile``. ``GitCallback`` writes ``git diff HEAD`` to
-``work_dir/git.diff``. ``SyncCheckCallback`` checks that replicas agree: on
-one device there is nothing to check.
+``work_dir/git.diff``. ``SyncCheckCallback`` asserts after every step, under
+``DEBUG``/``DRY_RUN``, that the codebook is bit-identical on every rank of
+the data group (``utils.debug.assert_replicated``). Under
+``torch.distributed`` only rank 0 logs, writes TensorBoard and the git
+snapshot.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Any, Mapping
 
 import torch
 
+from ..parallel.mesh import process_index
 from ..registries import CallbackRegistry
 
 __all__ = ["BaseCallback", "CheckpointCallback", "GitCallback", "LogCallback", "ProfileCallback",
@@ -60,7 +64,7 @@ class LogCallback(BaseCallback):
         now = time.perf_counter()
         dt, self._t = now - self._t, now
         self._iter_time = dt if self._iter_time is None else self.ema * self._iter_time + (1 - self.ema) * dt
-        if step % self.interval and step != self.runner.max_iters:
+        if (step % self.interval and step != self.runner.max_iters) or process_index():
             return
         remaining = (self.runner.max_iters - step) * self._iter_time
         eta = time.strftime("%H:%M:%S", time.gmtime(max(remaining, 0)))
@@ -87,6 +91,8 @@ class TensorBoardCallback(BaseCallback):
         self._writer = None
 
     def before_run(self) -> None:
+        if process_index():
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -138,13 +144,36 @@ class ProfileCallback(BaseCallback):
 
 @CallbackRegistry.register()
 class SyncCheckCallback(BaseCallback):
+    """After each step, under ``DEBUG``/``DRY_RUN``: the leaf at ``path`` of
+    the state's parameter tree (default: the algorithm's
+    ``codebook_path``) must be bit-identical across the data group."""
+
     def __init__(self, path: tuple[str, ...] | None = None) -> None:
         self.path = tuple(path) if path else None
+
+    def after_run_iter(self, step: int, metrics: Mapping[str, Any]) -> None:
+        from ..utils.debug import assert_replicated
+        from ..utils.flags import Store
+
+        runner = self.runner
+        path = self.path or getattr(runner.algorithm, "codebook_path", None)
+        if path is None or not (Store.DEBUG or Store.DRY_RUN):
+            return
+        with runner.strategy.full_state(runner.algorithm, runner.state):  # shards compared whole
+            node = runner.algorithm.param_tree(runner.state)
+            try:
+                for k in path:
+                    node = node[k]
+            except (KeyError, TypeError):
+                return
+            assert_replicated(node, "/".join(path), runner.strategy.data_group)
 
 
 @CallbackRegistry.register()
 class GitCallback(BaseCallback):
     def before_run(self) -> None:
+        if process_index():
+            return
         try:
             diff = subprocess.run(["git", "diff", "HEAD"], capture_output=True, text=True, timeout=30,
                                   check=False).stdout

@@ -25,9 +25,15 @@
   (``models/metrics/fid.py``).
 
 Every metric takes the ``dataset`` keyword (the ``Validator`` passes its
-own, as the JAX package's does). A memo is what an ``eval_step`` returns
-plus ``memo["batch"]``, the batch. One process: the JAX package's
-cross-host reductions are sums over one host here.
+own, as the JAX package's does) and ``group``, the process group whose
+ranks' rows make the evaluated set (the ``Validator`` passes its strategy's
+data group; None: every process, or one process). A memo is what an
+``eval_step`` returns plus ``memo["batch"]``, the batch. Each rank
+accumulates its own rows' sufficient statistics, and ``summary`` sums them
+over the group (``parallel.mesh.host_allreduce_sum``) as the JAX package's
+does over its processes: the histograms, the per-batch values and their
+count, FID's float64 ``n``, ``sum`` and ``sum_outer``. Every rank of the
+group must call ``summary``.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from ..models.losses.recon import psnr, ssim
 from ..models.metrics.fid import FIDStatistics, frechet_distance
 from ..models.metrics.inception import load_inception
 from ..ops.resize import resize
+from ..parallel.mesh import host_allreduce_sum
 from ..registries import MetricRegistry
 from ..utils.flags import Store
 
@@ -53,9 +60,16 @@ __all__ = ["AccuracyMetric", "BaseMetric", "CodebookUsageMetric", "CodebookPPLMe
 logger = logging.getLogger("vector_quantization_tpu_torch")
 
 
+def _mean_across_processes(values: list[float], group) -> float:
+    """The mean of every rank's per-batch values (equal batches per rank)."""
+    total = host_allreduce_sum(np.array([float(np.sum(values)), float(len(values))]), group)
+    return float(total[0] / total[1]) if total[1] else 0.0
+
+
 class BaseMetric:
-    def __init__(self, *, dataset: Any = None) -> None:
+    def __init__(self, *, dataset: Any = None, group: Any = None) -> None:
         self.dataset = dataset
+        self.group = group
 
     def update(self, memo: Mapping[str, Any]) -> None:
         raise NotImplementedError
@@ -78,16 +92,18 @@ class _CodebookMixin(BaseMetric):
 @MetricRegistry.register()
 class CodebookUsageMetric(_CodebookMixin):
     def summary(self, name: str) -> dict[str, float]:
-        return {name: float((self.counts > 0).sum() / self.codebook_size)}
+        counts = host_allreduce_sum(self.counts, self.group)
+        return {name: float((counts > 0).sum() / self.codebook_size)}
 
 
 @MetricRegistry.register()
 class CodebookPPLMetric(_CodebookMixin):
     def summary(self, name: str) -> dict[str, float]:
-        total = self.counts.sum()
+        counts = host_allreduce_sum(self.counts, self.group)
+        total = counts.sum()
         if total == 0:
             return {name: 0.0}
-        p = self.counts / total
+        p = counts / total
         p = p[p > 0]
         return {name: float(-(p * np.log(p)).sum())}
 
@@ -119,7 +135,7 @@ class ImageLossMetric(BaseMetric):
         self.values.append(float(value))
 
     def summary(self, name: str) -> dict[str, float]:
-        return {name: float(np.mean(self.values)) if self.values else 0.0}
+        return {name: _mean_across_processes(self.values, self.group)}
 
 
 @MetricRegistry.register()
@@ -133,7 +149,7 @@ class LossMetric(BaseMetric):
         self.values.append(float(memo[self.key]))
 
     def summary(self, name: str) -> dict[str, float]:
-        return {name: float(np.mean(self.values)) if self.values else 0.0}
+        return {name: _mean_across_processes(self.values, self.group)}
 
 
 @MetricRegistry.register()
@@ -182,7 +198,19 @@ class FIDMetric(BaseMetric):
             gt = torch.as_tensor(memo["batch"]["original_image"]).to(pred.device)
             self.gt_stats.update(self.features(gt))
 
+    def _reduce_stats(self, stats: FIDStatistics) -> FIDStatistics:
+        """(n, Σx, Σxxᵀ) summed over the group (float64; exact sums)."""
+        if stats.dim is None:  # no rows here: the group's shapes still meet
+            return stats
+        stats.n = int(host_allreduce_sum(np.asarray(stats.n, np.int64), self.group))
+        stats.sum = host_allreduce_sum(stats.sum, self.group)
+        stats.sum_outer = host_allreduce_sum(stats.sum_outer, self.group)
+        return stats
+
     def summary(self, name: str) -> dict[str, float]:
+        self._reduce_stats(self.pred_stats)
+        if self.gt_stats is not None:
+            self._reduce_stats(self.gt_stats)
         gt = FIDStatistics.load(self.fid_path) if self.fid_path else self.gt_stats
         out = {name: frechet_distance(gt.mean, gt.cov, self.pred_stats.mean, self.pred_stats.cov)}
         if self.random_init:

@@ -36,6 +36,11 @@ move the same weights alike:
   JAX package's ``optax.masked`` chain, an excluded parameter gets a zero
   update, no weight decay and no moments, and ``grad_clip``'s global norm
   runs over the kept parameters only.
+
+Under FSDP or TP a strategy hands ``step`` this rank's shards of some
+parameters (``sharded``, one bool per trained parameter) and the group they
+are split over: the clip's global norm and LARS's per-tensor norms sum the
+shards' squares over the group and count a replicated tensor once.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ import math
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..utils.filters import mask_tree
 
@@ -152,19 +158,31 @@ class Optimizer:
             return {"count": 0, "trace": zeros() if self.momentum else None}
         return {"count": 0, "mu": zeros(), "nu": zeros()}
 
+    @staticmethod
+    def _squares(tensors: list[torch.Tensor], sharded: Sequence[bool] | None, group) -> torch.Tensor:
+        """Each tensor's squared norm (f32), a shard's summed over ``group``."""
+        sq = torch.stack(torch._foreach_norm(tensors)).float().square()
+        if sharded is not None and group is not None and any(sharded):
+            mask = torch.tensor(list(sharded), device=sq.device)
+            part = torch.where(mask, sq, 0.0)
+            dist.all_reduce(part, group=group)
+            sq = torch.where(mask, part, sq)
+        return sq
+
     @torch.no_grad()
-    def step(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: dict) -> None:
+    def step(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: dict,
+             sharded: Sequence[bool] | None = None, group=None) -> None:
         params = self.trained(params)
         if len(grads) != len(params):
             raise ValueError(f"{len(grads)} gradients for {len(params)} trained parameters")
         if self.grad_clip:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = torch.sqrt(self._squares(grads, sharded, group).sum())
             factor = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
             torch._foreach_mul_(grads, factor)
         lr = self.schedule(state["count"])
         state["count"] += 1
         if self.kind == "lars":
-            self._lars(params, grads, state, lr)
+            self._lars(params, grads, state, lr, sharded, group)
             return
         if self.kind == "sgd":
             updates = grads
@@ -190,14 +208,17 @@ class Optimizer:
             torch._foreach_add_(updates, params, alpha=self.weight_decay)
         torch._foreach_add_(params, updates, alpha=-lr)
 
-    def _lars(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: dict, lr: float) -> None:
+    def _lars(self, params: list[torch.Tensor], grads: list[torch.Tensor], state: dict, lr: float,
+              sharded: Sequence[bool] | None = None, group=None) -> None:
         decay = self.trained(self.decay_mask or [True] * len(self.keep or params))
         trust = self.trained(self.trust_mask or [True] * len(self.keep or params))
+        us = [g + self.weight_decay * p if d else g for p, g, d in zip(params, grads, decay)]
+        norms = torch.sqrt(self._squares(list(params) + us, None if sharded is None else list(sharded) * 2,
+                                         group)).unbind()
         updates = []
-        for p, g, d, t in zip(params, grads, decay, trust):
-            u = g + self.weight_decay * p if d else g
+        for i, (p, u, t) in enumerate(zip(params, us, trust)):
             if t:
-                p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+                p_norm, u_norm = norms[i], norms[len(params) + i]
                 ratio = self.trust_coefficient * p_norm / (u_norm + self.eps)
                 u = u * torch.where((p_norm == 0) | (u_norm == 0), 1.0, ratio)
             updates.append(u * -lr)

@@ -27,6 +27,17 @@ tree: ``device`` None means CUDA, which must be available; tests pass
 ``"cpu"``. The algorithm's weights are drawn on the host from the CPU
 generator seeded with the runner's ``seed`` (3407 by default), and then
 moved to the device; the global generators are left as they were.
+
+Under ``torch.distributed`` (``parallel.mesh.init_distributed``, which the
+CLI calls) the config's ``mesh`` spans the world, every rank draws the same
+weights, and the strategy (``parallel/sharding.py``) binds the algorithm
+before its state is made: the loader reads this rank's rows of the data
+row (``dp`` x ``fsdp``; ranks of one ``tp`` row read the same rows), a
+step runs inside the strategy's ``step_scope`` and its metrics are the
+global batch's means, and the state lives sharded between steps (FSDP)
+and whole outside ``run``. A checkpoint holds the full state (the
+strategy's ``full_state`` gathers it), written by rank 0 while the others
+wait at a barrier, so it restores at any world size.
 """
 
 from __future__ import annotations
@@ -40,10 +51,11 @@ from typing import Any, Iterable, Iterator, Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.base import pixel_decode, require_pil
 from ..data.loader import DataLoader
-from ..parallel.mesh import make_mesh
+from ..parallel.mesh import make_mesh, process_index
 from ..parallel.sharding import Strategy
 from ..registries import (
     AlgorithmRegistry,
@@ -98,16 +110,23 @@ class _RunnerBase:
         self.dataloader.epoch += 1  # the JAX runner's draw of one batch (module docstring)
         self._first_epoch = self.dataloader.epoch
         self.state = self.algorithm.init_state(self.seed)
+        self.strategy.attach(self.algorithm, self.state)
         return self.state
 
     def save_checkpoint(self, step: int) -> None:
-        path = ckpt.save_checkpoint(self.work_dir, self.algorithm, self.state, step)
-        logger.info("saved checkpoint %s", path)
+        """The full state, gathered on every rank, written by rank 0."""
+        with self.strategy.full_state(self.algorithm, self.state):
+            if process_index() == 0:
+                path = ckpt.save_checkpoint(self.work_dir, self.algorithm, self.state, step)
+                logger.info("saved checkpoint %s", path)
+        if dist.is_initialized():
+            dist.barrier()
 
     def load_model_from(self, paths: str | list[str]) -> None:
         if self.state is None:
             self.init_state()
-        ckpt.load_model_from(paths, self.algorithm.param_tree(self.state))
+        with self.strategy.full_state(self.algorithm, self.state):
+            ckpt.load_model_from(paths, self.algorithm.param_tree(self.state))
 
     def resume(self, path: str | None = None, auto: bool = False) -> bool:
         if self.state is None:
@@ -116,7 +135,8 @@ class _RunnerBase:
             path = ckpt.latest_checkpoint(self.work_dir)
         if path is None:
             return False
-        ckpt.restore_checkpoint(path, self.algorithm, self.state)
+        with self.strategy.full_state(self.algorithm, self.state):
+            ckpt.restore_checkpoint(path, self.algorithm, self.state)
         logger.info("resumed from %s (step %d)", path, self.state.step)
         return True
 
@@ -170,12 +190,16 @@ class Trainer(_RunnerBase):
         if per_epoch:
             self.dataloader.seek(self._first_epoch + start // per_epoch, start % per_epoch)
         batches = itertools.islice(self._batches(), max(self.max_iters - start, 0))
-        for i, batch in enumerate(self._device_prefetch(batches), start=start + 1):
-            self.state, metrics = self.algorithm.train_step(self.state, batch)
+        self.strategy.shard_state(self.algorithm, self.state)
+        try:
+            for i, batch in enumerate(self._device_prefetch(batches), start=start + 1):
+                self.state, metrics = self.strategy.train_step(self.algorithm, self.state, batch)
+                for cb in self.callbacks:
+                    cb.after_run_iter(i, metrics)
             for cb in self.callbacks:
-                cb.after_run_iter(i, metrics)
-        for cb in self.callbacks:
-            cb.after_run()
+                cb.after_run()
+        finally:
+            self.strategy.unshard_state(self.algorithm, self.state)
         return self.state
 
 
@@ -212,7 +236,8 @@ class Validator(_RunnerBase):
             self.state = state
         elif self.state is None:
             self.init_state()
-        metric_objs = {name: MetricRegistry.build(cfg, dataset=self.dataloader.dataset)
+        metric_objs = {name: MetricRegistry.build(cfg, dataset=self.dataloader.dataset,
+                                                  group=self.strategy.data_group)
                        for name, cfg in self.metric_cfgs.items()}
         n = len(self.dataloader)
         if Store.DRY_RUN:
@@ -243,14 +268,17 @@ def build_runner(config: Mapping[str, Any], kind: str = "trainer", device: torch
     """The ``kind`` ("trainer" or "validator") runner of a config tree."""
     cfg = dict(config[kind])
     device = model_device(device)
-    mesh = make_mesh(cfg.pop("mesh", None))
+    mesh = make_mesh(cfg.pop("mesh", None), device_type=device.type)
     strategy = StrategyRegistry.build(cfg.pop("strategy", {"type": "DataParallelStrategy"}), mesh=mesh,
                                       device=device)
     dataset = DatasetRegistry.build(cfg.pop("dataset"))
-    dataloader = DataLoader(dataset, **cfg.pop("dataloader", {}))
+    loader_cfg = {"num_processes": strategy.data_size, "process_index": strategy.data_rank,
+                  **cfg.pop("dataloader", {})}
+    dataloader = DataLoader(dataset, **loader_cfg)
     with torch.random.fork_rng(devices=[]):
         torch.default_generator.manual_seed(cfg.get("seed", 3407))
         algorithm = AlgorithmRegistry.build(cfg.pop("algorithm"), device=device)
+    strategy.bind(algorithm)
     callbacks = [CallbackRegistry.build(c) for c in cfg.pop("callbacks", [])]
     runner_type = cfg.pop("type", "Trainer" if kind == "trainer" else "Validator")
     if work_dir is not None:

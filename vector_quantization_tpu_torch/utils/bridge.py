@@ -15,6 +15,9 @@ moments, EMA shadows and codebook statistics against the JAX package's.
 :func:`flax_param_paths` names each parameter by its flax path, which the
 optimizer's ``exclude`` filter matches; :func:`flax_tree` nests a module's
 own tensors by those paths, the layout of the port's checkpoints.
+:func:`shard_params` cuts full weights (a state dict, e.g. from
+:func:`llama_params_from_flax`) into one rank's shards by a strategy's
+``named_layouts``, the weights a TP or FSDP rank holds.
 
 ``nn.BatchNorm2d`` (the Inception network's, with pytorch-fid's names)
 maps its ``weight``/``bias`` to flax's ``scale``/``bias`` and its running
@@ -35,6 +38,7 @@ from ..models.connectors import ConvConnector
 from ..models.layers import AttnBlock, Downsample, ResBlock, Upsample
 
 __all__ = [
+    "shard_params",
     "batch_stats_to_flax",
     "extra_from_flax",
     "extra_to_flax",
@@ -301,4 +305,16 @@ def extra_to_flax(algorithm: Any, state: Any) -> dict[str, Any]:
             out[key] = state.extra[key].detach().cpu().numpy().copy()
     if "initialized" in state.extra:
         out["initialized"] = np.asarray(state.extra["initialized"], np.bool_)
+    return out
+
+
+def shard_params(params: Mapping[str, Any], layouts: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Full weights by name (numpy arrays or tensors) -> one rank's: each
+    name in ``layouts`` (a ``parallel.collectives.Layout``, as a strategy's
+    ``named_layouts`` gives them) cut to that rank's shard, the rest whole.
+    No collective: ``Layout.local`` only slices."""
+    out = {}
+    for name, value in params.items():
+        t = torch.as_tensor(np.asarray(value)) if not isinstance(value, torch.Tensor) else value
+        out[name] = layouts[name].local(t).clone() if name in layouts else t
     return out
