@@ -359,6 +359,49 @@ exits non-zero:
    initial weights; every head tensor and BatchNorm statistic moved; finite
    losses; accuracy in [0, 1]; no plain version on the card. Host ms a
    step, peak GiB.
+22e. ``tools_tokenize_llamagen`` (the tools run as children through
+   ``runpy.run_module``, as ``python -m`` runs them, TF32 off as in this
+   process, with a wrapper that reports the child's kernel launches, its
+   plain versions on the card and the times of its ``encode_to_quant``
+   calls): ``tools.tokenize_llamagen``
+   on the LlamaGen VQGAN config at full width (the seed's weights) over 8
+   synthetic images of 288 px, ``--crop-size 256``. Gates: exit 0 and its
+   closing line; ``imagenet256_codes/{i}.npy`` int32 (10, 16, 16) in range
+   and ``imagenet256_labels/{i}.npy`` int64 [category] for each image; K1
+   once an image, each at (2560, 16384, 8); every image's codes against the
+   plain lookup of the same features (the same weights built here), near-
+   ties aside; no plain version on the card. Seconds per image in the
+   tool's process.
+22f. ``tools_fid_folder``: ``tools.fid`` (``--gt``) and ``tools.fidelity``
+   (2 splits) over two folders of 256 px PNGs: the export's centre crops and
+   their reconstructions from the exported codes. Gates: exit 0, finite
+   FID and IS >= 1, each line tagged ``fid_random_init``, ``fid.txt``
+   holding the line.
+22g. ``tools_golden_eval``: ``tools.golden_eval taming_vqgan`` on a seeded
+   synthetic checkpoint in taming's layout at
+   configs/vqgan/16384_imagenet_ddp.py's width (``tools/_taming.py``:
+   width 128, mults (1, 1, 2, 2, 4), 256-dim, 16384 codes), the config's
+   validator on 16 synthetic images in batches of 8. Gates: exit 1 against
+   the built-in table (``lpips`` missing, NaN), exit 0 against a
+   ``--golden`` of its own measured numbers; the graft ignores exactly
+   taming's two connectors (the config's model has none); K1 twice in each
+   run; no plain version on the card.
+22h. ``tools_record_check``: ``tools.record_published --check`` on
+   ``synthetic_taming_vqgan``, ``self_trained_smoke`` and
+   ``self_trained_ar`` (``self_trained_2k`` is phase 13's) against
+   BASELINE.json: every metric beside its record, delta and tolerance.
+   Gates: every row within ``CHECK_TOL`` except ``RECORD_OWN_DRAWS`` (rows
+   the port's own weight and CFG draws miss on the CPU as well; printed,
+   held by the CPU tests); the exit code agreeing with the rows; K1 825
+   (1 + 20 + 2 + 800 + 2), K4 0; no plain version on the card. Its child
+   starts after 22e and runs beside 22f, 22g and 22i.
+22i. ``tools_model_ema``: ``cli.train`` on the ``cli_vqgan`` overlay with
+   ``ema_decay`` 0.999, batch 4, 2 steps; ``tools.model_ema`` on
+   ``iter_2``; ``--load-model-from`` the result into a fresh validator.
+   Gates: every generator tensor equal to the checkpoint's
+   ``extra["ema_params"]`` (which differs from its ``params``); K1 once a
+   step; no plain version on the card. Then ``tools``: the five phases'
+   wall seconds.
 23. ``fsq_train``: ``ReconstructionAlgorithm`` from
    configs/fsq/8000_imagenet_ddp.py (VQGAN width 128, levels (8, 8, 5, 5,
    5), 8000 codes, L1 + MSE, Adam 1e-4), f32, the weights made from
@@ -437,7 +480,7 @@ exits non-zero:
    (3072, 8192, 256) l2 and cosine and the probe's (16384, 8192, 256) l2),
    phase 17 for the three flash kernels (and their launches in phases 22
    and 22c), and K1 in phase 12a, K3 (and K2's 0) in phase 7a and K4 in
-   phase 17a, and their launches in phases 19a-19d; K2's
+   phase 17a, and their launches in phases 19a-19d and K1's in 22e-22i; K2's
    rows also give their launches in phases 7, 8 and 22c, and phase 6's times
    at the dense path's shapes), device time per call, the bound, the plain
    version's and the yardstick's time.
@@ -2385,12 +2428,10 @@ def cli_fid_path(tmp: Path) -> Path:
     return tmp / "cli_fid" / "synthetic_fid.npz"
 
 
-def phase_cli_vqgan(tmp: Path, hand_step_ms: float):
-    """cli.train twice in this process: 4 iterations, then --auto-resume to 6."""
-    from vector_quantization_tpu_torch.cli import train
-
-    register_recorder()
-    config = write_overlay(tmp, "cli_vqgan", VQGAN_CONFIG, f"""
+def cli_vqgan_config(tmp: Path) -> str:
+    """The overlay ``cli_vqgan`` trains: the LlamaGen VQGAN config with
+    synthetic 256 px images, batch 12."""
+    return write_overlay(tmp, "cli_vqgan", VQGAN_CONFIG, f"""
 trainer = dict(
     dataset={synthetic(4 * VQGAN_TRAIN_BATCH)},
     dataloader=dict(_delete_=True, batch_size_in_total={VQGAN_TRAIN_BATCH}, shuffle=True, num_workers=4),
@@ -2403,6 +2444,14 @@ validator = dict(
     dataloader=dict(_delete_=True, batch_size_in_total={CLI_VAL_BATCH}, num_workers=4),
 )
 """)
+
+
+def phase_cli_vqgan(tmp: Path, hand_step_ms: float):
+    """cli.train twice in this process: 4 iterations, then --auto-resume to 6."""
+    from vector_quantization_tpu_torch.cli import train
+
+    register_recorder()
+    config = cli_vqgan_config(tmp)
     work = tmp / "cli_vqgan"
     zero_launches()
     _, plain0 = read_launches()
@@ -4065,6 +4114,353 @@ def phase_parallel_two_ranks(tmp: Path, dev, seed: int) -> dict:
     return launches
 
 
+
+# -- the repo's tools on the port (vector_quantization_tpu_torch/tools), each
+# run as a subprocess through its ``-m`` entry point
+TOOLS_IMAGES, TOOLS_SOURCE_SIZE = 8, 288  # the export: 8 synthetic images of 288 px, 10 crops of 256 each
+TOOLS_N = 10 * GRID * GRID  # K1's rows per image at 256 px, f16: 2560
+GOLDEN_CONFIG = "configs/vqgan/16384_imagenet_ddp.py"
+GOLDEN_LAYOUT = dict(width=128, mults=(1, 1, 2, 2, 4), enc_depth=2, dec_depth=3, zdim=256, codes=16384)
+GOLDEN_IMAGES, GOLDEN_BATCH = 16, 8
+# connectors taming's layout has and the 16384 config's model does not: the graft ignores them
+GOLDEN_IGNORED = ["post_encode.conv.weight", "post_encode.conv.bias", "pre_decode.conv.weight",
+                  "pre_decode.conv.bias"]
+RECORD_FAMILIES = ("synthetic_taming_vqgan", "self_trained_smoke", "self_trained_ar")  # 2k: phase 13
+# rows of --check that miss BASELINE.json with the port's own draws on the CPU as well
+# (PERF.md, open questions): printed with their deltas, held by tests/test_torch_golden_eval.py
+RECORD_OWN_DRAWS = {("self_trained_smoke", "psnr"), ("self_trained_ar", "decode_hash"),
+                    ("self_trained_ar", "decode_mean")}
+EMA_BATCH, EMA_STEPS, EMA_DECAY = 4, 2, 0.999
+
+TOOL_CHILD = """
+import json, runpy, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False  # as in the whole script
+import chip_smoke
+from vector_quantization_tpu_torch.tasks.image_tokenization import TokenizerModel
+starts, encode = [], TokenizerModel.encode_to_quant
+def timed(self, x):
+    starts.append(time.perf_counter())
+    return encode(self, x)
+TokenizerModel.encode_to_quant = timed
+name, sys.argv = sys.argv[1], ["vector_quantization_tpu_torch.tools." + sys.argv[1], *sys.argv[2:]]
+chip_smoke.zero_launches()
+code = 0
+try:
+    runpy.run_module("vector_quantization_tpu_torch.tools." + name, run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+launches, plain = chip_smoke.read_launches()
+print("TOOL_REPORT " + json.dumps({"launches": launches, "plain_runs_on_cuda": plain,
+                                    "encode_starts": starts}), flush=True)
+sys.exit(code)
+"""
+
+
+def start_tool(name: str, *argv) -> tuple:
+    """``python -m vector_quantization_tpu_torch.tools.<name> argv`` started
+    in a child process (a wrapper around ``runpy.run_module``, as ``-m``
+    runs it, with TF32 off as in this process, that reports the child's
+    kernel launches, plain versions on the card and ``encode_to_quant``
+    call times)."""
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")  # no pipe to fill while it runs
+    proc = subprocess.Popen([sys.executable, "-c", TOOL_CHILD, name, *map(str, argv)],
+                            cwd=Path(__file__).resolve().parent, stdout=out, stderr=err, text=True)
+    return name, proc, out, err, time.perf_counter()
+
+
+def finish_tool(started: tuple, timeout: int = 900) -> dict:
+    """The started child's exit code, stdout, report and wall seconds."""
+    name, proc, out, err, t0 = started
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SystemExit(f"tools: {name} ran over {timeout} s")
+    wall = time.perf_counter() - t0
+    stdout, stderr = (f.seek(0) or f.read() for f in (out, err))
+    out.close()
+    err.close()
+    lines = stdout.splitlines()
+    report = next((json.loads(ln.split(" ", 1)[1]) for ln in lines if ln.startswith("TOOL_REPORT ")), None)
+    if report is None:
+        print(stdout[-3000:], stderr[-3000:], sep="\n", file=sys.stderr)
+        raise SystemExit(f"tools: {name} gave no report (exit {proc.returncode})")
+    return {"rc": proc.returncode, "stdout": "\n".join(ln for ln in lines if not ln.startswith("TOOL_REPORT ")),
+            "stderr_tail": stderr[-2000:], "wall_s": wall, **report}
+
+
+def run_tool(name: str, *argv) -> dict:
+    return finish_tool(start_tool(name, *argv))
+
+
+def start_record_check(tmp: Path) -> tuple:
+    """``tools_record_check``'s child, started first: the other tools
+    phases run beside it."""
+    return start_tool("record_published", "--check", "--families", *RECORD_FAMILIES, "--work-dir",
+                      tmp / "published")
+
+
+def tools_config(tmp: Path) -> str:
+    """The LlamaGen VQGAN config with the export's dataset: 8 synthetic
+    images of 288 px (1000 classes), so the ten 256 px crops differ."""
+    return write_overlay(tmp, "tools_llamagen", VQGAN_CONFIG, f"""
+validator = dict(
+    dataset=dict(_delete_=True, type="SyntheticDataset", size={TOOLS_IMAGES}, image_size={TOOLS_SOURCE_SIZE},
+                 num_categories=1000),
+)
+""")
+
+
+def phase_tools_tokenize_llamagen(tmp: Path):
+    """tools.tokenize_llamagen at full LlamaGen VQGAN width: the files, K1
+    once an image at (2560, 16384, 8), every image's codes against the
+    plain lookup of the same features (the same seed's weights, built here)."""
+    from vector_quantization_tpu_torch.ops.vq_lookup import compare_codes, nearest_codes_reference
+    from vector_quantization_tpu_torch.ops.distances import normalize
+    from vector_quantization_tpu_torch.tools.tokenize_llamagen import ten_crop
+    from vector_quantization_tpu_torch.training.runner import build_runner
+    from vector_quantization_tpu_torch.utils.config import load_config
+
+    t_start = time.perf_counter()
+    config, out = tools_config(tmp), tmp / "llamagen"
+    run = run_tool("tokenize_llamagen", "tools", config, "--out", out, "--crop-size", IMAGE_SIZE,
+                   "--work-dir", tmp / "tools_work")
+    codes_dir, labels_dir = out / f"imagenet{IMAGE_SIZE}_codes", out / f"imagenet{IMAGE_SIZE}_labels"
+    layout_ok = (sorted(p.name for p in codes_dir.iterdir()) == sorted(f"{i}.npy" for i in range(TOOLS_IMAGES))
+                 and sorted(p.name for p in labels_dir.iterdir()) == sorted(f"{i}.npy" for i in range(TOOLS_IMAGES)))
+    runner = build_runner(load_config(config), "validator", work_dir=str(tmp / "tools_work_plain"))
+    runner.init_state()
+    model, data = runner.state.model, runner.dataloader.dataset
+    q = model.quantizer
+    reps, files_ok, centre = [], layout_ok, []
+    for i in range(TOOLS_IMAGES if layout_ok else 0):
+        codes, label = np.load(codes_dir / f"{i}.npy"), np.load(labels_dir / f"{i}.npy")
+        files_ok = files_ok and codes.shape == (10, GRID, GRID) and codes.dtype == np.int32 and (
+            0 <= codes.min() and codes.max() < CODEBOOK) and label.dtype == np.int64 and label.tolist() == [
+            data[i].category]
+        crops = ten_crop(data[i].image, IMAGE_SIZE)
+        centre.append(crops[4])
+        with torch.no_grad():
+            x = model.encode(torch.from_numpy(np.ascontiguousarray(crops)).cuda()).reshape(-1, q.embedding_dim)
+            x = normalize(x) if q.normalize_inputs else x
+            e = q.effective_codebook()
+            plain = nearest_codes_reference(x, e, q.distance)
+            reps.append(compare_codes(x, e, torch.from_numpy(codes).cuda(), plain, q.distance))
+    starts = run["encode_starts"]
+    per_image = np.diff(starts).tolist() if len(starts) > 1 else []
+    row = {"phase": "tools_tokenize_llamagen", "config": VQGAN_CONFIG, "images": TOOLS_IMAGES,
+           "source_px": TOOLS_SOURCE_SIZE, "crop_px": IMAGE_SIZE, "rc": run["rc"],
+           "stdout_last": run["stdout"].splitlines()[-1:], "files_ok": files_ok,
+           "k1_launches": run["launches"]["nearest_codes"], "k1_shape": [TOOLS_N, CODEBOOK, 8],
+           "plain_runs_on_cuda": run["plain_runs_on_cuda"],
+           "codes_vs_plain": [{k: r[k] for k in ("rows", "differ", "excused", "near_tie_rows", "tol")} for r in reps],
+           "s_per_image": per_image, "s_per_image_after_first": float(np.mean(per_image[1:])) if per_image[1:] else None,
+           "images_per_s_after_first": 1 / float(np.mean(per_image[1:])) if per_image[1:] else None,
+           "tool_wall_s": run["wall_s"], "wall_s": time.perf_counter() - t_start,
+           "note": "s_per_image: between consecutive encode_to_quant calls in the tool's process (the item, "
+                   "its ten crops, the copy, the encode, the codes' copy back and both np.save)"}
+    emit(row)
+    if not (run["rc"] == 0 and f"exported {TOOLS_IMAGES} items" in run["stdout"] and files_ok
+            and row["k1_launches"] == TOOLS_IMAGES and run["plain_runs_on_cuda"] == 0
+            and len(reps) == TOOLS_IMAGES and all(r["ok"] and r["rows"] == TOOLS_N for r in reps)):
+        raise SystemExit("tools_tokenize_llamagen: a check failed (see its line)")
+    return runner, out, centre, row["k1_launches"]
+
+
+def phase_tools_fid_folder(tmp: Path, runner, export: Path, centre: list) -> dict:
+    """tools.fid and tools.fidelity over two folders the export's tokenizer
+    wrote: the centre crops, and their reconstructions from the exported
+    codes (random-init Inception: relative numbers, tagged)."""
+    from PIL import Image
+
+    from vector_quantization_tpu_torch.data.base import pixel_decode
+
+    t_start = time.perf_counter()
+    originals, recon = tmp / "fid_originals", tmp / "fid_reconstructions"
+    originals.mkdir()
+    recon.mkdir()
+    model = runner.state.model
+    for i, crop in enumerate(centre):
+        codes = torch.from_numpy(np.load(export / f"imagenet{IMAGE_SIZE}_codes/{i}.npy")[4:5]).cuda()
+        with torch.no_grad():
+            img = pixel_decode(model.decode_from_quant(codes))[0].cpu().numpy()
+        Image.fromarray(img).save(recon / f"{i}.png")
+        Image.fromarray(np.asarray(pixel_decode(crop))).save(originals / f"{i}.png")
+    common = ["--pred", recon, "--batch-size", 4, "--image-size", IMAGE_SIZE]
+    fid = run_tool("fid", *common, "--gt", originals, "--out", tmp / "fid.txt")
+    fidelity = run_tool("fidelity", *common, "--splits", 2)
+    fid_line = next((ln for ln in fid["stdout"].splitlines() if "FID=" in ln), "")
+    is_line = next((ln for ln in fidelity["stdout"].splitlines() if ln.startswith("IS: ")), "")
+    fid_value = float(fid_line.split("FID=")[1].split()[0]) if fid_line else float("nan")
+    is_value = float(is_line.split()[1]) if is_line else float("nan")
+    written = (tmp / "fid.txt").read_text().splitlines() if (tmp / "fid.txt").exists() else []
+    row = {"phase": "tools_fid_folder", "images": len(centre), "fid_line": fid_line, "is_line": is_line,
+           "fid": fid_value, "inception_score": is_value, "fid_txt": written, "rc": [fid["rc"], fidelity["rc"]],
+           "plain_runs_on_cuda": fid["plain_runs_on_cuda"] + fidelity["plain_runs_on_cuda"],
+           "tool_wall_s": [fid["wall_s"], fidelity["wall_s"]], "wall_s": time.perf_counter() - t_start}
+    emit(row)
+    if not (fid["rc"] == fidelity["rc"] == 0 and fid_line.endswith("fid_random_init")
+            and is_line.endswith("fid_random_init") and f"(n={len(centre)})" in fid_line
+            and np.isfinite(fid_value) and np.isfinite(is_value) and is_value >= 1.0 and written == [fid_line]
+            and row["plain_runs_on_cuda"] == 0):
+        raise SystemExit("tools_fid_folder: a check failed (see its line)")
+    return row
+
+
+def phase_tools_golden_eval(tmp: Path) -> int:
+    """tools.golden_eval on a seeded synthetic checkpoint in taming's layout
+    at configs/vqgan/16384_imagenet_ddp.py's width: exit 1 against the
+    built-in table, 0 against its own measured numbers; K1 once an eval
+    batch in each run."""
+    from vector_quantization_tpu_torch.tools import _taming
+
+    t_start = time.perf_counter()
+    with torch.random.fork_rng(devices=[]):
+        ckpt = _taming.synthetic_checkpoint(str(tmp / "taming_full.pth"), **GOLDEN_LAYOUT)
+    config = write_overlay(tmp, "tools_golden", GOLDEN_CONFIG, f"""
+validator = dict(
+    dataset=dict(_delete_=True, type="SyntheticDataset", size={GOLDEN_IMAGES}, image_size={IMAGE_SIZE},
+                 num_categories=1000),
+    dataloader=dict(_delete_=True, batch_size_in_total={GOLDEN_BATCH}),
+)
+""")
+    args = ["taming_vqgan", "--checkpoint", ckpt, "--config", config, "--converter-options",
+            f"width={GOLDEN_LAYOUT['width']}"]
+    first = run_tool("golden_eval", *args, "--work-dir", tmp / "golden_1")
+    out = first["stdout"]
+    measured = json.loads(out[out.index("{"): out.index("}") + 1]) if "{" in out else {}
+    golden = {k: v for k, v in measured.items() if k in ("fid", "l1", "mse", "psnr", "ssim", "codebook_usage",
+                                                         "codebook_ppl")}
+    (tmp / "golden.json").write_text(json.dumps(golden))
+    second = run_tool("golden_eval", *args, "--work-dir", tmp / "golden_2", "--golden", tmp / "golden.json")
+    table = [ln for ln in out.splitlines() if ln.endswith(("PASS", "FAIL"))]
+    ignored = [ln.split("'")[1] for ln in out.splitlines() if ln.startswith("[load_model_from] ignoring")]
+    batches = -(-GOLDEN_IMAGES // GOLDEN_BATCH)
+    row = {"phase": "tools_golden_eval", "config": GOLDEN_CONFIG, "layout": GOLDEN_LAYOUT, "images": GOLDEN_IMAGES,
+           "measured": measured, "table_against_built_in": table, "rc_built_in": first["rc"],
+           "rc_own_numbers": second["rc"], "own_numbers_table": [ln for ln in second["stdout"].splitlines()
+                                                                 if ln.endswith(("PASS", "FAIL"))],
+           "ignored_keys": ignored, "k1_launches": [first["launches"]["nearest_codes"],
+                                                    second["launches"]["nearest_codes"]],
+           "k1_shape": [GOLDEN_BATCH * GRID * GRID, GOLDEN_LAYOUT["codes"], GOLDEN_LAYOUT["zdim"]],
+           "plain_runs_on_cuda": first["plain_runs_on_cuda"] + second["plain_runs_on_cuda"],
+           "tool_wall_s": [first["wall_s"], second["wall_s"]], "wall_s": time.perf_counter() - t_start}
+    emit(row)
+    if not (first["rc"] == 1 and second["rc"] == 0 and len(table) == 8 and any("FAIL" in t for t in table)
+            and "lpips" in " ".join(t for t in table if "nan" in t) and ignored == GOLDEN_IGNORED
+            and set(golden) == {"fid", "l1", "mse", "psnr", "ssim", "codebook_usage", "codebook_ppl"}
+            and all(np.isfinite(list(golden.values()))) and measured.get("fid_random_init") == 1.0
+            and row["k1_launches"] == [batches, batches] and row["plain_runs_on_cuda"] == 0):
+        raise SystemExit("tools_golden_eval: a check failed (see its line)")
+    return sum(row["k1_launches"])
+
+
+def phase_tools_record_check(started: tuple) -> int:
+    """tools.record_published --check on three anchors against
+    BASELINE.json (the child ``start_record_check`` started): each metric
+    beside its record, delta and tolerance; gated on CHECK_TOL but for
+    ``RECORD_OWN_DRAWS``."""
+    from vector_quantization_tpu_torch.tools.record_published import CHECK_TOL
+    from vector_quantization_tpu_torch.utils.config import load_config
+
+    run = finish_tool(started)
+    rows = []
+    for ln in run["stdout"].splitlines():
+        m = re.match(r"\[check\] (\w+)\.(\w+): recorded (\S+) measured (\S+) delta (\S+) \(tol (\S+)\) (ok|FAIL)$", ln)
+        if m:
+            fam, key, rec, got, delta, tol, verdict = m.groups()
+            rows.append({"family": fam, "metric": key, "recorded": float(rec), "measured": float(got),
+                         "delta": float(delta), "tol": float(tol), "ok": verdict == "ok",
+                         "gated": (fam, key) not in RECORD_OWN_DRAWS})
+    recorded = json.loads((Path(__file__).resolve().parent / "BASELINE.json").read_text())["published"]
+    want_rows = sum(len(recorded[f]["metrics"]) for f in RECORD_FAMILIES)
+    cfgs = {f: load_config(str(Path(__file__).resolve().parent / "configs/regression" / n))
+            for f, n in (("synthetic_taming_vqgan", "golden_synthetic.py"), ("self_trained_smoke", "smoke_anchor.py"),
+                         ("self_trained_ar", "ar_anchor.py"))}
+
+    def eval_batches(cfg):
+        v = cfg["validator"]
+        return -(-v["dataset"]["size"] // v["dataloader"]["batch_size"])
+
+    k1_want = (eval_batches(cfgs["synthetic_taming_vqgan"])
+               + sum(cfgs[f]["trainer"]["max_iters"] + eval_batches(cfgs[f])
+                     for f in ("self_trained_smoke", "self_trained_ar")))
+    row = {"phase": "tools_record_check", "families": list(RECORD_FAMILIES), "rc": run["rc"], "rows": rows,
+           "check_tol": CHECK_TOL, "ungated_own_draws": sorted(map(list, RECORD_OWN_DRAWS)),
+           "k1_launches": run["launches"]["nearest_codes"], "k1_expected": k1_want,
+           "k4_launches": sum(run["launches"][k] for k in ("flash_attention_fwd", "flash_bwd_dkv", "flash_bwd_dq")),
+           "plain_runs_on_cuda": run["plain_runs_on_cuda"], "tool_wall_s": run["wall_s"],
+           "note": "tool_wall_s: beside the other tools phases, which ran meanwhile"}
+    emit(row)
+    if not (len(rows) == want_rows and all(r["ok"] for r in rows if r["gated"])
+            and run["rc"] == (0 if all(r["ok"] for r in rows) else 1)
+            and all(r["ok"] for r in rows if r["family"] == "synthetic_taming_vqgan")
+            and row["k1_launches"] == k1_want and row["k4_launches"] == 0 and row["plain_runs_on_cuda"] == 0):
+        raise SystemExit("tools_record_check: a check failed (see its line)")
+    return row["k1_launches"]
+
+
+def phase_tools_model_ema(tmp: Path, cli_config: str) -> int:
+    """cli.train with EMA on over the cli_vqgan overlay (full width, 2 steps
+    at batch 4), tools.model_ema on its checkpoint, and the result loaded
+    by ``--load-model-from``: the generator equal to ``extra["ema_params"]``."""
+    from vector_quantization_tpu_torch.cli import train
+    from vector_quantization_tpu_torch.training.checkpoints import checkpoint_file
+    from vector_quantization_tpu_torch.training.runner import build_runner
+    from vector_quantization_tpu_torch.utils.bridge import flax_param_paths
+    from vector_quantization_tpu_torch.utils.config import load_config
+
+    t_start = time.perf_counter()
+    config = write_overlay(tmp, "tools_ema", cli_config, f"""
+trainer = dict(
+    dataloader=dict(_delete_=True, batch_size_in_total={EMA_BATCH}, shuffle=True, num_workers=4),
+    max_iters={EMA_STEPS},
+    callbacks=[dict(type="CheckpointCallback", interval={EMA_STEPS})],
+    algorithm=dict(ema_decay={EMA_DECAY}),
+)
+""")
+    zero_launches()
+    _, plain0 = read_launches()
+    work = tmp / "tools_ema"
+    trainer = train.main(["tools_ema", config, "--work-dir", str(work)])
+    k1 = read_launches()[0]["nearest_codes"]
+    del trainer
+    torch.cuda.empty_cache()
+    ckpt = work / "checkpoints" / f"iter_{EMA_STEPS}"
+    run = run_tool("model_ema", ckpt, tmp / "ema_out")
+    saved = torch.load(checkpoint_file(str(ckpt)), map_location="cpu", weights_only=True)
+    ema = saved["extra"]["ema_params"]
+    runner = build_runner(load_config(config), "validator", work_dir=str(tmp / "tools_ema_val"))
+    runner.init_state()
+    runner.load_model_from([str(tmp / "ema_out")])
+    model, paths = runner.state.model, flax_param_paths(runner.state.model)
+
+    def leaf(tree, path):
+        for part in path.split("/"):
+            tree = tree[part]
+        return tree
+
+    differ = [n for n, p in model.named_parameters() if not torch.equal(p.detach().cpu(), leaf(ema, paths[n]))]
+    moved_from_params = sum(not torch.equal(leaf(ema, paths[n]), leaf(saved["params"]["generator"], paths[n]))
+                            for n in paths)
+    plain = read_launches()[1] - plain0
+    row = {"phase": "tools_model_ema", "config": VQGAN_CONFIG, "batch": EMA_BATCH, "steps": EMA_STEPS,
+           "ema_decay": EMA_DECAY, "rc": run["rc"], "stdout": run["stdout"][-200:], "params": len(paths),
+           "differ_from_ema": differ[:5], "ema_tensors_not_equal_to_params": moved_from_params,
+           "k1_launches_train": k1, "plain_runs_on_cuda": plain + run["plain_runs_on_cuda"],
+           "ema_file_bytes": (tmp / "ema_out" / "state.pt").stat().st_size if (tmp / "ema_out").exists() else 0,
+           "tool_wall_s": run["wall_s"], "wall_s": time.perf_counter() - t_start}
+    del runner, model, saved, ema
+    torch.cuda.empty_cache()
+    emit(row)
+    if not (run["rc"] == 0 and "saved EMA params" in run["stdout"] and not differ and moved_from_params > 0
+            and k1 == EMA_STEPS and row["plain_runs_on_cuda"] == 0):
+        raise SystemExit("tools_model_ema: a check failed (see its line)")
+    return k1
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4141,6 +4537,17 @@ def main() -> int:
         cli_val_launches = phase_cli_val(cli_config, cli_ckpt.parent.parent, cli_test_results)
         gen_eval_launches = phase_ar_generation_eval(ar_config, ar_ckpt, fid_path, tmp)
         probe_launches = phase_linear_probe(tmp)
+        torch.cuda.empty_cache()
+        tools_t0 = time.perf_counter()
+        tool_runner, export, centre, tools_launches = phase_tools_tokenize_llamagen(tmp)
+        record = start_record_check(tmp)
+        phase_tools_fid_folder(tmp, tool_runner, export, centre)
+        del tool_runner
+        torch.cuda.empty_cache()
+        golden_launches = phase_tools_golden_eval(tmp)
+        ema_launches = phase_tools_model_ema(tmp, cli_config)
+        record_launches = phase_tools_record_check(record)
+        emit({"phase": "tools", "wall_s": time.perf_counter() - tools_t0})
     torch.cuda.empty_cache()
     zoo_launches, zoo_profiles = phase_zoo(vqgan, dev, args.seed)
     profile_step()
@@ -4181,7 +4588,9 @@ def main() -> int:
                                 "cli_ar": cli_ar_launches["nearest_codes"], "cli_val": cli_val_launches,
                                 "ar_generation_eval": gen_eval_launches["nearest_codes"], **probe_launches,
                                 **zoo_launches, "parallel_dp": par_dp_launches["nearest_codes"],
-                                "parallel_two_ranks_rank0": two_rank_launches["nearest_codes"]}
+                                "parallel_two_ranks_rank0": two_rank_launches["nearest_codes"],
+                                "tools_tokenize_llamagen": tools_launches, "tools_golden_eval": golden_launches,
+                                "tools_record_check": record_launches, "tools_model_ema": ema_launches}
     for k in k_flash:
         k["launches"] = ar_launches[k["name"]]
         k["launches_by_path"] = {"ar_train": ar_launches[k["name"]], "cli_ar": cli_ar_launches[k["name"]],

@@ -906,3 +906,52 @@ def test_one_rank_tp_server_equals_the_unsharded_server(nccl_one_rank):
     assert out[True].keys() == out[False].keys() == {0, 1, 2}
     for rid in out[False]:
         assert np.array_equal(out[True][rid], out[False][rid])
+
+
+# -- the tools on the card ---------------------------------------------------
+
+def test_tokenize_llamagen_on_card_matches_the_plain_lookup(dev, tmp_path):
+    # the export at the golden config's small width: one K1 launch per image,
+    # and every crop's codes against the plain lookup of the same features
+    from pathlib import Path
+
+    from vector_quantization_tpu_torch.ops import vq_lookup
+    from vector_quantization_tpu_torch.ops.distances import normalize
+    from vector_quantization_tpu_torch.tools import tokenize_llamagen
+    from vector_quantization_tpu_torch.training.runner import build_runner
+    from vector_quantization_tpu_torch.utils.config import load_config
+
+    repo = Path(__file__).resolve().parents[1]
+    config = str(repo / "configs/regression/golden_synthetic.py")
+    small = ["--override", "validator.dataset.size=3"]
+    before = vq_lookup.nearest_codes.launches
+    tokenize_llamagen.main(["t", config, "--out", str(tmp_path / "out"), "--crop-size", "24",
+                            "--work-dir", str(tmp_path / "w"), *small])
+    assert vq_lookup.nearest_codes.launches - before == 3
+    runner = build_runner(load_config(config), "validator", work_dir=str(tmp_path / "w2"))
+    runner.init_state()  # the same seed's weights as the tool's runner
+    model, q = runner.state.model, runner.state.model.quantizer
+    for i in range(3):
+        codes = torch.from_numpy(np.load(tmp_path / f"out/imagenet24_codes/{i}.npy")).to(dev)
+        crops = tokenize_llamagen.ten_crop(runner.dataloader.dataset[i].image, 24)
+        with torch.no_grad():
+            x = model.encode(torch.from_numpy(np.ascontiguousarray(crops)).to(dev)).reshape(-1, q.embedding_dim)
+            x = normalize(x) if q.normalize_inputs else x
+        plain = nearest_codes_reference(x, q.effective_codebook(), q.distance)
+        assert compare_codes(x, q.effective_codebook(), codes, plain, q.distance)["ok"]
+
+
+def test_a_tool_with_the_gpu_hidden_fails_loudly(dev, tmp_path):
+    # the export without --device on a machine whose GPU is hidden: it fails
+    # on CUDA instead of running on the host
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-m", "vector_quantization_tpu_torch.tools.tokenize_llamagen", "t",
+                          str(repo / "configs/regression/golden_synthetic.py"), "--out", str(tmp_path / "out")],
+                         cwd=repo, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0 and "CUDA" in out.stderr and not (tmp_path / "out").exists()

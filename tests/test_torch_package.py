@@ -2,6 +2,7 @@
 package, runs on CUDA unless asked for the CPU, and counts a kernel launch
 only where a kernel launches."""
 
+import os
 import pkgutil
 import subprocess
 import sys
@@ -30,7 +31,23 @@ import vector_quantization_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 runpy.run_path("chip_smoke.py", run_name="not_main")
-bad = [k for k in ("jax", "jaxlib", "flax", "vector_quantization_tpu") if k in sys.modules]
+bad = [k for k in sys.modules if k in ("jax", "jaxlib", "flax", "vector_quantization_tpu", "tools", "tests")
+       or k.startswith(("vector_quantization_tpu.", "tools.", "tests."))]
+print("LOADED", bad)
+"""
+
+TOOLS = ["tokenize_llamagen", "visualize_patches", "golden_eval", "record_published", "fid", "fidelity",
+         "model_ema", "convert_weights", "prepare_checkpoints"]
+
+_TOOL_PROBE = """
+import runpy, sys
+sys.argv = [{name!r}, "--help"]
+try:
+    runpy.run_module("vector_quantization_tpu_torch.tools." + {name!r}, run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+bad = [k for k in sys.modules if k in ("jax", "jaxlib", "flax", "vector_quantization_tpu", "tools", "tests")
+       or k.startswith(("vector_quantization_tpu.", "tools.", "tests."))]
 print("LOADED", bad)
 """
 
@@ -117,7 +134,58 @@ def test_all_submodules_listed():
         "vector_quantization_tpu_torch.cli.tokenize",
         "vector_quantization_tpu_torch.cli.demo",
         "vector_quantization_tpu_torch.algorithms.exp_vqgan_vqkd",
+        *(f"vector_quantization_tpu_torch.tools.{t}" for t in TOOLS),
     } <= names
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_tool_runs_as_a_module_without_jax(name):
+    """``python -m vector_quantization_tpu_torch.tools.<name> --help`` in a
+    fresh interpreter: it parses, and imports nothing of JAX, the JAX
+    package, ``tools/`` or ``tests/``."""
+    out = subprocess.run([sys.executable, "-c", _TOOL_PROBE.format(name=name)], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage:" in out.stdout and "LOADED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("tokenize_llamagen", ["t", "configs/regression/golden_synthetic.py", "--out", "{tmp}/out"]),
+    ("visualize_patches", ["t", "configs/regression/golden_synthetic.py", "--tokens", "0", "--out", "{tmp}/p.png"]),
+    ("golden_eval", ["taming_vqgan", "--checkpoint", "{tmp}/missing.pth",
+                     "--config", "configs/regression/golden_synthetic.py"]),
+    ("record_published", ["--check", "--families", "synthetic_taming_vqgan", "--work-dir", "{tmp}/w"]),
+    ("fid", ["--pred", "{tmp}", "--gt", "{tmp}"]),
+    ("fidelity", ["--pred", "{tmp}"]),
+])
+def test_tools_without_a_gpu_fail_loudly(name, argv, tmp_path):
+    """Without ``--device cpu`` each tool runs on CUDA: with no GPU it
+    exits non-zero naming CUDA and writes no result."""
+    cmd = [sys.executable, "-m", f"vector_quantization_tpu_torch.tools.{name}",
+           *(a.format(tmp=tmp_path) for a in argv)]
+    out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0 and "CUDA" in out.stderr, (out.stdout, out.stderr[-2000:])
+    assert not (tmp_path / "out").exists() and not (tmp_path / "p.png").exists()
+    assert not (tmp_path / "w" / "published_torch.json").exists() and "FID=" not in out.stdout
+
+
+def test_jax_log_converter_reads_the_ports_run_log(tmp_path, capsys):
+    """``tools/convert_log_to_tensorboard.py`` (it imports nothing of
+    either package) parses the ``run.log`` of the port's ``cli.train``:
+    nothing to port."""
+    from tests.test_tools import _run_tool
+    from vector_quantization_tpu_torch.cli import train
+
+    trainer = train.main(["smoke", str(REPO / "configs/vqgan/smoke.py"), "--work-dir", str(tmp_path / "w"),
+                          "--device", "cpu"])
+    lines = [ln for ln in (tmp_path / "w/run.log").read_text().splitlines() if "Iter [" in ln]
+    assert len(lines) == trainer.max_iters == 5
+    capsys.readouterr()
+    _run_tool("convert_log_to_tensorboard.py", [str(tmp_path / "w/run.log"), str(tmp_path / "tb")])
+    n_keys = len(lines[0].split("ETA ")[1].split()) - 1
+    assert f"wrote {5 * n_keys} scalars" in capsys.readouterr().out and n_keys >= 5
+    assert any("tfevents" in f for f in os.listdir(tmp_path / "tb"))
 
 
 def test_server_defaults_to_cuda(monkeypatch):

@@ -54,7 +54,11 @@ Covered so far:
 - parallelism over ``torch.distributed`` (``parallel``: the mesh, data,
   FSDP and tensor parallelism, the collectives), the global-batch
   statistics under them (BatchNorm, the codebook updates, the metrics),
-  tensor-parallel serving and ``utils.debug``'s sync assert.
+  tensor-parallel serving and ``utils.debug``'s sync assert;
+- the repo's tools (``tools``): the LlamaGen token export, the patch
+  collage, the golden regression harness and ``record_published``, FID
+  and IS of image folders, EMA extraction and the weight converters'
+  command line.
 """
 
 __version__ = "0.8.0"

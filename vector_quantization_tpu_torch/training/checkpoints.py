@@ -31,7 +31,7 @@ import torch
 from ..utils.bridge import flax_param_paths, flax_tree
 
 __all__ = ["checkpoint_file", "checkpoint_path", "latest_checkpoint", "list_checkpoints", "load_model_from",
-           "restore_checkpoint", "save_checkpoint", "state_tree"]
+           "merge_params", "restore_checkpoint", "save_checkpoint", "state_tree"]
 
 _FILE = "state.pt"
 
@@ -187,10 +187,22 @@ def _merge(dst: Any, src: Any, where: str = "") -> None:
             dst[k].copy_(v)
 
 
+def merge_params(params: dict[str, Any], src: Mapping[str, Any]) -> dict[str, Any]:
+    """Public strict=False graft: ``src``'s leaves copied over ``params``, a
+    tree of live tensors, in place (and returned). Keys ``params`` lacks are
+    ignored with the JAX package's message; a leaf of another shape raises.
+    Under FSDP or TP call it inside the strategy's ``full_state``, as the
+    runner's ``load_model_from`` does: the full tensors take the merge and
+    each rank keeps its shard of them on exit (the JAX function re-places
+    the merged tree on the template's shardings)."""
+    _merge(params, src)
+    return params
+
+
 def load_model_from(paths: str | list[str], params: dict[str, Any]) -> dict[str, Any]:
     """Weights only: each checkpoint's ``params`` (or the whole file where it
     has none) merged over ``params``, a tree of live tensors, in order."""
     for path in [paths] if isinstance(paths, str) else paths:
         restored = _load(path)
-        _merge(params, restored.get("params", restored))
+        merge_params(params, restored.get("params", restored))
     return params

@@ -18,6 +18,11 @@ Config form (anywhere a filter is accepted)::
 
 A bare string is shorthand for ``contains=[s]``; a list of strings for
 ``contains=list``.
+
+:func:`partition_params` and :func:`filter_state_dict` take a nested tree
+(the JAX layout, as a checkpoint's ``params`` holds it) or a module, whose
+dotted parameter names are read as their flax paths; both give a flat
+``{flax path: leaf}``.
 """
 
 from __future__ import annotations
@@ -25,7 +30,26 @@ from __future__ import annotations
 import re
 from typing import Any, Iterable, Mapping
 
-__all__ = ["NamedParametersFilter", "mask_tree"]
+from torch import nn
+
+from .bridge import flax_param_paths
+
+__all__ = ["NamedParametersFilter", "filter_state_dict", "mask_tree", "partition_params", "path_str"]
+
+
+def path_str(path: Iterable[Any]) -> str:
+    """A path's keys joined with ``"/"``: each part's ``key``, else its
+    ``idx``, else its ``name``, else the part itself (JAX's key-path
+    entries, or plain strings and ints)."""
+    parts = []
+    for p in path:
+        key = getattr(p, "key", None)
+        if key is None:
+            key = getattr(p, "idx", None)
+        if key is None:
+            key = getattr(p, "name", p)
+        parts.append(str(key))
+    return "/".join(parts)
 
 
 class NamedParametersFilter:
@@ -73,3 +97,31 @@ def mask_tree(paths: Iterable[str], filt, value: bool = True) -> list[bool]:
     over the list of its leaves' paths)."""
     f = NamedParametersFilter.build(filt)
     return [value if f(p) else not value for p in paths]
+
+
+def _flat(params: Any, prefix: tuple = ()) -> Iterable[tuple[str, Any]]:
+    if isinstance(params, nn.Module):
+        paths = flax_param_paths(params)
+        for name, p in params.named_parameters():
+            yield paths[name], p
+    elif isinstance(params, Mapping):
+        for k in sorted(params):  # JAX flattens a dict in sorted key order
+            yield from _flat(params[k], (*prefix, k))
+    else:
+        yield path_str(prefix), params
+
+
+def partition_params(params: Any, filt) -> tuple[dict, dict]:
+    """Flat ``{path: leaf}`` split into (matched, rest): the FreezeMixin
+    partition (frozen vs trainable)."""
+    f = NamedParametersFilter.build(filt)
+    matched, rest = {}, {}
+    for s, leaf in _flat(params):
+        (matched if f(s) else rest)[s] = leaf
+    return matched, rest
+
+
+def filter_state_dict(params: Any, filt) -> dict:
+    """Flat ``{path: leaf}`` of just the matching params (reference
+    ``filter_state_dict``)."""
+    return partition_params(params, filt)[0]
