@@ -61,8 +61,21 @@ exits non-zero:
    within 5e-2 * max|ref| of the pool's, >= 90% of rows' argmax equal, 24
    K3 launches a step, no plain version on the card. Then K2 against its
    plain version (max relative error <= 1e-3) and timed as in phase 2 at
-   the dense path's new shapes: generate()'s gate/up (64, 1024, 2816) and
-   the INT8 cache-free forward's (8256, 1024, 2816).
+   the dense path's new shapes: generate()'s gate/up (64, 1024, 2816), and
+   the INT8 prefill's and cache-free forward's 8256 rows (64 x 129) at the
+   fused model's five widths (qkv, o, gate+up, down, lm head: the tiled
+   design) and the unfused gate/up's (8256, 1024, 2816), each also timed
+   under the split-K design (``split_k_ms``); then ``int8_prefill_k2``, the
+   five shapes' times summed over a fused prefill's 97 launches against
+   the sum of their bounds.
+6a. ``int8_prefill``: generate()'s prefill, ``transformer(prefix,
+   cache)``, of a (64, 129) prefix (random tokens from ``--seed``) on
+   phase 4's model into an INT8 dense cache, through the kernels and
+   through the plain versions: the logits within 5e-2 * max|ref|, >= 90%
+   of rows' argmax equal, exactly 97 K2 launches, all of the tiled design,
+   no plain version on the card. Then K2's device time in the prefill
+   (torch.profiler) under the shipped plans and with every call forced to
+   split-K, each beside the 97 launches' bound.
 7. ``serving_dense``: ``ARServer()`` with its default engine (dense cache,
    shared column) at bench.py's serving recipe: phase 4's model, 64 rows =
    32 CFG streams, alpha 1.75, top-k 600, top-p 0.92, INT8 KV,
@@ -525,6 +538,7 @@ MEDIUM_MAX_LENGTH = 1 + IMAGE_TOKENS + DENSE_STEPS_PER_SYNC
 SAMPLER = {"temperature": 1.0, "top_k": 600, "top_p": 0.92}
 # generate() as bench.py's ar section runs it: Llama-medium INT8, unfused, B = 64
 GEN_BATCH, GEN_SEGMENT = 64, 32
+PREFILL_ROWS = GEN_BATCH * 129  # half_generate_step's prefix: 32 CFG pairs x (class + 128 codes)
 GEN_K2_PER_FORWARD = 7 * MEDIUM["num_layers"] + 1  # q, k, v, o, gate, up, down per layer + head
 # the LlamaGen VQGAN tokenizer: f16 at 256 px, 16384 x 8 codebook
 VQGAN_CONFIG = "configs/llamagen/vqgan_imagenet_ddp.py"
@@ -709,6 +723,8 @@ def phase_build() -> None:
     if "w8a16_kernel" in mm:
         split = mm["w8a16_kernel"]
         split["blocks_per_sm"] = blocks_per_sm(split["registers"], 256, split["static_smem"])
+    if "w8a16_tiled_kernel" in mm:
+        mm["w8a16_tiled_kernel"].update(im.occupancy(im.tiled_plan(PREFILL_ROWS, 1024, 1024), 0, 0, 0))
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "sources": sorted(logs), "ptxas": regs, "flash_fwd_at_t257": fwd,
           "flash_bwd_dkv_at_t257": dkv, "flash_bwd_dq_at_t257": dq, "paged_attention": paged,
@@ -796,6 +812,29 @@ def phase_int8_matmul(dev, gen) -> list[dict]:
                     + ", ".join(f"{r['launches_per_step']}x {r['shape']}" for r in mine),
         })
     return kernels
+
+
+def tiled_kernel_entry(prefill_rows: list[dict]) -> dict:
+    """K2's tiled kernel for the ``kernels`` line: each time the mean per
+    launch over a fused prefill's 97 launches, from phase
+    ``dense_vs_paged``'s rows at the five prefill shapes."""
+    def per_launch(key):
+        return sum(r[key] * r["launches_per_prefill"] for r in prefill_rows) / sum(
+            r["launches_per_prefill"] for r in prefill_rows)
+
+    if {r["plan"]["design"] for r in prefill_rows} != {"tiled"}:
+        raise SystemExit("int8_prefill: a prefill shape is not planned on the tiled design")
+    return {"name": "int8_matmul_tiled", "design": "tiled", "route": "cuda",
+            "source": f"{CSRC}/int8_matmul_tiled.cu",
+            "replaces": "vector_quantization_tpu/ops/int8_matmul.py:54",
+            "max_abs_err": max(r["max_abs_err"] for r in prefill_rows),
+            **{k: per_launch(k) for k in ("ms", "plain_ms", "bound_ms", "library_ms", "split_k_ms")},
+            "bound_by": "operations",
+            "note": "mean per launch over a fused prefill's launches: "
+                    + ", ".join(f"{r['launches_per_prefill']}x {r['shape']}" for r in prefill_rows),
+            "prefill_shapes": [{key: r[key] for key in ("shape", "B", "D", "F", "ms", "plain_ms", "library_ms",
+                                                       "split_k_ms", "bound_ms", "max_abs_err")}
+                               for r in prefill_rows]}
 
 
 def phase_paged_attention(dev, gen) -> dict:
@@ -1118,10 +1157,11 @@ def k2_launches(launches: dict) -> int:
     return sum(launches[source] for source, _ in DESIGNS.values())
 
 
-def int8_matmul_row(dev, gen, name: str, b: int, d: int, f: int) -> dict:
+def int8_matmul_row(dev, gen, name: str, b: int, d: int, f: int, split_k: bool = False) -> dict:
     """K2 through ``int8_matmul`` (the plan's kernel) against its plain
     version at one shape, and the three device times of phase
-    ``int8_matmul`` (weights rotated past the L2)."""
+    ``int8_matmul`` (weights rotated past the L2); with ``split_k``, also
+    the split-K design's time at the shape (``split_k_ms``)."""
     from vector_quantization_tpu_torch.ops import int8_matmul as im
 
     x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -1148,8 +1188,20 @@ def int8_matmul_row(dev, gen, name: str, b: int, d: int, f: int) -> dict:
         "plain_ms": graph_ms([lambda w=w: im.int8_matmul_reference(x, w, s) for w in ws], replays=3),
         "library_ms": graph_ms([lambda w=w: torch.matmul(x, w) * s for w in wb], replays=3),
     })
+    if split_k:
+        sk = im.split_k_plan(b, d, f, im.card(dev).sms)
+        row["split_k_ms"] = graph_ms([lambda w=w: im._launch(x, w, s, sk) for w in ws], replays=3)
     emit(row)
     return row
+
+
+def prefill_matmuls() -> list[tuple[str, int, int, int]]:
+    """The fused INT8 Llama-medium's products in a prefill of 64 x 129
+    rows: (name, D, F, launches per prefill)."""
+    d, f = MEDIUM["hidden_size"], MEDIUM["ffn_dim"]
+    layers = MEDIUM["num_layers"]
+    return [("qkv", d, 3 * d, layers), ("o", d, d, layers), ("gate_up", d, 2 * f, layers),
+            ("down", f, d, layers), ("lm_head", d, VOCAB, 1)]
 
 
 def phase_dense_vs_paged(model, dev, gen, seed: int) -> list[dict]:
@@ -1187,8 +1239,105 @@ def phase_dense_vs_paged(model, dev, gen, seed: int) -> list[dict]:
         raise SystemExit("dense_vs_paged: the dense and paged decode disagree (see its line)")
     del dense, paged
     d, f = MEDIUM["hidden_size"], MEDIUM["ffn_dim"]
-    return [int8_matmul_row(dev, gen, "generate_gate_up", GEN_BATCH, d, f),
-            int8_matmul_row(dev, gen, "int8_prefill_gate_up", GEN_BATCH * 129, d, f)]
+    rows = [int8_matmul_row(dev, gen, "generate_gate_up", GEN_BATCH, d, f)]
+    prefill = []
+    for name, dd, ff, per_prefill in prefill_matmuls():
+        row = int8_matmul_row(dev, gen, f"int8_prefill_{name}", PREFILL_ROWS, dd, ff, split_k=True)
+        prefill.append({**row, "launches_per_prefill": per_prefill})
+    rows += prefill + [int8_matmul_row(dev, gen, "int8_prefill_gate_up_unfused", PREFILL_ROWS, d, f,
+                                       split_k=True)]
+    total = {k: sum(r[k] * r["launches_per_prefill"] for r in prefill)
+             for k in ("ms", "split_k_ms", "plain_ms", "library_ms", "bound_ms")}
+    emit({"phase": "int8_matmul", "shape": "int8_prefill_k2", "B": PREFILL_ROWS,
+          "launches": sum(r["launches_per_prefill"] for r in prefill),
+          "designs": sorted({r["plan"]["design"] for r in prefill}), **total,
+          "note": "sums over a fused prefill's launches of each shape's time (weights rotated past the L2)"})
+    return rows
+
+
+def prefill_k2_device_ms(model, prefill, forced=None) -> float:
+    """K2's device milliseconds in one prefill (torch.profiler, after a
+    warm-up), under the shipped plans or with every call launched under
+    ``forced(b, d, f)``'s plan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vector_quantization_tpu_torch.models.transformers import llama as llama_mod
+    from vector_quantization_tpu_torch.ops import int8_matmul as im
+
+    def launch(x, w, s):
+        x2 = x.reshape(-1, x.shape[-1])
+        p = forced(x2.shape[0], x2.shape[1], w.shape[1])
+        return im._launch(x2, w, s, p).reshape(*x.shape[:-1], -1)
+
+    saved = llama_mod.int8_matmul
+    if forced is not None:
+        llama_mod.int8_matmul = launch
+    try:
+        prefill()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prefill()
+            torch.cuda.synchronize()
+    finally:
+        llama_mod.int8_matmul = saved
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if any(kernel in e.key for _, kernel in im.DESIGNS.values()))
+    if us <= 0:
+        raise SystemExit("int8_prefill: the profiler recorded no K2 device time")
+    return us / 1e3
+
+
+def phase_int8_prefill(model, dev, seed: int, k2_rows: list[dict]) -> dict:
+    """generate()'s prefill of a (64, 129) prefix on phase 4's model, the
+    ``transformer(prefix, cache)`` call, through the kernels and through
+    the plain versions; then K2's device time in it under the shipped plans
+    and under split-K."""
+    from vector_quantization_tpu_torch.models.transformers import llama as llama_mod
+    from vector_quantization_tpu_torch.ops import int8_matmul as im
+
+    b, t = GEN_BATCH, PREFILL_ROWS // GEN_BATCH
+    prefix = torch.from_numpy(np.random.default_rng(seed + 7).integers(
+        0, VOCAB, (b, t)).astype(np.int32)).to(dev)
+
+    def prefill():
+        cache = model.init_cache(b, dtype=torch.int8, device=dev, rows=t + GEN_SEGMENT)
+        with torch.inference_mode():
+            return model(prefix, cache)[0]
+
+    zero_launches()
+    _, plain0 = read_launches()
+    t0 = time.perf_counter()
+    got = prefill()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_launches()
+    saved = llama_mod.int8_matmul
+    llama_mod.int8_matmul = im.int8_matmul_reference
+    try:
+        want = prefill()
+        torch.cuda.synchronize()
+    finally:
+        llama_mod.int8_matmul = saved
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    want_k2 = sum(n for *_, n in prefill_matmuls())
+    bound = sum(r["bound_ms"] * r["launches_per_prefill"] for r in k2_rows)
+    del want
+    row = {"phase": "int8_prefill", "B": b, "T": t, "rows": b * t, "cache": "int8", **MEDIUM,
+           "vocab": VOCAB, "logits_shape": list(got.shape), "first_call_s": wall,
+           "max_abs_err_over_max_ref": err, "limit": 5e-2, "argmax_agree_frac": agree,
+           "argmax_limit": 0.9, "launches": launches, "k2_launches": k2_launches(launches),
+           "k2_launches_expected": want_k2, "plain_runs_on_cuda": plain - plain0,
+           "k2_device_ms": prefill_k2_device_ms(model, prefill),
+           "k2_device_ms_split_k": prefill_k2_device_ms(
+               model, prefill, lambda bb, d, f: im.split_k_plan(bb, d, f, im.card(dev).sms)),
+           "k2_bound_ms": bound}
+    emit(row)
+    if (got.shape != (b, t, VOCAB) or not torch.isfinite(got).all() or err > 5e-2 or agree < 0.9
+            or row["k2_launches"] != want_k2 or launches["int8_matmul_tiled"] != want_k2
+            or plain != plain0):
+        raise SystemExit("int8_prefill: a check failed (see the int8_prefill line)")
+    return launches
 
 
 def phase_serving_dense(model, dev, seed: int, n_requests: int, k2_kernels: list[str]):
@@ -3485,7 +3634,7 @@ def phase_serving_w8a8(dev, gen, seed: int):
           and all(c.shape == (IMAGE_TOKENS,) and (c >= 0).all() and (c < CODEBOOK).all() for c in done.values())
           and launches["paged_decode_attention"] == MEDIUM["num_layers"] * n
           and launches["int8_mm"] == (4 * MEDIUM["num_layers"] + 1) * n
-          and launches["int8_matmul"] == launches["int8_matmul_wide"] == 0 and plain == plain0)
+          and k2_launches(launches) == 0 and plain == plain0)
     emit({"phase": "serving_w8a8", "quantize_mode": "w8a8", "B": SLOTS, "vocab": VOCAB, **MEDIUM,
           "int_mm": rows, "decode_step": {
               "max_abs_err_over_max_ref_vs_plain": plain_err, "limit": W8A8_PLAIN_LIMIT,
@@ -4484,6 +4633,8 @@ def main() -> int:
     k2_kernels = [k["name"] for k in k_int8]
     launches, done = phase_serving(model, dev, args.seed, args.requests, k2_kernels)
     k2_dense_rows = phase_dense_vs_paged(model, dev, gen, args.seed)
+    prefill_rows = [r for r in k2_dense_rows if "launches_per_prefill" in r]
+    prefill_launches = phase_int8_prefill(model, dev, args.seed, prefill_rows)
     dense_launches = phase_serving_dense(model, dev, args.seed, args.requests, k2_kernels)
     del model
     torch.cuda.empty_cache()
@@ -4564,6 +4715,7 @@ def main() -> int:
     for k in k_int8:
         k["launches"] = launches[k["name"]]
         k["launches_by_path"] = {"serving": launches[k["name"]],
+                                 "int8_prefill": prefill_launches[k["name"]],
                                  "generate": gen_launches[k["name"]],
                                  "serving_dense": dense_launches[k["name"]],
                                  "ar_generation_eval": gen_eval_launches[k["name"]],
@@ -4572,6 +4724,15 @@ def main() -> int:
         k["dense_path_shapes"] = [{key: r[key] for key in ("shape", "B", "D", "F", "ms", "plain_ms",
                                                            "library_ms", "bound_ms", "max_abs_err")}
                                   for r in k2_dense_rows if r["plan"]["design"] == k["design"]]
+    k_tiled = tiled_kernel_entry(prefill_rows)
+    k_tiled["launches"] = prefill_launches[k_tiled["name"]]
+    k_tiled["launches_by_path"] = {"int8_prefill": prefill_launches[k_tiled["name"]],
+                                   "serving": launches[k_tiled["name"]],
+                                   "generate": gen_launches[k_tiled["name"]],
+                                   "serving_dense": dense_launches[k_tiled["name"]],
+                                   "ar_generation_eval": gen_eval_launches[k_tiled["name"]],
+                                   "serving_w8a8": w8a8_launches[k_tiled["name"]],
+                                   "parallel_tp_serving": tp_launches["serving"][k_tiled["name"]]}
     k_attn["launches"] = launches[k_attn["name"]]
     k_attn["launches_by_path"] = {"serving": launches[k_attn["name"]],
                                   "serving_w8a8": w8a8_launches[k_attn["name"]],
@@ -4599,7 +4760,7 @@ def main() -> int:
                                  "parallel_fsdp": fsdp_launches[k["name"]],
                                  "parallel_tp": tp_launches["train"][k["name"]],
                                  "parallel_two_ranks_rank0": two_rank_launches[k["name"]]}
-    emit({"kernels": [*k_int8, k_attn, k_vq, *k_flash]})
+    emit({"kernels": [*k_int8, k_tiled, k_attn, k_vq, *k_flash]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})
     return 0

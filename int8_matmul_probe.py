@@ -3,7 +3,7 @@
 cut out and under other plans, the harness's floor per graph node, and the
 library yardstick's two nodes.
 
-Usage: python3 int8_matmul_probe.py [--source PATH] [--seed 0]
+Usage: python3 int8_matmul_probe.py [--source PATH] [--seed 0] [--cuts]
 
 First, at the five serving shapes of ``chip_smoke.py`` (B = 64; qkv, o,
 gate+up, down, lm head of Llama-medium), ``planned``: the package's own
@@ -36,7 +36,23 @@ with the weight rotated through more than 50 MB as ``chip_smoke.py`` phase
   (``timeline``, also on the no-loads and no-products copies): when each
   block's thread 0 entered, saw its first tile, was past its last tile,
   saw every peer of its cluster started, saw the sums met, and ended;
-- for both: ``zeros`` (the ``torch.zeros`` node alone), ``matmul``
+- ``w8a16_tiled_kernel`` (``csrc/int8_matmul_tiled.cu``, the design for
+  many rows): the threshold sweep instead of the serving shapes. At B in
+  ``SWEEP_ROWS`` (128 to 8256) and each of the five widths, ``below`` (the
+  plan ``plan`` picks without the tiled design: wide where the rows are
+  aligned and a share fits, else split-K), ``tiled`` (the tiled design
+  forced), ``split_k`` (split-K forced, where ``below`` is not split-K)
+  and ``library``, alternately (below, tiled, tiled, below) in one call;
+  each kernel checked against the plain version first; the line carries
+  ``planned``, the design the package's ``plan`` picks at that shape.
+  With ``--cuts``, instead: at the five widths at 8256 rows, the tiled
+  kernel as it is (``shipped``) and with parts cut out: ``no_store`` (the
+  output's global stores), ``no_epilogue`` (the whole epilogue, the sums
+  kept live), ``no_widen`` (the A fragments' ldmatrix and widening),
+  ``no_mma`` (the wgmmas), ``no_x_tma`` (x's TMA copies); the
+  shipped kernel beside the SM clock and
+  power that ``nvidia-smi`` samples during the shipped kernel's timing;
+- for the split-K and wide designs: ``zeros`` (the ``torch.zeros`` node alone), ``matmul``
   (``torch.matmul(x, w_bf16)`` alone), ``scale`` (``y * s`` alone, on a
   precomputed ``y``) and ``library`` (the two together: ``library_ms``).
 
@@ -61,6 +77,7 @@ import torch
 
 from chip_smoke import HBM_BYTES_PER_S, MEDIUM, SLOTS, VOCAB, graph_ms
 from flash_fwd_probe import build
+from vector_quantization_tpu_torch.ops import int8_matmul as im
 from vector_quantization_tpu_torch.ops.int8_matmul import (
     Plan, card, int8_matmul, int8_matmul_reference, occupancy, plan_for, split_k, wide_plan,
 )
@@ -135,6 +152,30 @@ WIDE["cvt_pack"] = [(
     "  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);\n"
     "  return *reinterpret_cast<uint32_t*>(&v);\n")]
 WIDE_MARK = "w8a16_wide_kernel"
+TILED_MARK = "w8a16_tiled_kernel"
+SWEEP_ROWS = (128, 256, 512, 1024, 2048, 8256)
+# the tiled design with parts cut out (its outputs are garbage)
+TILED = {
+    "shipped": [],
+    "no_store": [("  if (p.out_aligned) {\n    if (row < p.B && o.col < p.F)",
+                  "  if (y.x != 1234.5f) return;\n  if (p.out_aligned) {\n    if (row < p.B && o.col < p.F)")],
+    "no_widen": [("      ldsm_x4_t(bw, ws + (32 * h + (lane >> 3) * 8 + (lane & 7)) * 128 +\n"
+                  "                        ((chunk ^ (lane & 7)) << 4));\n",
+                  "      bw[0] = ws + h; bw[1] = lane; bw[2] = bw[1] + 3; bw[3] = bw[0] ^ 5;\n"),
+                 ("        a[2 * h + q][0] = widen2(lo, 0);\n        a[2 * h + q][1] = widen2(lo, 1);\n"
+                  "        a[2 * h + q][2] = widen2(hi, 0);\n        a[2 * h + q][3] = widen2(hi, 1);\n",
+                  "        a[2 * h + q][0] = lo;\n        a[2 * h + q][1] = hi;\n"
+                  "        a[2 * h + q][2] = lo ^ 7;\n        a[2 * h + q][3] = hi ^ 9;\n")],
+    "no_mma": [("    for (int kk = 0; kk < 4; ++kk) wgmma_256(",
+                "    for (int kk = 0; kk < 0; ++kk) wgmma_256(")],
+    # the sums kept live by one conditional store of their total
+    "no_epilogue": [("    store_tile(p, acc, o, g, t4);\n",
+                     "    float sum = 0.f;\n#pragma unroll\n    for (int i = 0; i < ACC; ++i) sum += acc[i];\n"
+                     "    if (sum == 1234.5f) p.out[tid] = sum;\n")],
+    "no_x_tma": [("          mbar_expect_tx(full + 8 * s, X_STAGE + (p.w_tma ? W_STAGE : 0));\n"
+                  "          tma2d(st, &tx, full + 8 * s, kb * TK, m0);\n",
+                  "          mbar_expect_tx(full + 8 * s, p.w_tma ? W_STAGE : 0);\n")],
+}
 
 
 def nvidia_smi() -> str:
@@ -307,6 +348,104 @@ def timeline(call, plan, name, shape, b, d, f, ws) -> None:
     }), flush=True)
 
 
+def probe_tiled(dev, gen) -> None:
+    """The threshold sweep of the tiled design (module docstring). The
+    package's own kernels run through ``_launch`` under each forced plan;
+    bound_us here is the larger of the bytes' and the operations' floors."""
+    for b in SWEEP_ROWS:
+        for shape, d, f in SHAPES:
+            x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+            s = torch.rand((f,), generator=gen, device=dev) * 0.02 + 1e-3
+            ws = rotated(d, f, gen, dev)
+            aligned = (2 * d) % 16 == 0 and f % 16 == 0
+            below = (aligned and wide_plan(b, d, f, card(dev))) or im.split_k_plan(b, d, f, card(dev).sms)
+            plans = {"below": below, "tiled": im.tiled_plan(b, d, f)}
+            if below.design != "split_k":
+                plans["split_k"] = im.split_k_plan(b, d, f, card(dev).sms)
+            want = int8_matmul_reference(x, ws[0], s)
+            for name, p in plans.items():
+                got = im._launch(x, ws[0], s, p)
+                torch.cuda.synchronize()
+                rel = float((got - want).abs().max() / want.abs().max())
+                if rel > 1e-3 or not bool(torch.isfinite(got).all()):
+                    raise SystemExit(f"int8_matmul_probe: {name} at ({b}, {d}, {f}) disagrees ({rel})")
+            del got, want
+
+            def one(p):
+                return 1e3 * graph_ms([lambda w=w: im._launch(x, w, s, p) for w in ws])
+
+            us = {name: [] for name in plans}
+            for name in ("below", "tiled", "tiled", "below"):
+                us[name].append(one(plans[name]))
+            if "split_k" in plans:
+                us["split_k"] = [one(plans["split_k"]) for _ in range(2)]
+            wb = [w.to(torch.bfloat16) for w in ws]
+            us["library"] = [1e3 * graph_ms([lambda w=w: torch.matmul(x, w) * s for w in wb])
+                             for _ in range(2)]
+            del wb
+            ops, byts = 2 * b * d * f, d * f + b * d * 2 + f * 4 + b * f * 4
+            print(json.dumps({
+                "variant": "sweep", "shape": shape, "B": b, "D": d, "F": f,
+                "planned": im.plan(b, d, f, card(dev), aligned).design,
+                "plans": {k: p._asdict() for k, p in plans.items()}, "us_per_call": us,
+                "tiled_over_below": min(us["tiled"]) / min(us["below"]),
+                "tiled_over_library": min(us["tiled"]) / min(us["library"]),
+                "bound_us": 1e6 * max(byts / HBM_BYTES_PER_S, ops / 989e12),
+                "bound_by": "bytes" if byts / HBM_BYTES_PER_S >= ops / 989e12 else "operations",
+                "weight_copies": len(ws)}), flush=True)
+            del ws
+
+
+def probe_tiled_cuts(src: str, dev, gen) -> None:
+    """The tiled kernel and its cut copies at the five widths at 8256 rows
+    (module docstring); the shipped copy is checked against the plain
+    version."""
+    libs = build(src, TILED, OUT / "tiled")
+    fns = {}
+    for name, (lib, _) in libs.items():
+        fn = lib.vqt_int8_matmul_tiled
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fns[name] = fn
+    b, sms = SWEEP_ROWS[-1], card(dev).sms
+    for shape, d, f in SHAPES:
+        x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+        s = torch.rand((f,), generator=gen, device=dev) * 0.02 + 1e-3
+        ws = rotated(d, f, gen, dev)
+        def call(name, w):
+            out = torch.empty((b, f), device=dev)
+            err = fns[name](x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), b, d, f, d,
+                            sms, torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise SystemExit(f"int8_matmul_probe: launch failed, CUDA error {err}")
+            return out
+
+        got, want = call("shipped", ws[0]), int8_matmul_reference(x, ws[0], s)
+        torch.cuda.synchronize()
+        rel = float((got - want).abs().max() / want.abs().max())
+        if rel > 1e-3:
+            raise SystemExit(f"int8_matmul_probe: tiled {shape} disagrees ({rel})")
+        del got, want
+        for name in fns:
+            extra = {}
+            if name == "shipped":
+                smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                        "--format=csv,noheader,nounits", "-lms", "50"],
+                                       stdout=subprocess.PIPE, text=True)
+            us = times([lambda w=w, n=name: call(n, w) for w in ws])
+            if name == "shipped":
+                smi.terminate()
+                samples = [ln.split(",") for ln in smi.communicate()[0].splitlines() if "," in ln]
+                clocks = sorted(float(c) for c, _ in samples)
+                power = sorted(float(pw) for _, pw in samples)
+                extra = {"max_rel_err": rel, "sm_clock_mhz_min_median_max":
+                         [clocks[0], clocks[len(clocks) // 2], clocks[-1]] if clocks else None,
+                         "power_w_min_median_max": [power[0], power[len(power) // 2], power[-1]]
+                         if power else None, "clock_samples": len(clocks)}
+            emit(name, shape, b, d, f, us, design="tiled", weight_copies=len(ws), **extra)
+        del ws
+
+
 def library_nodes(shape, b, d, f, x, s, ws, dev) -> None:
     wb = [w.to(torch.bfloat16) for w in ws]
     y = torch.matmul(x, wb[0])
@@ -321,6 +460,8 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--source", type=Path, default=SOURCE)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--cuts", action="store_true",
+                   help="the tiled design's cut copies in place of its threshold sweep")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("int8_matmul_probe: no CUDA device", file=sys.stderr)
@@ -329,6 +470,10 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     src = args.source.read_text()
+    if TILED_MARK in src:
+        (probe_tiled_cuts(src, dev, gen) if args.cuts else probe_tiled(dev, gen))
+        print(nvidia_smi(), flush=True)
+        return 0
     probe_planned(dev, gen)
     if PARENT_MARK in src:
         probe_parent(src, dev, gen)

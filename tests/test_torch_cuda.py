@@ -175,6 +175,73 @@ def test_int8_matmul_wide_plans_match_plain(dev, split, stages, b, d, f):
     assert _rel_err(got, int8_matmul_reference(x, w, s)) <= 1e-3
 
 
+@pytest.mark.parametrize(
+    "b,d,f",
+    [
+        # the prefill's gate/up (unfused), head and down at 8256 rows
+        (8256, 1024, 2816), (8256, 1024, 17385), (8256, 2816, 1024),
+        # ragged B and F (rows not 16-byte aligned), a partial last row tile,
+        # D deeper than 20,000; D = 100 (x's rows not 16-byte aligned: the
+        # wrapper pads them)
+        (130, 1000, 17385), (257, 96, 200), (300, 1000, 777), (129, 20000, 256), (257, 100, 37),
+    ],
+)
+def test_int8_matmul_tiled_matches_plain(dev, b, d, f):
+    # the tiled design forced at each shape: TMA-loaded weight tiles where
+    # F % 16 == 0, the unaligned rows' copy-and-shift elsewhere
+    x, w, s = _int8_inputs(dev, b, d, f, b * 3 + d + f)
+    before = dict(int8_matmul.design_launches)
+    got = im._launch(x, w, s, im.tiled_plan(b, d, f))
+    torch.cuda.synchronize()
+    assert int8_matmul.design_launches["tiled"] == before["tiled"] + 1
+    assert got.dtype == torch.float32 and got.shape == (b, f)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, int8_matmul_reference(x, w, s)) <= 1e-3
+
+
+def test_int8_matmul_public_call_at_8256_rows_is_tiled(dev):
+    # the prefill's rows through the public entry: planned, launched and
+    # counted as the tiled design
+    x, w, s = _int8_inputs(dev, 8256, 1024, 5632, 11)
+    assert im.plan_for(x, w).design == "tiled"
+    before = dict(int8_matmul.design_launches)
+    got = int8_matmul(x.reshape(64, 129, 1024), w, s)
+    torch.cuda.synchronize()
+    assert got.shape == (64, 129, 5632)
+    after = dict(int8_matmul.design_launches)
+    assert {k: after[k] - before[k] for k in after} == {"split_k": 0, "wide": 0, "tiled": 1}
+    assert _rel_err(got.reshape(8256, 5632), int8_matmul_reference(x, w, s)) <= 1e-3
+
+
+@pytest.mark.parametrize("d,f", [(1024, 3072), (1024, 17385)])
+def test_int8_matmul_tiled_graph_replays_match_plain(dev, d, f):
+    # one tiled call (TMA weight tiles; the unaligned head's rows) captured
+    # in a CUDA graph, x changed in place between replays: each replay
+    # matches the plain version on the new x
+    b = 8256
+    x, w, s = _int8_inputs(dev, b, d, f, 5)
+    p = im.tiled_plan(b, d, f)
+    rng = np.random.default_rng(6)
+    im._launch(x, w, s, p)  # warm-up: build
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = im._launch(x, w, s, p)
+    for _ in range(2):
+        x.copy_(torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)))
+        g.replay()
+        torch.cuda.synchronize()
+        assert _rel_err(out, int8_matmul_reference(x, w, s)) <= 1e-3
+
+
+def test_int8_matmul_tiled_smem_matches_kernel(dev):
+    # the plan's reckoning of shared memory is the kernel's, and one block
+    # fits an SM
+    p = im.tiled_plan(8256, 1024, 2816)
+    occ = im.occupancy(p, 8256, 1024, 2816)
+    assert occ["dynamic_smem"] == p.smem() and occ["blocks_per_sm"] >= 1
+
+
 def _paged_inputs(dev, *, pool_dtype, q_dtype, b=64, h=16, dh=64, ps=64,
                   n_layers=3, p_cap=5, seed=0, lengths=None):
     rng = np.random.default_rng(seed)

@@ -8,7 +8,8 @@ import torch
 
 from vector_quantization_tpu.ops.int8_matmul import int8_matmul as jax_int8_matmul
 from vector_quantization_tpu_torch.ops.int8_matmul import (
-    H100, Card, Plan, int8_matmul, plan, split_k, split_k_plan, wide_plan,
+    H100, TILED_MIN_ROWS, Card, Plan, int8_matmul, plan, split_k, split_k_plan, tiled_plan,
+    wide_plan,
 )
 
 
@@ -185,3 +186,212 @@ def test_plan_takes_wide_at_the_aligned_decode_shapes(b, d, f):
     assert gx <= 2 * 132 and (p.split == 8 or 2 * gx > 2 * 132)
     assert p.stages == min(p.k_chunk // 64, 8)
     assert plan(b, d, f, H100, False).design == "split_k"
+
+
+# -- the tiled design (many rows) ------------------------------------------------
+
+# Llama-medium's five INT8 products: qkv, o, gate+up, down (fused) and the head
+MEDIUM_WIDTHS = [(1024, 3072), (1024, 1024), (1024, 5632), (2816, 1024), (1024, 17385)]
+
+
+@pytest.mark.parametrize("d,f", MEDIUM_WIDTHS)
+def test_plan_takes_tiled_at_the_prefill_rows(d, f):
+    # generate()'s prefill of 64 rows x 129 positions: every projection and
+    # the head (F = 17385: rows not 16-byte aligned) on the tiled design
+    p = plan(8256, d, f, H100, _aligned(d, f))
+    assert p == tiled_plan(8256, d, f) and p.design == "tiled"
+    assert p.k_chunk == -(-d // 64) * 64 and p.split == 1
+    assert plan(8256, d, f, H100, False) == p
+
+
+# the plan of the parent of the tiled design at each decode shape (the five
+# fused widths and generate()'s unfused gate/up, at 1, 7 and 64 rows)
+PARENT_PLANS = [
+    ((1, 1024, 3072), ("wide", 128, 8, 64, 2, 128)),
+    ((1, 1024, 1024), ("wide", 128, 8, 64, 2, 128)),
+    ((1, 1024, 5632), ("wide", 128, 4, 64, 4, 256)),
+    ((1, 2816, 1024), ("wide", 128, 8, 64, 6, 384)),
+    ((1, 1024, 17385), ("split_k", 128, 2, 32, 1, 512)),
+    ((1, 1024, 2816), ("wide", 128, 8, 64, 2, 128)),
+    ((7, 1024, 3072), ("wide", 128, 8, 64, 2, 128)),
+    ((7, 1024, 1024), ("wide", 128, 8, 64, 2, 128)),
+    ((7, 1024, 5632), ("wide", 128, 4, 64, 4, 256)),
+    ((7, 2816, 1024), ("wide", 128, 8, 64, 6, 384)),
+    ((7, 1024, 17385), ("split_k", 128, 2, 32, 1, 512)),
+    ((7, 1024, 2816), ("wide", 128, 8, 64, 2, 128)),
+    ((64, 1024, 3072), ("wide", 128, 8, 64, 2, 128)),
+    ((64, 1024, 1024), ("wide", 128, 8, 64, 2, 128)),
+    ((64, 1024, 5632), ("wide", 128, 4, 64, 4, 256)),
+    ((64, 2816, 1024), ("wide", 128, 8, 64, 6, 384)),
+    ((64, 1024, 17385), ("split_k", 128, 2, 32, 1, 512)),
+    ((64, 1024, 2816), ("wide", 128, 8, 64, 2, 128)),
+]
+
+
+@pytest.mark.parametrize("shape,parent", PARENT_PLANS)
+def test_plan_keeps_the_parent_plan_at_decode_shapes(shape, parent):
+    b, d, f = shape
+    assert TILED_MIN_ROWS > b
+    assert plan(b, d, f, H100, _aligned(d, f)) == Plan(*parent)
+
+
+def _tiles_cover_once(p, b, d, f):
+    # every (row, column) of the output in exactly one tile, each over all of D
+    seen = np.zeros((b, f), np.int32)
+    for m0, n0, k0, k1 in p.blocks(b, d, f):
+        assert (k0, k1) == (0, d) and m0 < b and n0 < f
+        seen[m0:m0 + p.rows, n0:n0 + p.n] += 1
+    return seen
+
+
+@pytest.mark.parametrize(
+    "b,d,f",
+    [(130, 1000, 17385), (257, 96, 200), (300, 1000, 777), (129, 20000, 256),
+     (8256, 1024, 17385), (8256, 2816, 1024), (1, 8, 1)],
+)
+def test_tiled_plan_tiles_cover_each_output_once(b, d, f):
+    p = tiled_plan(b, d, f)
+    gx, gy, gz = p.grid(b, d, f)
+    blocks = p.blocks(b, d, f)
+    assert len(blocks) == gx * gy * gz and p.rows == 256
+    assert (_tiles_cover_once(p, b, d, f) == 1).all()
+    # the kernel's tile t is (row tile t // gx, column tile t % gx)
+    assert blocks == [(t // gx * p.rows, t % gx * p.n, 0, d) for t in range(gx * gy)]
+
+
+def test_tiled_plan_fits_the_card():
+    # one block per SM: the block's shared memory (the kernel's own
+    # reckoning) within the per-block and per-SM limits of an H100; on a
+    # card with less, plan() keeps the designs below
+    p = tiled_plan(8256, 1024, 17385)
+    assert p.smem() == 1024 + 1024 + 4 * (32768 + 8192 + 9216)
+    assert p.smem() <= H100.smem_block and p.smem() + 1024 <= H100.smem_sm
+    assert plan(8256, 1024, 2816, SMALL_CARD, True).design != "tiled"
+
+
+def _copied_words(off: int, nb: int, half: int) -> range:
+    """The aligned 16-byte words of a row slot that the producer thread of
+    half ``half`` copies (``csrc/int8_matmul_tiled.cu``): those that cover
+    the row's bytes [64 half, min(64 half + 64, nb)), the row starting
+    ``off`` bytes into its first word."""
+    lo, hi = 64 * half, min(64 * half + 64, nb)
+    return range((off + lo) >> 4, ((off + hi - 1) >> 4) + 1) if lo < hi else range(0)
+
+
+def _realign(raw: np.ndarray, off: int, nb: int, half: int) -> np.ndarray:
+    """The kernel's shift of half an unaligned weight row into place
+    (``realign``): output word m of the half is the funnel shift of the
+    copied words' 32-bit words (off >> 2) + 16 half + m and + m + 1 right by
+    8 (off & 3) bits, its bytes past ``nb`` zeroed."""
+    words = raw.view("<u4").astype(np.uint64)
+    out = np.zeros(16, np.uint32)
+    for m in range(16):
+        w0 = (off >> 2) + 16 * half + m
+        u = int(((words[w0 + 1] << 32) | words[w0]) >> (8 * (off & 3))) & 0xFFFFFFFF
+        left = nb - 64 * half - 4 * m
+        out[m] = u if left >= 4 else 0 if left <= 0 else u & ((1 << (8 * left)) - 1)
+    return out.view(np.uint8)
+
+
+@pytest.mark.parametrize("nb", [128, 127, 113, 65, 64, 63, 16, 9, 1])
+def test_unaligned_row_loader_model(nb):
+    # a row of nb bytes (128, or a ragged last column tile) at every base
+    # alignment: each half row's thread copies the aligned 16-byte words
+    # that cover its bytes (at most 5, none past the word that holds the
+    # row's last byte) into a 144-byte slot; put back in place from a slot
+    # that holds its own copies only (the rest garbage: a thread waits for
+    # its own copies alone), each half equals the row's bytes, then zeros
+    rng = np.random.default_rng(nb)
+    memory = rng.integers(0, 256, 4096, dtype=np.uint8)
+    for off in range(16):
+        start = 1024 + off
+        last = (off + nb - 1) >> 4
+        halves = []
+        for half in (0, 1):
+            words = _copied_words(off, nb, half)
+            assert len(words) <= 5 and all(j <= last for j in words)
+            raw = rng.integers(0, 256, 144, dtype=np.uint8)
+            for j in words:
+                raw[16 * j:16 * j + 16] = memory[1024 + 16 * j:1024 + 16 * j + 16]
+            halves.append(_realign(raw, off, nb, half))
+        got = np.concatenate(halves)
+        np.testing.assert_array_equal(got[:nb], memory[start:start + nb])
+        assert not got[nb:].any()
+
+
+def _byte_perm(a: int, b: int, sel: int) -> int:
+    data = a.to_bytes(4, "little") + b.to_bytes(4, "little")
+    return int.from_bytes(bytes(data[(sel >> 4 * i) & 7] for i in range(4)), "little")
+
+
+def _widen2(u: int, p: int) -> int:
+    """The kernels' ``widen2``: bytes p and p + 2 of u (sign bits flipped)
+    -> a bf16 pair by byte permutes and an f32 subtract."""
+    def f32(bits):
+        return np.frombuffer(np.uint32(bits).tobytes(), np.float32)[0]
+
+    lo = f32(_byte_perm(u, 0x4B000000, 0x7650 + p)) - np.float32(8388736.0)
+    hi = f32(_byte_perm(u, 0x4B000000, 0x7652 + p)) - np.float32(8388736.0)
+    bits = [int(np.array(v, np.float32).view(np.uint32)) for v in (lo, hi)]
+    return _byte_perm(bits[0], bits[1], 0x7632)
+
+
+def test_widen2_is_exact_for_every_int8():
+    # each of the 256 int8 values, in either byte of a pair, comes out as
+    # its own bf16 (int8 values are exact in bf16)
+    vals = np.arange(-128, 128)
+    want = torch.tensor(vals, dtype=torch.bfloat16).view(torch.int16).numpy().astype(np.uint16)
+    for v, bf in zip(vals, want):
+        for other in (0, -128, 127, -1):
+            b = [(x + 128) & 0xFF for x in (v, other, other, v)]  # sign bits flipped
+            u = int.from_bytes(bytes(b), "little")
+            pair = _widen2(u, 0)  # bytes 0 and 2: v low, other high
+            assert pair & 0xFFFF == bf
+            pair = _widen2(u, 1)  # bytes 1 and 3: other low, v high
+            assert pair >> 16 == bf
+
+
+def _store_rows(f: int, cw: int, base_off: int, rows: int) -> dict:
+    """The tiled kernel's stores of one warp's 16 columns [cw, cw + 16)
+    where the output rows are not 16-byte aligned (``store_group``): lane
+    4 g + t holds columns cw + 4 (g >> 1) + [0, 4) of row 2 t + (g & 1) of
+    an 8-row group; it stores the aligned word of its row that ends ``off``
+    columns into its 4 (the columns before from lane - 8), whole where it
+    lies within the warp's columns and F, else float by float; the row's
+    last lane also its last ``off`` columns. Returns {(row, column):
+    [values stored]}, each value the (row, column) it came from."""
+    stored = {}
+    for r8 in range(0, rows, 8):
+        held = {}
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            row, q = r8 + 2 * t + (g & 1), g >> 1
+            held[lane] = (row, q, [(row, cw + 4 * q + e) for e in range(4)])
+        for lane in range(32):
+            row, q, y = held[lane]
+            prev = held[lane - 8][2] if lane >= 8 else y
+            if row >= rows:
+                continue
+            off = (base_off + row * f + cw) & 3  # floats past a 16-byte boundary
+            c = 4 * q - off
+            word = [prev[4 - off + e] if e < off else y[e - off] for e in range(4)]
+            for e in range(4):
+                if c + e >= 0 and cw + c + e < f:
+                    stored.setdefault((row, cw + c + e), []).append(word[e])
+            if q == 3:
+                for e in range(off):
+                    if cw + 16 - off + e < f:
+                        stored.setdefault((row, cw + 16 - off + e), []).append(y[4 - off + e])
+    return stored
+
+
+@pytest.mark.parametrize("f", [17385, 777, 37, 18, 33])
+def test_unaligned_store_lanes_model(f):
+    # every output element of the warp's columns within F, in every row of
+    # two 8-row groups (11 rows: a ragged last group), at every alignment
+    # of the output's base, is stored exactly once, with its own value
+    for cw in range(0, f, 16):
+        for base_off in range(4):
+            stored = _store_rows(f, cw, base_off, 11)
+            want = {(r, c): [(r, c)] for r in range(11) for c in range(cw, min(cw + 16, f))}
+            assert stored == want

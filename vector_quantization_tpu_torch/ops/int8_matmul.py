@@ -7,10 +7,12 @@ accumulation, and the per-output-channel scale is applied to the f32 sum
 ``int8_matmul``, both its Pallas and its XLA path).
 
 A CUDA tensor goes through a hand-written Hopper kernel, chosen per shape by
-:func:`plan` (no timing at run time): the wide design
-(``csrc/int8_matmul_wide.cu``) where x's and w's rows are 16-byte aligned
-and a block's share fits, the split-K design (``csrc/int8_matmul.cu``)
-elsewhere. A CPU tensor goes through the plain version
+:func:`plan` (no timing at run time): the tiled design
+(``csrc/int8_matmul_tiled.cu``, wgmma tiles of 256 rows) at
+``TILED_MIN_ROWS`` rows or more, where the product is bound by operations;
+below it the wide design (``csrc/int8_matmul_wide.cu``) where x's and w's
+rows are 16-byte aligned and a block's share fits, the split-K design
+(``csrc/int8_matmul.cu``) elsewhere. A CPU tensor goes through the plain version
 :func:`int8_matmul_reference`, which repeats the kernels' arithmetic step by
 step. The choice is made by the tensor's device alone.
 
@@ -33,14 +35,28 @@ from . import _build
 from .device import H100, Card, card
 
 __all__ = [
-    "DESIGNS", "H100", "Card", "Plan", "W8A8_ALIGN", "W8A8_MIN_ROWS", "card", "int8_matmul",
-    "int8_matmul_reference", "int8_matmul_w8a8", "int8_mm", "int8_mm_reference", "occupancy", "plan",
-    "plan_for", "prepare_w8a8", "quantize_rows_int8", "split_k", "split_k_plan", "wide_plan",
+    "DESIGNS", "H100", "TILED_MIN_ROWS", "Card", "Plan", "W8A8_ALIGN", "W8A8_MIN_ROWS", "card",
+    "int8_matmul", "int8_matmul_reference", "int8_matmul_w8a8", "int8_mm", "int8_mm_reference",
+    "occupancy", "plan", "plan_for", "prepare_w8a8", "quantize_rows_int8", "split_k", "split_k_plan",
+    "tiled_plan", "wide_plan",
 ]
 
 _BN, _BM, _BK = 128, 64, 32  # the split-K kernel's tile sizes (csrc/int8_matmul.cu)
 _MIN_K_TILES = 8  # 256 of depth per block at least
 _RESERVED = 1024  # shared memory a Hopper SM keeps aside per resident block
+# the tiled kernel's tile (csrc/int8_matmul_tiled.cu): columns, rows of x,
+# depth per stage, ring stages; and its shared memory: 1024 bytes of
+# alignment slack and the mbarriers, then per stage x's tile, the weight's
+# int8 tile and the words that cover an unaligned one
+_TN, _TM, _TK, _TILED_STAGES = 128, 256, 64, 4
+_TILED_STAGE = _TM * _TK * 2 + _TK * _TN + _TK * 144
+_TILED_FIXED = 1024 + 1024
+# rows of x from which plan() takes the tiled design: the fewest of
+# int8_matmul_probe.py's sweep (B = 128 ... 8256) at which it was no slower
+# than the plan below at every Llama-medium width; at 1024 rows it lost at
+# o (17.77-17.89 us against the wide design's 16.90-17.16), at 2048 it won
+# at all five (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+TILED_MIN_ROWS = 2048
 
 
 def int8_matmul_reference(
@@ -62,7 +78,8 @@ int8_matmul_reference.cuda_calls = 0
 # each design's kernel: its source, csrc/<source>.cu (the name ``_build.load``
 # takes and the kernel's name in reports), and the kernel function in it
 DESIGNS = {"split_k": ("int8_matmul", "w8a16_kernel"),
-           "wide": ("int8_matmul_wide", "w8a16_wide_kernel")}
+           "wide": ("int8_matmul_wide", "w8a16_wide_kernel"),
+           "tiled": ("int8_matmul_tiled", "w8a16_tiled_kernel")}
 
 
 class Plan(NamedTuple):
@@ -76,7 +93,10 @@ class Plan(NamedTuple):
     block of the cluster that stores them; x's share, ``k_chunk`` deep at
     most, held whole in shared memory, the weight's 64-deep tiles through a
     ring of ``stages``; x's and w's rows 16-byte aligned). Both take 64
-    rows of x per block."""
+    rows of x per block. ``"tiled"`` (``csrc/int8_matmul_tiled.cu``): a tile
+    of ``n`` columns x 256 rows over all of D (``k_chunk``), wgmma with the
+    widened weight in registers, x's ``kt``-deep tiles by TMA through a
+    ring of ``stages``; persistent blocks, one an SM, walk the tiles."""
 
     design: str
     n: int
@@ -86,13 +106,22 @@ class Plan(NamedTuple):
     k_chunk: int
 
     @property
+    def rows(self) -> int:
+        """Rows of x per block (the tiled design: per tile)."""
+        return _TM if self.design == "tiled" else 64
+
+    @property
     def source(self) -> str:
         """The kernel's source: ``csrc/<source>.cu``."""
         return DESIGNS[self.design][0]
 
     def grid(self, b: int, d: int, f: int) -> tuple[int, int, int]:
         """The launch's grid; in the wide design a cluster is ``split``
-        blocks along x, in the split-K design D's splits are grid y."""
+        blocks along x, in the split-K design D's splits are grid y. The
+        tiled design's is its tiles (column tiles, row tiles), which
+        min(tiles, SMs) persistent blocks walk in :meth:`blocks`' order."""
+        if self.design == "tiled":
+            return -(-f // self.n), -(-b // self.rows), 1
         if self.design == "split_k":
             return -(-f // self.n), -(-d // self.k_chunk), -(-b // 64)
         return -(-f // self.n) * self.split, -(-b // 64), 1
@@ -100,7 +129,11 @@ class Plan(NamedTuple):
     def blocks(self, b: int, d: int, f: int) -> list[tuple[int, int, int, int]]:
         """Each block's (first row, first column, first depth, end depth),
         as the kernel derives them from its block index; its columns are
-        [first column, first column + ``n``) within F."""
+        [first column, first column + ``n``) within F, its rows [first row,
+        first row + :attr:`rows`) within B. The tiled design's entries are
+        its tiles, columns fastest, in the order its blocks take them."""
+        if self.design == "tiled":
+            return [(m0, n0, 0, d) for m0 in range(0, b, self.rows) for n0 in range(0, f, self.n)]
         out = []
         for m0 in range(0, b, 64):
             for n0 in range(0, f, self.n):
@@ -118,6 +151,8 @@ class Plan(NamedTuple):
         """Shared memory per block, in bytes (the kernels' own reckoning)."""
         if self.design == "split_k":
             return _BM * (_BK + 8) * 2 + _BK * (_BN + 16)  # static x and w tiles
+        if self.design == "tiled":
+            return _TILED_FIXED + self.stages * _TILED_STAGE
         # x's share, the weight ring, the cluster's copies of its rows
         recv = 64 * 128 * 4 if self.split > 1 else 0
         return 1024 + self.k_chunk // 64 * 64 * 128 + self.stages * 64 * 128 + recv
@@ -163,13 +198,25 @@ def wide_plan(b: int, d: int, f: int, card: Card) -> Plan | None:
     return None
 
 
+def tiled_plan(b: int, d: int, f: int) -> Plan:
+    """The tiled design's plan: 128-column tiles over all of D, the
+    kernel's ring of 4 stages (a constant of the kernel)."""
+    return Plan("tiled", _TN, 1, _TK, _TILED_STAGES, -(-d // _TK) * _TK)
+
+
 @functools.lru_cache(maxsize=None)
 def plan(b: int, d: int, f: int, card: Card, aligned: bool) -> Plan:
     """The design and its parameters for one call, from the shape, the card
     and the operands' alignment (``aligned``: the bases of x and w and their
-    row pitches, 2 D and F bytes, are multiples of 16 bytes). The wide
-    design where they are and its shares fit; the split-K design elsewhere
-    (the lm head's F = 17385 among them)."""
+    row pitches, 2 D and F bytes, are multiples of 16 bytes). The tiled
+    design at ``TILED_MIN_ROWS`` rows or more where its shared memory fits
+    (any alignment: it shifts an unaligned weight's rows into place, and
+    the wrapper pads an unaligned x); below, the wide design where the
+    operands are aligned and its shares fit; the split-K design elsewhere
+    (the decode lm head's F = 17385 among them)."""
+    tiled = tiled_plan(b, d, f)
+    if b >= TILED_MIN_ROWS and tiled.smem() <= card.smem_block:
+        return tiled
     return (aligned and wide_plan(b, d, f, card)) or split_k_plan(b, d, f, card.sms)
 
 
@@ -185,10 +232,17 @@ def plan_for(x: torch.Tensor, w_int8: torch.Tensor) -> Plan:
 def occupancy(p: Plan, b: int, d: int, f: int) -> dict:
     """A wide plan's dynamic shared memory per block, resident blocks per
     SM and clusters of its grid that run at once on the current card, as
-    the kernel reckons them."""
-    if p.design != "wide":
-        raise ValueError(f"occupancy: a wide plan, got {p.design!r}")
+    the kernel reckons them; a tiled plan's shared memory and blocks per
+    SM."""
     smem, per_sm, clusters = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if p.design == "tiled":
+        err = _build.load(p.source).vqt_int8_matmul_tiled_occupancy(
+            ctypes.byref(smem), ctypes.byref(per_sm))
+        if err != 0:
+            raise RuntimeError(f"int8_matmul occupancy query failed: CUDA error {err}")
+        return {"dynamic_smem": smem.value, "blocks_per_sm": per_sm.value}
+    if p.design != "wide":
+        raise ValueError(f"occupancy: a wide or tiled plan, got {p.design!r}")
     err = _build.load(p.source).vqt_int8_matmul_wide_occupancy(
         b, d, f, p.split, p.stages, ctypes.byref(smem), ctypes.byref(per_sm),
         ctypes.byref(clusters))
@@ -236,6 +290,17 @@ def _launch(x2: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         out = torch.empty((b, f), dtype=torch.float32, device=x2.device)
         err = _entry(p.source, "vqt_int8_matmul_wide", 5)(
             *ptrs, out.data_ptr(), b, d, f, p.split, p.stages, stream)
+    elif p.design == "tiled":
+        # TMA reads x's rows: a base or a pitch (2 D bytes) off 16 bytes
+        # takes a zero-padded copy
+        ldx = -(-d // 8) * 8
+        if x2.data_ptr() % 16 or ldx != d:
+            xp = torch.zeros((b, ldx), dtype=torch.bfloat16, device=x2.device)
+            xp[:, :d] = x2
+            x2 = xp
+        out = torch.empty((b, f), dtype=torch.float32, device=x2.device)
+        err = _entry(p.source, "vqt_int8_matmul_tiled", 5)(
+            x2.data_ptr(), *ptrs[1:], out.data_ptr(), b, d, f, ldx, card(x2.device).sms, stream)
     else:
         raise ValueError(f"int8_matmul: unknown design {p.design!r}")
     if err != 0:
