@@ -11,7 +11,8 @@ resident blocks per SM at T = 257; for the paged attention's split kernel
 per (query, pool, head dim) type, its registers and spills, and at the
 serving shape its plan and resident blocks per SM; for the INT8 matmul's
 split-K and wide kernels, their registers, spills and static shared
-memory; for the lookup kernel per operand types and D variant, and its
+memory, for its ragged kernel per column tile, and at the decode lm head
+its plan, dynamic shared memory and blocks per SM; for the lookup kernel per operand types and D variant, and its
 prologue, their registers, spills and static shared memory, with the
 lookup's dynamic shared memory and resident blocks per SM at the path
 shape), then runs these phases, each printing one JSON line; any failure
@@ -21,17 +22,20 @@ exits non-zero:
    CUDA versions; TF32 is switched off for matmuls and cuDNN convolutions
    for the whole run.
 2. ``int8_matmul``: the wrapper, under the plan ``ops/int8_matmul.plan``
-   picks per shape (printed with the source that ran and, for the wide
-   design, its dynamic shared memory, blocks per SM and clusters at once),
-   against its plain version at the serving shapes (B = 64; qkv, o,
-   gate+up, down, lm head of Llama-medium), B in {1, 7} and a ragged F
-   (both designs run at one shape at least); max relative error <= 1e-3
+   picks per shape (printed with the source that ran and, for the wide and
+   ragged designs, its dynamic shared memory, blocks per SM and, wide,
+   clusters at once), against its plain version at the serving shapes (B =
+   64; qkv, o, gate+up, down, lm head of Llama-medium: the lm head on the
+   ragged design, its rows not 16-byte aligned), B in {1, 7}, a ragged F
+   and x's rows unaligned (D = 100: split-K); max relative error <= 1e-3
    (bf16 inputs, f32 sums in another order). Device times per call (CUDA
    graph replay, weights rotated through enough copies to exceed the 50 MB
    L2) for the kernel, the plain version and a yardstick ``library_ms`` =
    ``torch.matmul(x, w_bf16) * scale`` over a pre-dequantised bf16 weight
-   (twice the weight bytes: not the same work); then ``decode_step_mean``,
-   each time's mean per launch over the decode step's 97 launches.
+   (twice the weight bytes: not the same work); at the lm head also the
+   split-K design forced (``split_k_ms``, checked against the plain version
+   too); then ``decode_step_mean``, each time's mean per launch over the
+   decode step's 97 launches.
 3. ``paged_decode_attention``: kernel against its plain version at B = 64,
    H = 16, Dh = 64, ps = 64, L = 24 with random page tables and ragged
    lengths (0 and 1 included), int8 pools (limit 1e-4) and bf16 pools
@@ -53,8 +57,9 @@ exits non-zero:
    ``steps_per_sync`` 64, alpha 1.75, top-k 600, top-p 0.92, 256 image
    tokens; ``--requests`` requests so slots turn over. Every request must
    finish with 256 codes in [0, 16384), every page must be freed, K3 and
-   each K2 kernel that a serving shape's plan names must have launched,
-   and no plain version may have run on a CUDA tensor.
+   each K2 kernel that a serving shape's plan names must have launched (the
+   lm head's on the ragged design, split-K not at all), and no plain
+   version may have run on a CUDA tensor.
 6. ``dense_vs_paged``: the model of phase 4 fed the same 127 prior steps of
    the same tokens (B = 64) through the dense INT8 cache (scalar offset,
    einsum attention) and the paged INT8 pool (K3); the 128th step's logits
@@ -83,7 +88,7 @@ exits non-zero:
    arrival patterns on one server: ``--requests`` up front (aligned), and
    16 up front then 16 more after each sync (staggered). Every request
    finishes with 256 codes in range, the shared column stays within its
-   cap, each K2 kernel of phase 5 launches, no plain version on the card;
+   cap, each K2 kernel of phase 5 launches (split-K not), no plain version on the card;
    effective tokens/s, images/min and the efficiency report per pattern.
 7a. ``serving_w8a8``: Llama-medium INT8 (phase 4's weights, fused) with
    ``quantize_mode="w8a8"``: activations quantised per row to int8 and
@@ -107,7 +112,8 @@ exits non-zero:
    head: 169 a forward), B = 64 rows of class 0, 256 tokens, INT8 dense
    cache grown 32 columns a segment, top-k 600, top-p 0.92. Codes (64,
    256) in range, K2 launched 257 x 169 = 43,433 times in one call (the
-   prefill and 256 steps), no plain version on the card; tokens/s over the
+   prefill and 256 steps; the head's 257 on the ragged design, none on
+   split-K), no plain version on the card; tokens/s over the
    median of 3 timed calls after the first.
 9. ``vq_lookup``: the nearest-code kernel (TF32 wgmma, an f32 operand
    split in two) against its plain version at the tokenizer's shape N = K
@@ -297,7 +303,8 @@ exits non-zero:
    ``ARServer(strategy=TPStrategy, paged=True)`` at Llama-medium width with
    INT8 weights and KV serving 16 requests against the server without a
    strategy from the same seed: the same tokens, 256 codes in range each,
-   every page freed, K2 and K3 launched, no plain version on the card.
+   every page freed, K2 (the lm head on the ragged design, split-K not) and
+   K3 launched, no plain version on the card.
 20. ``cli_vqgan``: ``python -m vector_quantization_tpu_torch.cli.train``'s
    ``main`` in this process on an overlay of
    configs/llamagen/vqgan_imagenet_ddp.py written to a temporary directory:
@@ -465,7 +472,11 @@ exits non-zero:
    card. Step ms, tokens/s, generate and serving tokens/s.
 28. ``decode_profile``: the decode step of phase 4 on the host clock and,
    under torch.profiler, its device time; their ratio gives the device's
-   idle share (run last: the profiler slows later host dispatch).
+   idle share (run last: the profiler slows later host dispatch); also its
+   device time with the lm head launched under split-K, in the same call,
+   and from the same traces the head's own device time per step: the
+   ragged kernel's, and split-K's kernel plus the zero fill it adds (gate:
+   each of the two runs once a step, split-K not in the shipped step).
 29. ``generate_profile``: one decode step of phase 8 at its midpoint (a
    129-column INT8 cache) on the host clock and under torch.profiler:
    device ms, idle share, K2's share.
@@ -495,7 +506,9 @@ exits non-zero:
    and 22c), and K1 in phase 12a, K3 (and K2's 0) in phase 7a and K4 in
    phase 17a, and their launches in phases 19a-19d and K1's in 22e-22i; K2's
    rows also give their launches in phases 7, 8 and 22c, and phase 6's times
-   at the dense path's shapes), device time per call, the bound, the plain
+   at the dense path's shapes; the ragged kernel's also ``split_k_ms``, and
+   split-K's row, which no path's plan names, is split-K forced at the lm
+   head, launches 0), device time per call, the bound, the plain
    version's and the yardstick's time.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
@@ -554,6 +567,11 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+# K2's kernels by their sources' names: split-K and the design that took
+# the decode lm head (rows not 16-byte aligned) from it
+K2_SPLIT_K, K2_HEAD = "int8_matmul", "int8_matmul_ragged"
+
+
 def zero_launches() -> None:
     """Set every kernel wrapper's launch count to 0 (before a path's run)."""
     from vector_quantization_tpu_torch.ops import flash_attention as fa
@@ -568,7 +586,8 @@ def zero_launches() -> None:
 
 def read_launches() -> tuple[dict, int]:
     """Every kernel's launch count (``int8_matmul`` is K2's split-K kernel,
-    ``int8_matmul_wide`` its wide kernel, both behind one wrapper), the
+    ``int8_matmul_wide``, ``int8_matmul_tiled`` and ``int8_matmul_ragged``
+    its other kernels, all behind one wrapper), the
     w8a8 path's ``torch._int_mm`` calls (``int8_mm``: a library call, no
     kernel of the repo), and the number of times any plain version ran on a
     CUDA tensor so far."""
@@ -725,13 +744,20 @@ def phase_build() -> None:
         split["blocks_per_sm"] = blocks_per_sm(split["registers"], 256, split["static_smem"])
     if "w8a16_tiled_kernel" in mm:
         mm["w8a16_tiled_kernel"].update(im.occupancy(im.tiled_plan(PREFILL_ROWS, 1024, 1024), 0, 0, 0))
+    # the ragged kernel per column tile (U = 8, 9: 128 and 144 columns), and
+    # its plan at the decode lm head with its shared memory and blocks per SM
+    ragged = ptxas_entries(logs["int8_matmul_ragged"], "w8a16_ragged_kernel", ("u",))
+    head = im.plan(SLOTS, MEDIUM["hidden_size"], VOCAB, gpu, True, VOCAB % 16 == 0)
+    mm["w8a16_ragged_kernel"] = {**{f"n{16 * int(k[1:])}": e for k, e in ragged.items()},
+                                 "at_lm_head": {**head._asdict(), **(im.occupancy(head, 0, 0, 0)
+                                                                     if head.design == "ragged" else {})}}
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "sources": sorted(logs), "ptxas": regs, "flash_fwd_at_t257": fwd,
           "flash_bwd_dkv_at_t257": dkv, "flash_bwd_dq_at_t257": dq, "paged_attention": paged,
           "paged_attention_at_path": paged_path, "int8_matmul": mm,
           "vq_lookup": vq, "vq_lookup_prologue": vq_prep})
     if (not fwd or not dkv or not dq or "registers" not in paged_path or len(vq) != 8
-            or len(vq_prep) != 4
+            or len(vq_prep) != 4 or len(ragged) != 2
             or {kernel for _, kernel in im.DESIGNS.values()} - set(mm)):
         raise SystemExit("build: a kernel's entry is missing from the ptxas log")
 
@@ -749,7 +775,7 @@ def phase_int8_matmul(dev, gen) -> list[dict]:
 
     d = MEDIUM["hidden_size"]
     extra = [("b1_qkv", 1, d, 3 * d, 0), ("b7_lm_head", 7, d, VOCAB, 0),
-             ("ragged", 5, 1000, 777, 0)]
+             ("ragged", 5, 1000, 777, 0), ("x_unaligned", 5, 100, 37, 0)]
     rows = []
     for name, b, dd, ff, per_step in serving_matmuls() + extra:
         x = torch.randn((b, dd), generator=gen, device=dev).to(torch.bfloat16)
@@ -763,7 +789,7 @@ def phase_int8_matmul(dev, gen) -> list[dict]:
         rel_err = abs_err / float(want.abs().max())
         row = {"phase": "int8_matmul", "shape": name, "B": b, "D": dd, "F": ff,
                "plan": p._asdict(), "source": f"{CSRC}/{p.source}.cu",
-               **(im.occupancy(p, b, dd, ff) if p.design == "wide" else {}),
+               **(im.occupancy(p, b, dd, ff) if p.design in ("wide", "ragged") else {}),
                "max_abs_err": abs_err, "max_rel_err": rel_err, "limit": 1e-3}
         if rel_err > 1e-3 or not torch.isfinite(got).all():
             emit(row)
@@ -784,6 +810,17 @@ def phase_int8_matmul(dev, gen) -> list[dict]:
                 "bytes": byts, "ops": ops,
                 "bound_ms": 1e3 * max(byts / HBM_BYTES_PER_S, ops / BF16_FLOPS),
             })
+            if name == "lm_head":  # the split-K design forced at the head, in this call
+                t_sk = time.perf_counter()
+                sk = im.split_k_plan(b, dd, ff, im.card(dev).sms)
+                got = im._launch(x, w, s, sk)
+                torch.cuda.synchronize()
+                row["split_k_max_abs_err"] = float((got - want).abs().max())
+                if row["split_k_max_abs_err"] > 1e-3 * float(want.abs().max()):
+                    emit(row)
+                    raise SystemExit("int8_matmul lm_head: split-K disagrees with the plain version")
+                row["split_k_ms"] = graph_ms([lambda wi=wi: im._launch(x, wi, s, sk) for wi in ws])
+                row["split_k_seconds"] = time.perf_counter() - t_sk
             rows.append(row)
             del ws, wb
         emit(row)
@@ -808,8 +845,24 @@ def phase_int8_matmul(dev, gen) -> list[dict]:
             "ms": per_launch(mine, "ms"), "plain_ms": per_launch(mine, "plain_ms"),
             "bound_ms": per_launch(mine, "bound_ms"), "bound_by": "bytes",
             "library_ms": per_launch(mine, "library_ms"),
+            **({"split_k_ms": per_launch(mine, "split_k_ms")}
+               if all("split_k_ms" in r for r in mine) else {}),
             "note": "mean per launch over the decode step's launches of this kernel: "
                     + ", ".join(f"{r['launches_per_step']}x {r['shape']}" for r in mine),
+        })
+    # no serving shape is planned on split-K since the ragged design took the
+    # head: its entry is split-K forced at the head in this call (launches 0
+    # on every path: plan() sends it only an x whose rows are not 16-byte
+    # aligned)
+    head = next(r for r in rows if r["shape"] == "lm_head")
+    if all(k["design"] != "split_k" for k in kernels) and "split_k_ms" in head:
+        kernels.append({
+            "name": K2_SPLIT_K, "design": "split_k", "route": "cuda",
+            "source": f"{CSRC}/{K2_SPLIT_K}.cu", "replaces": "vector_quantization_tpu/ops/int8_matmul.py:54",
+            "max_abs_err": head["split_k_max_abs_err"], "ms": head["split_k_ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"], "bound_by": "bytes",
+            "library_ms": head["library_ms"], "on_main_path": False,
+            "note": "split-K forced at the decode lm head (64, 1024, 17385); no path's plan names it",
         })
     return kernels
 
@@ -996,9 +1049,10 @@ def step_wall(model, tokens, cache, positions, steps: int = 3) -> float:
     return (time.perf_counter() - t0) / steps
 
 
-def step_device(model, tokens, cache, positions, steps: int = 3) -> float:
+def step_device(model, tokens, cache, positions, steps: int = 3) -> tuple[float, dict]:
     """Device seconds per decode step: the sum of the kernels' device time
-    that torch.profiler records over ``steps`` steps. Run last: the
+    that torch.profiler records over ``steps`` steps; and each kernel's
+    device us and calls per step, by its profiler key. Run last: the
     profiler's tracing slows later host dispatch."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1006,10 +1060,19 @@ def step_device(model, tokens, cache, positions, steps: int = 3) -> float:
         for _ in range(steps):
             model(tokens, cache, slot_positions=positions)
         torch.cuda.synchronize()
-    device_us = sum(e.self_device_time_total for e in prof.key_averages())
+    kernels = {e.key: (e.self_device_time_total / steps, e.count / steps)
+               for e in prof.key_averages()}
+    device_us = sum(us for us, _ in kernels.values())
     if device_us <= 0:
         raise SystemExit("decode_profile: the profiler recorded no device time")
-    return device_us / steps / 1e6
+    return device_us / 1e6, kernels
+
+
+def kernel_us(kernels: dict, *names: str) -> tuple[float, float]:
+    """Device us and calls per step of the kernels whose profiler key holds
+    any of ``names`` (:func:`step_device`'s ``kernels``)."""
+    hits = [v for key, v in kernels.items() if any(n in key for n in names)]
+    return sum(us for us, _ in hits), sum(calls for _, calls in hits)
 
 
 def decode_positions() -> tuple[np.random.Generator, np.ndarray]:
@@ -1097,14 +1160,60 @@ def phase_decode_step(model, dev, gen):
         raise SystemExit("decode_step: kernel and plain paths disagree (see the decode_step line)")
 
     def profile_step() -> None:
+        from vector_quantization_tpu_torch.ops.int8_matmul import DESIGNS
+
         with torch.inference_mode():
             wall = step_wall(model, tokens, clone(), positions)
-            device = step_device(model, tokens, clone(), positions)
-        emit({"phase": "decode_profile", "eager_step_ms_host_clock": 1e3 * wall,
-              "device_ms_per_step_profiler": 1e3 * device,
-              "device_idle_frac": 1.0 - device / wall})
+            device, kernels = step_device(model, tokens, clone(), positions)
+            t0 = time.perf_counter()
+            with head_on_split_k():  # the parent's plan at the lm head, in this call
+                device_split_k, kernels_split_k = step_device(model, tokens, clone(), positions)
+            split_k_s = time.perf_counter() - t0
+        # the lm head's own device time in each trace: K2-ragged's kernel in
+        # the shipped step; split-K's kernel (only the head runs it) and the
+        # zero fill its atomics need (the fills' time over the shipped
+        # step's) with the head on split-K
+        head_us, head_calls = kernel_us(kernels, DESIGNS["ragged"][1])
+        split_us, split_calls = kernel_us(kernels_split_k, DESIGNS["split_k"][1])
+        fills = [kernel_us(k, "FillFunctor", "Memset") for k in (kernels, kernels_split_k)]
+        row = {"phase": "decode_profile", "eager_step_ms_host_clock": 1e3 * wall,
+               "device_ms_per_step_profiler": 1e3 * device,
+               "device_ms_per_step_head_on_split_k": 1e3 * device_split_k,
+               "device_idle_frac": 1.0 - device / wall,
+               "head_ragged_us_per_step": head_us, "head_ragged_calls_per_step": head_calls,
+               "head_split_k_us_per_step": split_us, "head_split_k_calls_per_step": split_calls,
+               "fill_us_per_step": fills[0][0], "fill_us_per_step_head_on_split_k": fills[1][0],
+               "head_on_split_k_us_per_step": split_us + fills[1][0] - fills[0][0],
+               "head_on_split_k_seconds": split_k_s}
+        emit(row)
+        if head_calls != 1 or split_calls != 1 or kernel_us(kernels, DESIGNS["split_k"][1])[1]:
+            raise SystemExit("decode_profile: the lm head's kernel did not run once a step "
+                             "(see the decode_profile line)")
 
     return profile_step
+
+
+@contextlib.contextmanager
+def head_on_split_k():
+    """The model's INT8 matmuls as shipped, but the lm head's (F = VOCAB)
+    launched under the split-K design, the plan it had before the ragged
+    design took it."""
+    from vector_quantization_tpu_torch.models.transformers import llama as llama_mod
+    from vector_quantization_tpu_torch.ops import int8_matmul as im
+
+    def launch(x, w, s):
+        if w.shape[1] != VOCAB:
+            return im.int8_matmul(x, w, s)
+        x2 = x.reshape(-1, x.shape[-1])
+        p = im.split_k_plan(x2.shape[0], x2.shape[1], w.shape[1], im.card(x.device).sms)
+        return im._launch(x2, w, s, p).reshape(*x.shape[:-1], -1)
+
+    saved = llama_mod.int8_matmul
+    llama_mod.int8_matmul = launch
+    try:
+        yield
+    finally:
+        llama_mod.int8_matmul = saved
 
 
 def phase_serving(model, dev, seed: int, n_requests: int,
@@ -1142,7 +1251,8 @@ def phase_serving(model, dev, seed: int, n_requests: int,
           and all(c.shape == (IMAGE_TOKENS,) and (c >= 0).all() and (c < CODEBOOK).all()
                   for c in done.values())
           and len(server._free_pages) == server._total_pages and server._pages_reserved == 0
-          and all(launches[k] > 0 for k in k2_kernels)
+          and all(launches[k] > 0 for k in k2_kernels) and launches[K2_SPLIT_K] == 0
+          and launches[K2_HEAD] > 0
           and launches["paged_decode_attention"] > 0
           and plain_runs == 0)
     if not ok:
@@ -1151,7 +1261,7 @@ def phase_serving(model, dev, seed: int, n_requests: int,
 
 
 def k2_launches(launches: dict) -> int:
-    """K2's launches over both of its kernels."""
+    """K2's launches over all of its kernels."""
     from vector_quantization_tpu_torch.ops.int8_matmul import DESIGNS
 
     return sum(launches[source] for source, _ in DESIGNS.values())
@@ -1399,7 +1509,7 @@ def phase_serving_dense(model, dev, seed: int, n_requests: int, k2_kernels: list
            "plain_runs_on_cuda": plain - plain0}
     emit(row)
     if not (ok and max_col <= server._sc_cap and all(launches[k] > 0 for k in k2_kernels)
-            and plain == plain0):
+            and launches[K2_SPLIT_K] == 0 and launches[K2_HEAD] > 0 and plain == plain0):
         raise SystemExit("serving_dense: a check failed (see the serving_dense line)")
     return launches
 
@@ -1437,7 +1547,8 @@ def phase_generate(dev, seed: int):
     emit(row)
     if (codes.shape != (GEN_BATCH, IMAGE_TOKENS) or codes.dtype != torch.int32
             or bool((codes < 0).any()) or bool((codes >= CODEBOOK).any())
-            or row["k2_launches"] != want_k2 or plain != plain0):
+            or row["k2_launches"] != want_k2 or plain != plain0
+            or launches[K2_HEAD] != 1 + IMAGE_TOKENS or launches[K2_SPLIT_K] != 0):
         raise SystemExit("generate: a check failed (see the generate line)")
 
     def profile_generate_step() -> None:
@@ -3601,8 +3712,8 @@ def phase_serving_w8a8(dev, gen, seed: int):
         first_block_rel_l2 = float(torch.linalg.vector_norm(d_w8a8 - d_ref) / torch.linalg.vector_norm(d_ref))
         wall = {"w8a8": step_wall(model, tokens, clone(), positions),
                 "weight_only": step_wall(ref, tokens, clone(), positions)}
-        device = {"w8a8": step_device(model, tokens, clone(), positions),
-                  "weight_only": step_device(ref, tokens, clone(), positions)}
+        device = {"w8a8": step_device(model, tokens, clone(), positions)[0],
+                  "weight_only": step_device(ref, tokens, clone(), positions)[0]}
     del ref, ins, outs
     plain_err = rel(got, plain)
     plain_agree = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
@@ -4123,7 +4234,8 @@ def phase_parallel_tp(vqgan, dev, seed: int) -> dict:
           and same and len(done) == PAR_SERVE_REQUESTS
           and all(c.shape == (IMAGE_TOKENS,) and (c >= 0).all() and (c < CODEBOOK).all() for c in done.values())
           and len(server._free_pages) == server._total_pages and server._pages_reserved == 0
-          and k2_launches(launches) > 0 and launches["paged_decode_attention"] > 0 and plain == plain0)
+          and k2_launches(launches) > 0 and launches[K2_HEAD] > 0 and launches[K2_SPLIT_K] == 0
+          and launches["paged_decode_attention"] > 0 and plain == plain0)
     if not ok:
         raise SystemExit("parallel_tp: a check failed (see the parallel_tp line)")
     return {"train": row["launches"], "serving": launches}
@@ -4630,7 +4742,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     model = make_medium(args.seed, dev)
     profile_step = phase_decode_step(model, dev, gen)
-    k2_kernels = [k["name"] for k in k_int8]
+    k2_kernels = [k["name"] for k in k_int8 if k.get("on_main_path", True)]
     launches, done = phase_serving(model, dev, args.seed, args.requests, k2_kernels)
     k2_dense_rows = phase_dense_vs_paged(model, dev, gen, args.seed)
     prefill_rows = [r for r in k2_dense_rows if "launches_per_prefill" in r]

@@ -40,7 +40,7 @@ with the weight rotated through more than 50 MB as ``chip_smoke.py`` phase
   many rows): the threshold sweep instead of the serving shapes. At B in
   ``SWEEP_ROWS`` (128 to 8256) and each of the five widths, ``below`` (the
   plan ``plan`` picks without the tiled design: wide where the rows are
-  aligned and a share fits, else split-K), ``tiled`` (the tiled design
+  aligned and a share fits, ragged where w's are not, else split-K), ``tiled`` (the tiled design
   forced), ``split_k`` (split-K forced, where ``below`` is not split-K)
   and ``library``, alternately (below, tiled, tiled, below) in one call;
   each kernel checked against the plain version first; the line carries
@@ -52,6 +52,22 @@ with the weight rotated through more than 50 MB as ``chip_smoke.py`` phase
   ``no_mma`` (the wgmmas), ``no_x_tma`` (x's TMA copies); the
   shipped kernel beside the SM clock and
   power that ``nvidia-smi`` samples during the shipped kernel's timing;
+- ``w8a16_ragged_kernel`` (``csrc/int8_matmul_ragged.cu``, the design for
+  weight rows that are not 16-byte aligned): the sweep at the lm head's
+  width, B in ``RAGGED_ROWS`` (1 to 1024): the package's plan (``ragged``)
+  and split-K forced, alternately (ragged, split-K, split-K, ragged), and
+  ``library``; at 64 rows also every column tile (128, 144) and ring depth
+  (3-8) whose block fits the card; each kernel checked against the plain
+  version first; the line carries ``planned``, the design ``plan`` picks.
+  With ``--cuts``, instead: at the head at 64 rows and at 1 row, the kernel
+  as it is (``shipped``) and with parts cut out: ``no_products`` (the B
+  tiles' ldmatrix, widening and stores, and the wgmmas), ``no_mma`` (the
+  wgmmas), ``no_widen`` (the widening: raw bytes stored), ``no_shift`` (the
+  rows' shift into place), ``no_w_loads`` (the weight's copies),
+  ``no_loads`` (those and x's TMA), ``no_store`` (the output's stores),
+  ``no_epilogue`` (the images and stores, the sums kept live), ``empty``;
+  then ``timeline``: when each block's thread 0 entered, had x's first
+  chunk, was past its last stage, past the image, and ended;
 - for the split-K and wide designs: ``zeros`` (the ``torch.zeros`` node alone), ``matmul``
   (``torch.matmul(x, w_bf16)`` alone), ``scale`` (``y * s`` alone, on a
   precomputed ``y``) and ``library`` (the two together: ``library_ms``).
@@ -153,6 +169,63 @@ WIDE["cvt_pack"] = [(
     "  return *reinterpret_cast<uint32_t*>(&v);\n")]
 WIDE_MARK = "w8a16_wide_kernel"
 TILED_MARK = "w8a16_tiled_kernel"
+RAGGED_MARK = "w8a16_ragged_kernel"
+# the ragged design (csrc/int8_matmul_ragged.cu) with parts cut out; `a.B <
+# 0` is never true, so a cut part stays compiled but does not run
+RAGGED = {
+    "shipped": [],
+    # the B tile's ldmatrix, widening and stores, and the wgmmas
+    "no_products": [("      uint32_t bw[Sh::H / 2][4], bm[2] = {0u, 0u};\n",
+                     "      uint32_t bw[Sh::H / 2][4], bm[2] = {0u, 0u};\n      if (a.B < 0) {\n"),
+                    ("      if (jl + 1 < TL) shift_store(jl + 1);\n",
+                     "      }\n      if (jl + 1 < TL) shift_store(jl + 1);\n      if (a.B < 0) {\n"),
+                    ("      fence_proxy_async();  // the B tile's stores, seen by wgmma\n",
+                     "      }\n      fence_proxy_async();  // the B tile's stores, seen by wgmma\n"),
+                    ("      for (int kk = 0; kk < 4; ++kk) wgmma_ss<",
+                     "      for (int kk = 0; kk < 4 && a.B < 0; ++kk) wgmma_ss<")],
+    "no_mma": [("      for (int kk = 0; kk < 4; ++kk) wgmma_ss<",
+                "      for (int kk = 0; kk < 4 && a.B < 0; ++kk) wgmma_ss<")],
+    "no_widen": [("            for (int p = 0; p < 2; ++p) sts32(bt + b_at(2 * (i + qq) + p, m), widen2(u, p));\n",
+                  "            for (int p = 0; p < 2; ++p) sts32(bt + b_at(2 * (i + qq) + p, m), u + p);\n"),
+                 ("        for (int m = 0; m < 2; ++m) sts32(bt + b_at(2 * Sh::H, m), widen2(bm[m] ^ 0x80808080u, cg));\n",
+                  "        for (int m = 0; m < 2; ++m) sts32(bt + b_at(2 * Sh::H, m), bm[m] + cg);\n")],
+    "no_shift": [("      if (jl + 1 < TL) shift_load();\n", "      if (jl + 1 < TL && a.B < 0) shift_load();\n"),
+                 ("      if (jl + 1 < TL) shift_store(jl + 1);\n", "      if (jl + 1 < TL && a.B < 0) shift_store(jl + 1);\n")],
+    "no_w_loads": [("        if (cp_row[i] >= 0 && in_k + cp_row[i] < a.D) cp16(",
+                    "        if (cp_row[i] >= 0 && in_k + cp_row[i] < a.D && a.B < 0) cp16(")],
+    "no_store": [("    const float* const sc = scale_s + c0;\n",
+                  "    if (c0 != 1234567) continue;\n    const float* const sc = scale_s + c0;\n")],
+    # the sums kept live by one conditional store
+    "no_epilogue": [("  asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n  __syncthreads();  // every warp",
+                     "  if (acc[0] + acc[Sh::ACC - 1] != 1234.5f) return;\n"
+                     "  asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n  __syncthreads();  // every warp")],
+    "empty": [("  const int S = a.stages;\n", "  if (a.B > 0) return;\n  const int S = a.stages;\n")],
+}
+RAGGED["no_loads"] = RAGGED["no_w_loads"] + [
+    ("    mbar_expect_tx(xbar + 8 * (c & 1), q_end * X_TILE);\n    for (int q = 0; q < q_end; ++q)\n",
+     "    mbar_expect_tx(xbar + 8 * (c & 1), 0);\n    for (int q = 0; q < q_end && a.B < 0; ++q)\n")]
+# thread 0 stamps %globaltimer (ns) at entry, when x's first chunk has
+# landed, past its last stage, past the partial images, and at the end (no
+# output stored), into `out` viewed as int64 quintuples
+_RT = "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(tl[{}]));"
+RAGGED["timeline"] = RAGGED["no_store"] + [
+    ("  const int S = a.stages;\n",
+     "  unsigned long long tl[5] = {0, 0, 0, 0, 0}; " + _RT.format(0) + "\n  const int S = a.stages;\n"),
+    ("    mbar_wait(xbar + 8 * (c & 1), (c >> 1) & 1);\n",
+     "    mbar_wait(xbar + 8 * (c & 1), (c >> 1) & 1);\n    if (c == 0) { " + _RT.format(1) + " }\n"),
+    ("  __syncthreads();  // every warp past its last stage: x's buffers and the rings are free\n",
+     "  __syncthreads();  // every warp past its last stage: x's buffers and the rings are free\n  "
+     + _RT.format(2) + "\n"),
+    ("  __syncthreads();\n  // output word l of row r",
+     "  __syncthreads();\n  " + _RT.format(3) + "\n  // output word l of row r"),
+    ("        if (c0 + i >= 0 && c0 + i < nb) dst[c0 + i] = sv[i] * sc[i];\n    }\n  }\n}\n",
+     "        if (c0 + i >= 0 && c0 + i < nb) dst[c0 + i] = sv[i] * sc[i];\n    }\n  }\n"
+     "  __syncthreads();\n  if (threadIdx.x == 0) { " + _RT.format(4) + " unsigned long long* o = "
+     "(unsigned long long*)a.out; const int blk = blockIdx.y * gridDim.x + blockIdx.x;"
+     " for (int k = 0; k < 5; ++k) o[5 * blk + k] = tl[k]; }\n}\n"),
+]
+# the ragged sweep: rows of x at the head
+RAGGED_ROWS = (1, 7, 64, 128, 256, 512, 1024)
 SWEEP_ROWS = (128, 256, 512, 1024, 2048, 8256)
 # the tiled design with parts cut out (its outputs are garbage)
 TILED = {
@@ -357,8 +430,10 @@ def probe_tiled(dev, gen) -> None:
             x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
             s = torch.rand((f,), generator=gen, device=dev) * 0.02 + 1e-3
             ws = rotated(d, f, gen, dev)
-            aligned = (2 * d) % 16 == 0 and f % 16 == 0
-            below = (aligned and wide_plan(b, d, f, card(dev))) or im.split_k_plan(b, d, f, card(dev).sms)
+            x_aligned, w_aligned = (2 * d) % 16 == 0, f % 16 == 0
+            # the plan below TILED_MIN_ROWS at these rows (x's rows aligned at every width)
+            below = ((wide_plan if w_aligned else im.ragged_plan)(b, d, f, card(dev))
+                     or im.split_k_plan(b, d, f, card(dev).sms))
             plans = {"below": below, "tiled": im.tiled_plan(b, d, f)}
             if below.design != "split_k":
                 plans["split_k"] = im.split_k_plan(b, d, f, card(dev).sms)
@@ -386,7 +461,7 @@ def probe_tiled(dev, gen) -> None:
             ops, byts = 2 * b * d * f, d * f + b * d * 2 + f * 4 + b * f * 4
             print(json.dumps({
                 "variant": "sweep", "shape": shape, "B": b, "D": d, "F": f,
-                "planned": im.plan(b, d, f, card(dev), aligned).design,
+                "planned": im.plan(b, d, f, card(dev), x_aligned, w_aligned).design,
                 "plans": {k: p._asdict() for k, p in plans.items()}, "us_per_call": us,
                 "tiled_over_below": min(us["tiled"]) / min(us["below"]),
                 "tiled_over_library": min(us["tiled"]) / min(us["library"]),
@@ -446,6 +521,121 @@ def probe_tiled_cuts(src: str, dev, gen) -> None:
         del ws
 
 
+def ragged_plans(b: int, d: int, f: int) -> dict:
+    """The ragged design's plans swept at one shape: its shipped plan, and
+    at 64 rows every column tile and ring depth whose block fits the card."""
+    gpu = card(torch.device("cuda"))
+    plans = {"ragged": im.ragged_plan(b, d, f, gpu)}
+    if b == SLOTS:
+        sweep = (Plan("ragged", n, 1, 64, st, -(-d // 64) * 64) for n in (128, 144) for st in range(3, 9))
+        plans.update({f"ragged_n{p.n}_s{p.stages}": p for p in sweep if p.smem() <= gpu.smem_block})
+    return plans
+
+
+def probe_ragged(dev, gen) -> None:
+    """The ragged design at the head's width, B in ``RAGGED_ROWS``: the
+    package's plan (``ragged``) and split-K forced, alternately (ragged,
+    split-K, split-K, ragged), and the library call; at 64 rows also every
+    column tile and ring depth. Each kernel is checked against the plain
+    version first."""
+    _, d, f = SHAPES[-1]
+    for b in RAGGED_ROWS:
+        x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+        s = torch.rand((f,), generator=gen, device=dev) * 0.02 + 1e-3
+        ws = rotated(d, f, gen, dev)
+        plans = {**ragged_plans(b, d, f), "split_k": im.split_k_plan(b, d, f, card(dev).sms)}
+        want = int8_matmul_reference(x, ws[0], s)
+        for name, p in plans.items():
+            got = im._launch(x, ws[0], s, p)
+            torch.cuda.synchronize()
+            rel = float((got - want).abs().max() / want.abs().max())
+            if rel > 1e-3 or not bool(torch.isfinite(got).all()):
+                raise SystemExit(f"int8_matmul_probe: {name} at ({b}, {d}, {f}) disagrees ({rel})")
+        del got, want
+
+        def one(p):
+            return 1e3 * graph_ms([lambda w=w: im._launch(x, w, s, p) for w in ws])
+
+        us = {name: [] for name in plans}
+        for name in ("ragged", "split_k", "split_k", "ragged"):
+            us[name].append(one(plans[name]))
+        for name in plans:
+            if name not in ("ragged", "split_k"):
+                us[name].append(one(plans[name]))
+        wb = [w.to(torch.bfloat16) for w in ws]
+        us["library"] = [1e3 * graph_ms([lambda w=w: torch.matmul(x, w) * s for w in wb])
+                         for _ in range(2)]
+        del wb
+        ops, byts = 2 * b * d * f, d * f + b * d * 2 + f * 4 + b * f * 4
+        print(json.dumps({
+            "variant": "ragged_sweep", "shape": "lm_head", "B": b, "D": d, "F": f,
+            "planned": im.plan(b, d, f, card(dev), True, False).design,
+            "plans": {k: p._asdict() for k, p in plans.items()}, "us_per_call": us,
+            "ragged_over_split_k": min(us["ragged"]) / min(us["split_k"]),
+            "ragged_over_library": min(us["ragged"]) / min(us["library"]),
+            "bound_us": 1e6 * max(byts / HBM_BYTES_PER_S, ops / 989e12),
+            "weight_copies": len(ws)}), flush=True)
+        del ws
+
+
+def probe_ragged_cuts(src: str, dev, gen) -> None:
+    """The ragged kernel and its cut copies (``RAGGED``) at the head, at 64
+    rows and at 1 row; the shipped copy checked against the plain version;
+    then one graph replay of the timeline copy: per block, microseconds
+    from the first block's entry to each stamp."""
+    import numpy as np
+
+    libs = build(src, RAGGED, OUT / "ragged")
+    fns = {}
+    for name, (lib, _) in libs.items():
+        fn = lib.vqt_int8_matmul_ragged
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fns[name] = fn
+    _, d, f = SHAPES[-1]
+    for b in (SLOTS, 1):
+        p = im.ragged_plan(b, d, f, card(dev))
+        x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+        s = torch.rand((f,), generator=gen, device=dev) * 0.02 + 1e-3
+        ws = rotated(d, f, gen, dev)
+
+        def call(name, w):
+            out = torch.empty((b, f), device=dev)
+            err = fns[name](x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), b, d, f,
+                            p.n, p.stages, torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise SystemExit(f"int8_matmul_probe: launch failed, CUDA error {err}")
+            return out
+
+        got, want = call("shipped", ws[0]), int8_matmul_reference(x, ws[0], s)
+        torch.cuda.synchronize()
+        rel = float((got - want).abs().max() / want.abs().max())
+        if rel > 1e-3:
+            raise SystemExit(f"int8_matmul_probe: ragged at {b} rows disagrees ({rel})")
+        for name in fns:
+            if name == "timeline":
+                continue
+            emit(name, "lm_head", b, d, f, times([lambda w=w, n=name: call(n, w) for w in ws]),
+                 design="ragged", plan=p._asdict(), weight_copies=len(ws),
+                 **({"max_rel_err": rel} if name == "shipped" else {}))
+        outs = []
+        graph_ms([lambda w=w: outs.append(call("timeline", w)) for w in ws], replays=1)
+        torch.cuda.synchronize()
+        gx, gy, _ = p.grid(b, d, f)
+        st = outs[-1].view(-1)[: 10 * gx * gy].view(torch.int64).view(-1, 5).cpu().numpy()
+        st = (st - st[:, 0].min()).astype(np.float64) / 1e3
+        names = ("entry", "x_chunk0_landed", "loop_done", "images_written", "end")
+        pct = [0, 10, 50, 90, 100]
+        print(json.dumps({
+            "variant": "timeline", "shape": "lm_head", "B": b, "blocks": gx * gy, "plan": p._asdict(),
+            "span_us": float(st[:, 4].max()),
+            **{f"{n}_us_pcts_0_10_50_90_100": np.percentile(st[:, k], pct).tolist()
+               for k, n in enumerate(names)},
+            "phase_us_median": {names[k]: float(np.median(st[:, k] - st[:, k - 1])) for k in range(1, 5)},
+        }), flush=True)
+        del ws
+
+
 def library_nodes(shape, b, d, f, x, s, ws, dev) -> None:
     wb = [w.to(torch.bfloat16) for w in ws]
     y = torch.matmul(x, wb[0])
@@ -461,7 +651,7 @@ def main() -> int:
     p.add_argument("--source", type=Path, default=SOURCE)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cuts", action="store_true",
-                   help="the tiled design's cut copies in place of its threshold sweep")
+                   help="the tiled or ragged design's cut copies in place of its sweep")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("int8_matmul_probe: no CUDA device", file=sys.stderr)
@@ -472,6 +662,10 @@ def main() -> int:
     src = args.source.read_text()
     if TILED_MARK in src:
         (probe_tiled_cuts(src, dev, gen) if args.cuts else probe_tiled(dev, gen))
+        print(nvidia_smi(), flush=True)
+        return 0
+    if RAGGED_MARK in src:
+        (probe_ragged_cuts(src, dev, gen) if args.cuts else probe_ragged(dev, gen))
         print(nvidia_smi(), flush=True)
         return 0
     probe_planned(dev, gen)

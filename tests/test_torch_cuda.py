@@ -48,12 +48,15 @@ def _rel_err(got, want):
 
 def _forced_plan(design, x, w):
     # the design's own plan at this shape, whatever plan() would pick; None
-    # where the wide design does not take the shape
+    # where the wide or ragged design does not take the shape
     (b, d), f = x.shape, w.shape[1]
     card = im.card(x.device)
     if design == "split_k":
         return im.split_k_plan(b, d, f, card.sms)
-    aligned = x.data_ptr() % 16 == 0 and d % 8 == 0 and w.data_ptr() % 16 == 0 and f % 16 == 0
+    x_aligned = x.data_ptr() % 16 == 0 and d % 8 == 0
+    if design == "ragged":
+        return im.ragged_plan(b, d, f, card) if x_aligned else None
+    aligned = x_aligned and w.data_ptr() % 16 == 0 and f % 16 == 0
     return im.wide_plan(b, d, f, card) if aligned else None
 
 
@@ -107,7 +110,7 @@ def test_int8_matmul_launches_the_planned_kernel(dev):
         before = dict(int8_matmul.design_launches)
         got = int8_matmul(x, w, s)
         torch.cuda.synchronize()
-        assert p.design == ("split_k" if f % 16 else "wide")
+        assert p.design == ("ragged" if f % 16 else "wide")
         assert int8_matmul.design_launches[p.design] == before[p.design] + 1
         assert _rel_err(got, int8_matmul_reference(x, w, s)) <= 1e-3
 
@@ -115,14 +118,14 @@ def test_int8_matmul_launches_the_planned_kernel(dev):
 @pytest.mark.parametrize(
     "design,d,f",
     [("split_k", 1024, 3072), ("split_k", 2816, 1024), ("split_k", 1024, 17385),
-     ("wide", 1024, 5632), ("wide", 1024, 1024)],
+     ("wide", 1024, 5632), ("wide", 1024, 1024), ("ragged", 1024, 17385), ("ragged", 1000, 777)],
 )
 def test_int8_matmul_graph_replays_match_plain(dev, design, d, f):
     # one call of each design (the split-K design with its zeroed output
-    # at 4, 11 and 2 splits, the wide design's cluster launch) captured in
-    # a CUDA graph; x changed in place between replays: each replay
-    # matches the plain version on the new x (nothing carries over between
-    # launches)
+    # at 4, 11 and 2 splits, the wide design's cluster launch, the ragged
+    # design's tensor map of x) captured in a CUDA graph; x changed in place
+    # between replays: each replay matches the plain version on the new x
+    # (nothing carries over between launches)
     x, w, s = _int8_inputs(dev, 64, d, f, 3)
     p = _forced_plan(design, x, w)
     rng = np.random.default_rng(4)
@@ -209,7 +212,7 @@ def test_int8_matmul_public_call_at_8256_rows_is_tiled(dev):
     torch.cuda.synchronize()
     assert got.shape == (64, 129, 5632)
     after = dict(int8_matmul.design_launches)
-    assert {k: after[k] - before[k] for k in after} == {"split_k": 0, "wide": 0, "tiled": 1}
+    assert {k: after[k] - before[k] for k in after} == {"split_k": 0, "wide": 0, "tiled": 1, "ragged": 0}
     assert _rel_err(got.reshape(8256, 5632), int8_matmul_reference(x, w, s)) <= 1e-3
 
 
@@ -239,6 +242,85 @@ def test_int8_matmul_tiled_smem_matches_kernel(dev):
     # fits an SM
     p = im.tiled_plan(8256, 1024, 2816)
     occ = im.occupancy(p, 8256, 1024, 2816)
+    assert occ["dynamic_smem"] == p.smem() and occ["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize(
+    "b,d,f,n,stages",
+    [
+        # the decode lm head at its plan, at 1, 7, 64 and 130 rows (a second
+        # row tile), and under the other column tile and a shallow ring
+        (64, 1024, 17385, 144, 3), (1, 1024, 17385, 144, 3), (7, 1024, 17385, 144, 3),
+        (130, 1024, 17385, 144, 3), (64, 1024, 17385, 128, 3), (64, 1024, 17385, 128, 4),
+        # ragged F (a short last stripe, one stripe), D not a multiple of the
+        # 256-deep x chunk or the 64-deep stage (an odd number of stages: one
+        # warpgroup of a column group has one stage fewer; D = 64: none),
+        # aligned rows
+        (64, 1000, 777, 128, 4), (5, 1000, 37, 144, 3), (5, 104, 37, 128, 3), (3, 96, 33, 144, 3),
+        (64, 2816, 1025, 144, 3), (64, 1024, 3072, 128, 3), (9, 64, 40, 144, 3),
+    ],
+)
+def test_int8_matmul_ragged_matches_plain(dev, b, d, f, n, stages):
+    # the ragged design forced: each warp's covering words shifted into
+    # place, x by TMA in 256-deep chunks, the four k16 steps' images summed
+    # into the output at its unaligned pitch
+    x, w, s = _int8_inputs(dev, b, d, f, b + d + f + n + stages)
+    p = im.Plan("ragged", n, 1, 64, stages, -(-d // 64) * 64)
+    before = dict(int8_matmul.design_launches)
+    got = im._launch(x, w, s, p)
+    torch.cuda.synchronize()
+    assert int8_matmul.design_launches["ragged"] == before["ragged"] + 1
+    assert got.dtype == torch.float32 and got.shape == (b, f) and bool(torch.isfinite(got).all())
+    assert _rel_err(got, int8_matmul_reference(x, w, s)) <= 1e-3
+
+
+@pytest.mark.parametrize("base", [1, 3, 8, 15])
+def test_int8_matmul_ragged_takes_any_weight_base(dev, base):
+    # the head's weight as a view `base` bytes into its storage: every row at
+    # another offset than in a fresh tensor
+    x, w, s = _int8_inputs(dev, 64, 1024, 17385, base)
+    wv = torch.empty(1024 * 17385 + base, dtype=torch.int8, device=dev)[base:].view(1024, 17385)
+    wv.copy_(w)
+    assert wv.data_ptr() % 16 == base % 16
+    got = im._launch(x, wv, s, im.ragged_plan(64, 1024, 17385, im.card(dev)))
+    torch.cuda.synchronize()
+    assert _rel_err(got, int8_matmul_reference(x, w, s)) <= 1e-3
+
+
+def test_int8_matmul_ragged_refuses_unaligned_x(dev):
+    # x's rows at D = 100 (200 bytes) cannot be read by TMA: the launch is
+    # refused, and plan() gives the shape to split-K
+    x, w, s = _int8_inputs(dev, 5, 100, 37, 9)
+    with pytest.raises(RuntimeError):
+        im._launch(x, w, s, im.Plan("ragged", 128, 1, 64, 8, 128))
+    assert im.plan_for(x, w).design == "split_k"
+
+
+def test_int8_matmul_public_head_is_ragged(dev):
+    # the decode lm head through the public entry (leading dims as the
+    # model's): planned, launched and counted as the ragged design
+    x, w, s = _int8_inputs(dev, 64, 1024, 17385, 21)
+    assert im.plan_for(x, w) == im.ragged_plan(64, 1024, 17385, im.card(dev))
+    before = dict(int8_matmul.design_launches)
+    got = int8_matmul(x.reshape(64, 1, 1024), w, s)
+    torch.cuda.synchronize()
+    after = dict(int8_matmul.design_launches)
+    assert {k: after[k] - before[k] for k in after} == {"split_k": 0, "wide": 0, "tiled": 0, "ragged": 1}
+    assert got.shape == (64, 1, 17385)
+    assert _rel_err(got.reshape(64, 17385), int8_matmul_reference(x, w, s)) <= 1e-3
+
+
+@pytest.mark.parametrize("n,stages", [(144, 3), (144, 4), (128, 3), (128, 4), (128, 5)])
+def test_int8_matmul_ragged_smem_matches_kernel(dev, n, stages):
+    # the plan's reckoning of shared memory is the kernel's, and one block
+    # fits an SM; past the card's limit the kernel refuses the plan, as a
+    # launch would
+    p = im.Plan("ragged", n, 1, 64, stages, 1024)
+    if p.smem() > im.card(dev).smem_block:
+        with pytest.raises(RuntimeError):
+            im.occupancy(p, 64, 1024, 17385)
+        return
+    occ = im.occupancy(p, 64, 1024, 17385)
     assert occ["dynamic_smem"] == p.smem() and occ["blocks_per_sm"] >= 1
 
 

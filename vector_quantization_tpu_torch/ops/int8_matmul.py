@@ -11,8 +11,10 @@ A CUDA tensor goes through a hand-written Hopper kernel, chosen per shape by
 (``csrc/int8_matmul_tiled.cu``, wgmma tiles of 256 rows) at
 ``TILED_MIN_ROWS`` rows or more, where the product is bound by operations;
 below it the wide design (``csrc/int8_matmul_wide.cu``) where x's and w's
-rows are 16-byte aligned and a block's share fits, the split-K design
-(``csrc/int8_matmul.cu``) elsewhere. A CPU tensor goes through the plain version
+rows are 16-byte aligned and a block's share fits, the ragged design
+(``csrc/int8_matmul_ragged.cu``) where x's rows are aligned and w's are not
+(the decode lm head's F = 17385), the split-K design (``csrc/int8_matmul.cu``)
+elsewhere. A CPU tensor goes through the plain version
 :func:`int8_matmul_reference`, which repeats the kernels' arithmetic step by
 step. The choice is made by the tensor's device alone.
 
@@ -37,8 +39,8 @@ from .device import H100, Card, card
 __all__ = [
     "DESIGNS", "H100", "TILED_MIN_ROWS", "Card", "Plan", "W8A8_ALIGN", "W8A8_MIN_ROWS", "card",
     "int8_matmul", "int8_matmul_reference", "int8_matmul_w8a8", "int8_mm", "int8_mm_reference",
-    "occupancy", "plan", "plan_for", "prepare_w8a8", "quantize_rows_int8", "split_k", "split_k_plan",
-    "tiled_plan", "wide_plan",
+    "occupancy", "plan", "plan_for", "prepare_w8a8", "quantize_rows_int8", "ragged_plan", "split_k",
+    "split_k_plan", "tiled_plan", "wide_plan",
 ]
 
 _BN, _BM, _BK = 128, 64, 32  # the split-K kernel's tile sizes (csrc/int8_matmul.cu)
@@ -57,6 +59,19 @@ _TILED_FIXED = 1024 + 1024
 # o (17.77-17.89 us against the wide design's 16.90-17.16), at 2048 it won
 # at all five (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
 TILED_MIN_ROWS = 2048
+# the ragged kernel (csrc/int8_matmul_ragged.cu): its column tiles (16 U
+# columns, U = 8 or 9: the kernel's two instantiations), the stages of each
+# warp's ring, and its shared memory: 1024 bytes of alignment slack and a
+# header (x's mbarriers, the stripe's scale), two 32 KB buffers of x, a bf16
+# B tile for each of the 4 warpgroups (N = 16 (U // 2) + 8 (U % 2) rows of
+# 128 bytes), then per warp (16) a ring of its 16 weight rows' covering
+# words (16 (W + 1) bytes a row, W = U / 2 rounded up) and two stages of the
+# rows shifted into place (pitch 16 (W | 1)); the tile's two f32 images
+# (pitch 16 U + 4 or + 20 floats) reuse all of it
+_RAGGED_WIDTHS = (128, 144)
+_RAGGED_STAGES = 3
+_RAGGED_FIXED = 1024 + 1024
+_RAGGED_X = 2 * 4 * 64 * 64 * 2
 
 
 def int8_matmul_reference(
@@ -79,7 +94,8 @@ int8_matmul_reference.cuda_calls = 0
 # takes and the kernel's name in reports), and the kernel function in it
 DESIGNS = {"split_k": ("int8_matmul", "w8a16_kernel"),
            "wide": ("int8_matmul_wide", "w8a16_wide_kernel"),
-           "tiled": ("int8_matmul_tiled", "w8a16_tiled_kernel")}
+           "tiled": ("int8_matmul_tiled", "w8a16_tiled_kernel"),
+           "ragged": ("int8_matmul_ragged", "w8a16_ragged_kernel")}
 
 
 class Plan(NamedTuple):
@@ -92,7 +108,11 @@ class Plan(NamedTuple):
     columns over a 1/``split`` share of D, each block's rows pushed to the
     block of the cluster that stores them; x's share, ``k_chunk`` deep at
     most, held whole in shared memory, the weight's 64-deep tiles through a
-    ring of ``stages``; x's and w's rows 16-byte aligned). Both take 64
+    ring of ``stages``; x's and w's rows 16-byte aligned) or ``"ragged"``
+    (``csrc/int8_matmul_ragged.cu``: a block per ``n`` = 128 or 144 columns
+    over all of D, ``split`` 1; x in 256-deep chunks, each warp's weight rows
+    as the aligned words that cover them through a ring of ``stages`` of its
+    own; x's rows 16-byte aligned, w's at any offset). The three take 64
     rows of x per block. ``"tiled"`` (``csrc/int8_matmul_tiled.cu``): a tile
     of ``n`` columns x 256 rows over all of D (``k_chunk``), wgmma with the
     widened weight in registers, x's ``kt``-deep tiles by TMA through a
@@ -117,7 +137,8 @@ class Plan(NamedTuple):
 
     def grid(self, b: int, d: int, f: int) -> tuple[int, int, int]:
         """The launch's grid; in the wide design a cluster is ``split``
-        blocks along x, in the split-K design D's splits are grid y. The
+        blocks along x (the ragged design's: the same, unsplit), in the
+        split-K design D's splits are grid y. The
         tiled design's is its tiles (column tiles, row tiles), which
         min(tiles, SMs) persistent blocks walk in :meth:`blocks`' order."""
         if self.design == "tiled":
@@ -153,6 +174,13 @@ class Plan(NamedTuple):
             return _BM * (_BK + 8) * 2 + _BK * (_BN + 16)  # static x and w tiles
         if self.design == "tiled":
             return _TILED_FIXED + self.stages * _TILED_STAGE
+        if self.design == "ragged":
+            u = self.n // 16
+            wu = u // 2 + u % 2  # the 16-column units of a column group's rows
+            b_tiles = 4 * (16 * (u // 2) + 8 * (u % 2)) * 128
+            rings = 16 * (self.stages * 16 * 16 * (wu + 1) + 2 * 16 * 16 * (wu | 1))
+            images = 2 * 64 * (16 * u + (20 if u % 2 else 4)) * 4
+            return _RAGGED_FIXED + max(_RAGGED_X + b_tiles + rings, images)
         # x's share, the weight ring, the cluster's copies of its rows
         recv = 64 * 128 * 4 if self.split > 1 else 0
         return 1024 + self.k_chunk // 64 * 64 * 128 + self.stages * 64 * 128 + recv
@@ -198,6 +226,22 @@ def wide_plan(b: int, d: int, f: int, card: Card) -> Plan | None:
     return None
 
 
+def ragged_plan(b: int, d: int, f: int, card: Card) -> Plan | None:
+    """The ragged design's plan, for an x read 16 bytes at a time and a
+    weight whose rows lie at any offset: the fewer columns a block (128,
+    then 144) whose grid of 64-row stripes runs in one wave at one block per
+    SM (the widest where none does), all of D a block (``split`` 1), a ring
+    of 3 stages a warp (the most 144 columns fit). None where its shared
+    memory does not fit a block. At the head (B 1-1024)
+    int8_matmul_probe.py measured it faster than split-K at every B, and 144
+    columns faster than 128 (two waves) (NVIDIA H100 80GB HBM3, 700 W)."""
+    for n in _RAGGED_WIDTHS:
+        if -(-f // n) * -(-b // 64) <= card.sms:
+            break
+    p = Plan("ragged", n, 1, 64, _RAGGED_STAGES, -(-d // 64) * 64)
+    return p if p.smem() <= card.smem_block else None
+
+
 def tiled_plan(b: int, d: int, f: int) -> Plan:
     """The tiled design's plan: 128-column tiles over all of D, the
     kernel's ring of 4 stages (a constant of the kernel)."""
@@ -205,35 +249,40 @@ def tiled_plan(b: int, d: int, f: int) -> Plan:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(b: int, d: int, f: int, card: Card, aligned: bool) -> Plan:
+def plan(b: int, d: int, f: int, card: Card, x_aligned: bool, w_aligned: bool) -> Plan:
     """The design and its parameters for one call, from the shape, the card
-    and the operands' alignment (``aligned``: the bases of x and w and their
-    row pitches, 2 D and F bytes, are multiples of 16 bytes). The tiled
-    design at ``TILED_MIN_ROWS`` rows or more where its shared memory fits
-    (any alignment: it shifts an unaligned weight's rows into place, and
-    the wrapper pads an unaligned x); below, the wide design where the
-    operands are aligned and its shares fit; the split-K design elsewhere
-    (the decode lm head's F = 17385 among them)."""
+    and the operands' alignment (``x_aligned``: x's base and its row pitch,
+    2 D bytes, are multiples of 16 bytes; ``w_aligned``: w's base and its
+    row pitch, F bytes, are). The tiled design at ``TILED_MIN_ROWS`` rows or
+    more where its shared memory fits (any alignment: it shifts an
+    unaligned weight's rows into place, and the wrapper pads an unaligned
+    x); below, where x's rows are aligned, the wide design where w's are
+    too and its shares fit, the ragged design where w's are not (the decode
+    lm head's F = 17385); the split-K design elsewhere (x's rows unaligned,
+    or an aligned depth whose share does not fit, D = 20000)."""
     tiled = tiled_plan(b, d, f)
     if b >= TILED_MIN_ROWS and tiled.smem() <= card.smem_block:
         return tiled
-    return (aligned and wide_plan(b, d, f, card)) or split_k_plan(b, d, f, card.sms)
+    if x_aligned:
+        below = wide_plan(b, d, f, card) if w_aligned else ragged_plan(b, d, f, card)
+        if below is not None:
+            return below
+    return split_k_plan(b, d, f, card.sms)
 
 
 def plan_for(x: torch.Tensor, w_int8: torch.Tensor) -> Plan:
     """The plan of a call on x (B, D) bf16 and w_int8 (D, F), both
     contiguous and on one CUDA device, as :func:`int8_matmul` launches it."""
     (b, d), f = x.shape, w_int8.shape[1]
-    aligned = (x.data_ptr() % 16 == 0 and (2 * d) % 16 == 0
-               and w_int8.data_ptr() % 16 == 0 and f % 16 == 0)
-    return plan(b, d, f, card(x.device), aligned)
+    return plan(b, d, f, card(x.device), x.data_ptr() % 16 == 0 and (2 * d) % 16 == 0,
+                w_int8.data_ptr() % 16 == 0 and f % 16 == 0)
 
 
 def occupancy(p: Plan, b: int, d: int, f: int) -> dict:
     """A wide plan's dynamic shared memory per block, resident blocks per
     SM and clusters of its grid that run at once on the current card, as
-    the kernel reckons them; a tiled plan's shared memory and blocks per
-    SM."""
+    the kernel reckons them; a ragged or tiled plan's shared memory and
+    blocks per SM."""
     smem, per_sm, clusters = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     if p.design == "tiled":
         err = _build.load(p.source).vqt_int8_matmul_tiled_occupancy(
@@ -241,8 +290,14 @@ def occupancy(p: Plan, b: int, d: int, f: int) -> dict:
         if err != 0:
             raise RuntimeError(f"int8_matmul occupancy query failed: CUDA error {err}")
         return {"dynamic_smem": smem.value, "blocks_per_sm": per_sm.value}
+    if p.design == "ragged":
+        err = _build.load(p.source).vqt_int8_matmul_ragged_occupancy(
+            p.n, p.stages, ctypes.byref(smem), ctypes.byref(per_sm))
+        if err != 0:
+            raise RuntimeError(f"int8_matmul occupancy query failed: CUDA error {err}")
+        return {"dynamic_smem": smem.value, "blocks_per_sm": per_sm.value}
     if p.design != "wide":
-        raise ValueError(f"occupancy: a wide or tiled plan, got {p.design!r}")
+        raise ValueError(f"occupancy: a wide, ragged or tiled plan, got {p.design!r}")
     err = _build.load(p.source).vqt_int8_matmul_wide_occupancy(
         b, d, f, p.split, p.stages, ctypes.byref(smem), ctypes.byref(per_sm),
         ctypes.byref(clusters))
@@ -290,6 +345,10 @@ def _launch(x2: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         out = torch.empty((b, f), dtype=torch.float32, device=x2.device)
         err = _entry(p.source, "vqt_int8_matmul_wide", 5)(
             *ptrs, out.data_ptr(), b, d, f, p.split, p.stages, stream)
+    elif p.design == "ragged":
+        out = torch.empty((b, f), dtype=torch.float32, device=x2.device)
+        err = _entry(p.source, "vqt_int8_matmul_ragged", 5)(
+            *ptrs, out.data_ptr(), b, d, f, p.n, p.stages, stream)
     elif p.design == "tiled":
         # TMA reads x's rows: a base or a pitch (2 D bytes) off 16 bytes
         # takes a zero-padded copy
