@@ -18,7 +18,9 @@ only a checkpoint whose ``params`` hold a ``params`` subtree reaches the
 tokenizer, so a VQGAN or reconstruction checkpoint leaves it unchanged.
 
 ``train_step``: tokens -> the fused-CE loss (or the dense head +
-``next_token_ce``) -> gradients -> the optimizer, in place.
+``next_token_ce``) -> gradients -> the optimizer, in place; inside the
+span ``vq.train_step``, the spans ``vq.ar.tokens``, ``vq.ar.forward``,
+``vq.backward`` and ``vq.optimizer`` (``utils.debug.span``).
 ``eval_step``: the dense head's CE and the teacher-forced sampling
 accuracy (with ``eval_generate``, also the generated images of the
 batch's classes). ``generate_step``: classes -> images through
@@ -48,6 +50,7 @@ from ..tasks.sequence_modeling import (
 )
 from ..training.state import TrainState
 from ..utils.bridge import flax_tree
+from ..utils.debug import span
 from .base import Algorithm
 
 __all__ = ["ARAlgorithm"]
@@ -147,16 +150,20 @@ class ARAlgorithm(Algorithm):
     # -- steps -------------------------------------------------------------
 
     def train_step(self, state: TrainState, batch) -> tuple[TrainState, dict]:
-        tokens = self._tokens(state, batch, train=True)
-        model = state.model
-        params = state.params()
-        if self._use_fused():
-            loss = model(tokens, fused_ce_targets=tokens)
-        else:
-            loss = next_token_ce(model(tokens), tokens)
-        grads = list(torch.autograd.grad(loss, params))
-        self.apply_gradients(self.tx(), params, grads, state.opt_state)
-        state.step += 1
+        with span("vq.train_step"):
+            with span("vq.ar.tokens"):
+                tokens = self._tokens(state, batch, train=True)
+            model = state.model
+            params = state.params()
+            with span("vq.ar.forward"):
+                if self._use_fused():
+                    loss = model(tokens, fused_ce_targets=tokens)
+                else:
+                    loss = next_token_ce(model(tokens), tokens)
+            with span("vq.backward"):
+                grads = list(torch.autograd.grad(loss, params))
+            self.apply_gradients(self.tx(), params, grads, state.opt_state)
+            state.step += 1
         return state, {"loss": loss.detach()}
 
     def eval_step(self, state: TrainState, batch, generator: torch.Generator | None = None) -> dict:

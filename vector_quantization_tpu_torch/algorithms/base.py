@@ -34,6 +34,7 @@ from ..tasks.image_tokenization import model_device
 from ..training.optim import Optimizer, build_optimizer
 from ..training.state import TrainState
 from ..utils.bridge import flax_param_paths, flax_tree
+from ..utils.debug import span
 from ..utils.flags import Store
 
 __all__ = ["Algorithm", "ReconstructionAlgorithm", "apply_codebook_update"]
@@ -126,9 +127,10 @@ class Algorithm:
         if self.ema_decay is not None:
             d = self.ema_decay
             ema = extra["ema_params"]
-            for name, p in model.named_parameters():
-                e = ema[name]
-                e.copy_(d * e + (1.0 - d) * p)
+            with span("vq.ema"):
+                for name, p in model.named_parameters():
+                    e = ema[name]
+                    e.copy_(d * e + (1.0 - d) * p)
         return extra
 
     def tx(self) -> Optimizer:
@@ -153,10 +155,11 @@ class Algorithm:
                         opt_state: dict) -> None:
         """``tx.step`` through the strategy (gradients of this rank's rows
         -> the global batch's)."""
-        if self.strategy is None:
-            tx.step(params, grads, opt_state)
-        else:
-            self.strategy.apply_gradients(tx, params, grads, opt_state)
+        with span("vq.optimizer"):
+            if self.strategy is None:
+                tx.step(params, grads, opt_state)
+            else:
+                self.strategy.apply_gradients(tx, params, grads, opt_state)
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Step 0: the model's current weights, fresh optimizer moments, and
@@ -298,8 +301,9 @@ class ReconstructionAlgorithm(Algorithm):
     def _codebook_update(self, state: TrainState, qout=None) -> None:
         if self.codebook_update is not None:
             x, codes = (None, None) if qout is None else (qout.aux["x"], qout.codes)
-            apply_codebook_update(self.codebook_update, state.model.get_parameter(self.codebook_name),
-                                  x, codes, state.extra, state.rng, self.data_group)
+            with span("vq.codebook_update"):
+                apply_codebook_update(self.codebook_update, state.model.get_parameter(self.codebook_name),
+                                      x, codes, state.extra, state.rng, self.data_group)
 
     @torch.no_grad()
     def _maybe_lazy_init(self, state: TrainState, image: torch.Tensor) -> None:
@@ -323,7 +327,8 @@ class ReconstructionAlgorithm(Algorithm):
         """The optimizer's step on ``total``'s gradient with respect to the
         trained parameters."""
         params, tx = state.params(), self.tx()
-        grads = torch.autograd.grad(total, tx.trained(params), allow_unused=True, materialize_grads=True)
+        with span("vq.backward"):
+            grads = torch.autograd.grad(total, tx.trained(params), allow_unused=True, materialize_grads=True)
         self.apply_gradients(tx, params, list(grads), state.opt_state)
 
     # -- steps -------------------------------------------------------------

@@ -27,6 +27,12 @@ One ``train_step``, in the JAX step's order:
    optimizer.
 4. The EMA of the generator's parameters (``ema_decay``).
 
+Each phase runs inside a span (``utils.debug.span``, recorded only while a
+profiler records): ``vq.vqgan.generation``, ``vq.vqgan.aglw``, the
+generator's ``vq.backward`` and ``vq.optimizer``, ``vq.codebook_update``,
+``vq.vqgan.discrimination`` (its optimizer a nested ``vq.optimizer``) and
+``vq.ema``, all inside ``vq.train_step``.
+
 The step is a host int, so the gates are Python ``if``s. The discriminator
 belongs to the algorithm (``self.discriminator``) and owns its BatchNorm
 buffers (``state.extra["d_batch_stats"]`` holds the same tensors); its
@@ -52,6 +58,7 @@ from ..registries import AlgorithmRegistry, DiscriminatorRegistry
 from ..training.optim import Optimizer, build_optimizer
 from ..training.state import TrainState
 from ..utils.bridge import flax_tree
+from ..utils.debug import span
 from .base import ReconstructionAlgorithm
 
 __all__ = ["VQGANAlgorithm"]
@@ -128,64 +135,69 @@ class VQGANAlgorithm(ReconstructionAlgorithm):
         return out
 
     def _aglw(self, r_loss, g_loss, last) -> torch.Tensor:
-        (r_grad,) = torch.autograd.grad(r_loss, last, retain_graph=True)
-        (g_grad,) = torch.autograd.grad(g_loss, last, retain_graph=True)
-        if self.strategy is not None:  # the global losses' gradients
-            self.strategy.reduce_mean([r_grad, g_grad])
-        aglw = torch.linalg.vector_norm(r_grad) / (torch.linalg.vector_norm(g_grad) + 1e-4)
-        return torch.clamp(aglw, 0.0, 1e4).detach() * self.aglw_gain
+        with span("vq.vqgan.aglw"):
+            (r_grad,) = torch.autograd.grad(r_loss, last, retain_graph=True)
+            (g_grad,) = torch.autograd.grad(g_loss, last, retain_graph=True)
+            if self.strategy is not None:  # the global losses' gradients
+                self.strategy.reduce_mean([r_grad, g_grad])
+            aglw = torch.linalg.vector_norm(r_grad) / (torch.linalg.vector_norm(g_grad) + 1e-4)
+            return torch.clamp(aglw, 0.0, 1e4).detach() * self.aglw_gain
 
     # -- train step --------------------------------------------------------
 
     def train_step(self, state: TrainState, batch) -> tuple[TrainState, dict]:
-        image = batch["image"].to(self.device)
-        model, disc = state.model, self.discriminator
-        with_g = state.step >= self.g_start
-        with_d = state.step >= self.d_start
+        with span("vq.train_step"):
+            image = batch["image"].to(self.device)
+            model, disc = state.model, self.discriminator
+            with_g = state.step >= self.g_start
+            with_d = state.step >= self.d_start
 
-        # ---- generation ----
-        feat = model.encode(image)
-        qout = model.quantize(feat, train=True)
-        pred = model.decode(qout.z)
-        out = self._augment_generation_out(model, {"feat": feat, "quantizer": qout, "pred": pred},
-                                           state.rng)
-        q_loss = qout.loss
-        r_loss, r_losses = self._r_loss(pred, image)
-        if with_d:
-            g_loss = self.g_loss_fn(disc(pred, train=False))
-            if self.aglw_gain is None:
-                aglw = torch.ones((), dtype=torch.float32, device=self.device)
+            # ---- generation ----
+            with span("vq.vqgan.generation"):
+                feat = model.encode(image)
+                qout = model.quantize(feat, train=True)
+                pred = model.decode(qout.z)
+                out = self._augment_generation_out(model, {"feat": feat, "quantizer": qout, "pred": pred},
+                                                   state.rng)
+                q_loss = qout.loss
+                r_loss, r_losses = self._r_loss(pred, image)
+                if with_d:
+                    g_loss = self.g_loss_fn(disc(pred, train=False))
+            if with_d:
+                if self.aglw_gain is None:
+                    aglw = torch.ones((), dtype=torch.float32, device=self.device)
+                else:
+                    aglw = self._aglw(r_loss, g_loss, model.decoder.last_parameter())
             else:
-                aglw = self._aglw(r_loss, g_loss, model.decoder.last_parameter())
-        else:
-            g_loss = self._zero()
-            aglw = torch.full((), self.aglw_gain or 1.0, dtype=torch.float32, device=self.device)
-        total = q_loss + r_loss + g_loss * aglw
-        extra_losses = self._extra_generation_losses(model, out, batch, state.extra)
-        total = total + sum(extra_losses.values(), self._zero())
-        if with_g:
-            self._step_gradients(state, total)
-        self._codebook_update(state, qout)
+                g_loss = self._zero()
+                aglw = torch.full((), self.aglw_gain or 1.0, dtype=torch.float32, device=self.device)
+            total = q_loss + r_loss + g_loss * aglw
+            extra_losses = self._extra_generation_losses(model, out, batch, state.extra)
+            total = total + sum(extra_losses.values(), self._zero())
+            if with_g:
+                self._step_gradients(state, total)
+            self._codebook_update(state, qout)
 
-        # ---- discrimination ----
-        d_loss = r1 = self._zero()
-        if with_d:
-            d_params = list(disc.parameters())
-            if self.r1_weight:
-                r1 = r1_gradient_penalty(lambda x: disc(x, train=False), image, self.r1_weight)
-            logits_fake = disc(pred.detach(), train=True)
-            logits_real = disc(image, train=True)
-            d_loss = hinge_d_loss(logits_fake, logits_real)
-            d_grads = torch.autograd.grad(d_loss + r1, d_params, allow_unused=True,
-                                          materialize_grads=True)
-            self.apply_gradients(self.d_tx(), d_params, list(d_grads), state.d_opt_state)
+            # ---- discrimination ----
+            d_loss = r1 = self._zero()
+            if with_d:
+                with span("vq.vqgan.discrimination"):
+                    d_params = list(disc.parameters())
+                    if self.r1_weight:
+                        r1 = r1_gradient_penalty(lambda x: disc(x, train=False), image, self.r1_weight)
+                    logits_fake = disc(pred.detach(), train=True)
+                    logits_real = disc(image, train=True)
+                    d_loss = hinge_d_loss(logits_fake, logits_real)
+                    d_grads = torch.autograd.grad(d_loss + r1, d_params, allow_unused=True,
+                                                  materialize_grads=True)
+                    self.apply_gradients(self.d_tx(), d_params, list(d_grads), state.d_opt_state)
 
-        self.maybe_update_ema(state.extra, model)
-        state.step += 1
-        metrics = {"loss": total, "d_loss": d_loss, "r1_gp": r1, "q_loss": q_loss,
-                   "r_loss": r_loss, "g_loss": g_loss, "aglw": aglw, **r_losses, **qout.losses,
-                   **extra_losses}
-        return state, {k: v.detach() for k, v in metrics.items()}
+            self.maybe_update_ema(state.extra, model)
+            state.step += 1
+            metrics = {"loss": total, "d_loss": d_loss, "r1_gp": r1, "q_loss": q_loss,
+                       "r_loss": r_loss, "g_loss": g_loss, "aglw": aglw, **r_losses, **qout.losses,
+                       **extra_losses}
+            return state, {k: v.detach() for k, v in metrics.items()}
 
     # -- eval --------------------------------------------------------------
 

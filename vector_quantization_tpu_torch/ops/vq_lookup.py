@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.debug import span
 from . import _build
 from .device import Card, card
 from .distances import normalize
@@ -208,11 +209,15 @@ def nearest_codes(x: torch.Tensor, codebook: torch.Tensor, metric: str = "l2") -
     """Nearest-codebook assignment. x: (N, D), codebook: (K, D) -> (N,) int32.
 
     CUDA tensors launch the Hopper kernel (and raise if it cannot run); CPU
-    tensors take :func:`nearest_codes_reference`.
+    tensors take :func:`nearest_codes_reference`. The CUDA path runs inside
+    the span ``vq.nearest_codes``; the function object stays this plain
+    one, so a caller's replacement of the module attribute is what the
+    quantizer calls.
     """
     if not x.is_cuda:
         return nearest_codes_reference(x, codebook, metric)
-    return _launch(*_prepare(x, codebook, metric))
+    with span("vq.nearest_codes"):
+        return _launch(*_prepare(x, codebook, metric))
 
 
 nearest_codes.launches = 0

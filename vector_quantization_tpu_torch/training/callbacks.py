@@ -5,8 +5,9 @@ an EMA-smoothed step time) and ``TensorBoardCallback`` are the only places
 that read a step's metrics to the host, and only at their interval: the
 trainer never synchronises the device otherwise. ``CheckpointCallback``
 saves every ``interval`` steps and at the last. ``ProfileCallback`` records
-steps [start, start + steps) with ``torch.profiler`` into
-``work_dir/profile``. ``GitCallback`` writes ``git diff HEAD`` to
+the ``steps`` steps after step ``start`` with ``utils.debug.trace`` into
+``work_dir/profile/trace.json``, the port's ``vq.*`` spans among the
+kernels. ``GitCallback`` writes ``git diff HEAD`` to
 ``work_dir/git.diff``. ``SyncCheckCallback`` asserts after every step, under
 ``DEBUG``/``DRY_RUN``, that the codebook is bit-identical on every rank of
 the data group (``utils.debug.assert_replicated``). Under
@@ -26,6 +27,7 @@ import torch
 
 from ..parallel.mesh import process_index
 from ..registries import CallbackRegistry
+from ..utils.debug import trace
 
 __all__ = ["BaseCallback", "CheckpointCallback", "GitCallback", "LogCallback", "ProfileCallback",
            "SyncCheckCallback", "TensorBoardCallback"]
@@ -117,28 +119,21 @@ class ProfileCallback(BaseCallback):
     def __init__(self, start: int = 10, steps: int = 5) -> None:
         self.start = start
         self.steps = steps
-        self._prof = None
+        self._trace: trace | None = None
 
     def _stop(self) -> None:
-        self._prof.__exit__(None, None, None)
-        out = os.path.join(self.runner.work_dir, "profile")
-        os.makedirs(out, exist_ok=True)
-        self._prof.export_chrome_trace(os.path.join(out, "trace.json"))
-        self._prof = None
-        logger.info("profiler trace written to %s", out)
+        self._trace.__exit__(None, None, None)
+        logger.info("profiler trace written to %s", self._trace.log_dir)
+        self._trace = None
 
     def after_run_iter(self, step: int, metrics: Mapping[str, Any]) -> None:
-        if step == self.start and self._prof is None:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            self._prof = torch.profiler.profile(activities=activities)
-            self._prof.__enter__()
-        elif self._prof is not None and step >= self.start + self.steps:
+        if step == self.start and self._trace is None:
+            self._trace = trace(os.path.join(self.runner.work_dir, "profile")).__enter__()
+        elif self._trace is not None and step >= self.start + self.steps:
             self._stop()
 
     def after_run(self) -> None:
-        if self._prof is not None:
+        if self._trace is not None:
             self._stop()
 
 

@@ -5,7 +5,8 @@ host loops around an algorithm's steps.
 ``algorithm.train_step`` per iteration, and never synchronises the device
 itself: the step's metrics stay tensors, and only the callbacks that log
 them read them to the host, at their interval. Batches reach the device
-two ahead of the step that takes them (``_device_prefetch``): on CUDA each
+two ahead of the step that takes them (``_device_prefetch``; each pull
+from the loader inside the span ``vq.data_wait``): on CUDA each
 batch is pinned and copied with ``non_blocking`` on a copy stream, the
 compute stream waits on the copy's event, and the device tensors are
 ``record_stream``-ed to the compute stream so the allocator does not reuse
@@ -66,6 +67,7 @@ from ..registries import (
     StrategyRegistry,
 )
 from ..tasks.image_tokenization import model_device
+from ..utils.debug import span
 from ..utils.flags import Store
 from . import checkpoints as ckpt
 from .callbacks import BaseCallback
@@ -154,17 +156,25 @@ class Trainer(_RunnerBase):
 
     def _device_prefetch(self, batches: Iterable[Mapping[str, Any]], depth: int = 2):
         device = self.strategy.device
+        it = iter(batches)
+
+        def pull():
+            """The loader's next batch (None: none left)."""
+            with span("vq.data_wait"):
+                return next(it, None)
+
         if device.type != "cuda":
-            for batch in batches:
+            while (batch := pull()) is not None:
                 yield self.strategy.shard_batch(_device_batch(batch))
             return
         copy_stream = torch.cuda.Stream(device)
         compute = torch.cuda.current_stream(device)
         pending: collections.deque = collections.deque()
-        it = iter(batches)
 
         def enqueue(n: int) -> None:
-            for batch in itertools.islice(it, n):
+            for _ in range(n):
+                if (batch := pull()) is None:
+                    return
                 with torch.cuda.stream(copy_stream):
                     out = self.strategy.shard_batch(_device_batch(batch))
                     done = torch.cuda.Event()

@@ -1,5 +1,5 @@
 """Debug utilities (port of ``vector_quantization_tpu/utils/debug.py``): the
-cross-rank sync assert and a profiler trace.
+cross-rank sync assert, a profiler trace and the port's spans.
 
 :func:`assert_replicated` checks that a tensor every rank of a group
 should hold identically (the codebook) is bit-identical on all of them: it
@@ -9,10 +9,19 @@ first. Active under ``DEBUG`` or ``DRY_RUN``, as in the JAX package.
 
 ``with trace(dir):`` records ``torch.profiler`` (CPU, and CUDA where there
 is a GPU) into ``dir/trace.json``; ``trace(None)`` does nothing.
+
+``with span("vq.<name>"):`` marks a phase of the port (a train step, its
+backward, the optimizer, K1's entry, ...) as a ``record_function`` range
+while a profiler records (``trace``, ``ProfileCallback``, the benchmark's
+traced runs), so the phase lands in the same trace as the kernels it
+launches, on the profiler's clock. While none records it is one shared
+no-op context: the only cost is reading the profiler's flag. Every name
+starts with ``vq.``, apart from the benchmark's own range names.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 from typing import Any
@@ -23,7 +32,17 @@ import torch.distributed as dist
 
 from .flags import Store
 
-__all__ = ["assert_replicated", "digest", "trace"]
+__all__ = ["assert_replicated", "digest", "span", "trace"]
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records,
+    else the shared no-op context."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def digest(x: torch.Tensor) -> torch.Tensor:
