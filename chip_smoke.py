@@ -236,6 +236,19 @@ exits non-zero:
    attention (SDPA pinned to its FLASH_ATTENTION backend): its forward, and
    its backward alone (the aten flash backward on residuals made outside
    the graph); ``sdpa_fwd_bwd_ms`` both together.
+16a. ``f32_gemm``: F1 (``ops/f32_gemm.matmul``, the split-TF32 ``wgmma``
+   GEMM) at GPT-2 medium's 15 products of a train step at 64 x 257 rows
+   (c_attn 1024 -> 3072, c_proj 1024 -> 1024, mlp_fc 1024 -> 4096,
+   mlp_proj 4096 -> 1024: forward ``x @ w``, input gradient ``gy @ w.T``,
+   weight gradient ``x.T @ gy``; the tied head 1024 -> 17384: ``h @
+   wte.T``, ``gy @ wte``, ``gy.T @ h``), each in the layout
+   ``Product`` passes, one launch a product. Its error against a float64
+   product (max|got - ref| / max|ref|) at most 4x the plain version's
+   (``matmul_reference``: ``torch.matmul``, cuBLAS f32) and under 1/50 of
+   TF32's (``allow_tf32``). Device times by CUDA-graph replay (the
+   prologue and split-K sums included) of the kernel and the plain
+   version, beside the bound (3 TF32 products at 495 TFLOP/s), per product
+   and summed over the step's 291.
 17. ``ar_train``: ``ARAlgorithm`` from configs/llamagen/c2i_medium_imagenet_ddp.py
    with ``transformer.flash=True`` through the port's config loader and
    registry (Llama-medium, bf16 over f32 params, full per-block remat, fused
@@ -468,8 +481,11 @@ exits non-zero:
    classes -> (8, 256, 256, 3) finite; a dense ``ARServer`` (the per-row
    scatter: learned positions) serving 16 requests, each 256 codes in
    range. Gates also: K1 once a step, **K4 launched 0 times** (JAX's GPT-2
-   reaches no Pallas kernel), every tensor moved, no plain version on the
-   card. Step ms, tokens/s, generate and serving tokens/s.
+   reaches no Pallas kernel), the f32 GEMM 291 times a step (its products;
+   as many prologue launches, and none outside the train steps: the decode,
+   generate and serving rows stay on torch.matmul), every tensor moved, no
+   plain version on the card. Step ms, tokens/s, generate and serving
+   tokens/s.
 28. ``decode_profile``: the decode step of phase 4 on the host clock and,
    under torch.profiler, its device time; their ratio gives the device's
    idle share (run last: the profiler slows later host dispatch); also its
@@ -509,7 +525,9 @@ exits non-zero:
    at the dense path's shapes; the ragged kernel's also ``split_k_ms``, and
    split-K's row, which no path's plan names, is split-K forced at the lm
    head, launches 0), device time per call, the bound, the plain
-   version's and the yardstick's time.
+   version's and the yardstick's time; F1's row (phase 16a) gives its
+   times summed over a GPT-2 step's 291 products and its launches in phase
+   27.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
@@ -575,11 +593,13 @@ K2_SPLIT_K, K2_HEAD = "int8_matmul", "int8_matmul_ragged"
 def zero_launches() -> None:
     """Set every kernel wrapper's launch count to 0 (before a path's run)."""
     from vector_quantization_tpu_torch.ops import flash_attention as fa
+    from vector_quantization_tpu_torch.ops.f32_gemm import matmul
     from vector_quantization_tpu_torch.ops.int8_matmul import int8_matmul, int8_mm
     from vector_quantization_tpu_torch.ops.paged_attention import paged_decode_attention
     from vector_quantization_tpu_torch.ops.vq_lookup import nearest_codes
 
     int8_matmul.launches = paged_decode_attention.launches = nearest_codes.launches = int8_mm.calls = 0
+    matmul.launches = matmul.split_launches = 0
     int8_matmul.design_launches = dict.fromkeys(int8_matmul.design_launches, 0)
     fa.flash_attention_fwd.launches = fa.flash_bwd_dkv.launches = fa.flash_bwd_dq.launches = 0
 
@@ -587,11 +607,13 @@ def zero_launches() -> None:
 def read_launches() -> tuple[dict, int]:
     """Every kernel's launch count (``int8_matmul`` is K2's split-K kernel,
     ``int8_matmul_wide``, ``int8_matmul_tiled`` and ``int8_matmul_ragged``
-    its other kernels, all behind one wrapper), the
+    its other kernels, all behind one wrapper; ``f32_gemm`` the f32 GEMM's
+    product kernel, ``f32_gemm_split`` its prologue), the
     w8a8 path's ``torch._int_mm`` calls (``int8_mm``: a library call, no
     kernel of the repo), and the number of times any plain version ran on a
     CUDA tensor so far."""
     from vector_quantization_tpu_torch.ops import flash_attention as fa
+    from vector_quantization_tpu_torch.ops.f32_gemm import matmul
     from vector_quantization_tpu_torch.ops.int8_matmul import (
         DESIGNS, int8_matmul, int8_matmul_reference, int8_mm, int8_mm_reference,
     )
@@ -607,6 +629,8 @@ def read_launches() -> tuple[dict, int]:
                 "flash_attention_fwd": fa.flash_attention_fwd.launches,
                 "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
                 "flash_bwd_dq": fa.flash_bwd_dq.launches,
+                "f32_gemm": matmul.launches,
+                "f32_gemm_split": matmul.split_launches,
                 "int8_mm": int8_mm.calls}
     plain = (int8_matmul_reference.cuda_calls + int8_mm_reference.cuda_calls
              + paged_decode_attention_reference.cuda_calls
@@ -3201,6 +3225,16 @@ ZOO_BATCH, ZOO_STEPS = 12, 3
 FSQ_PARAMS, ZOO_VQGAN_PARAMS, STYLEGAN2_PARAMS = 71_750_792, 73_845_123, 28_864_129
 CONVNEXT_VQKD_PARAMS, GPT2_PARAMS = 109_486_144, 320_375_808
 GPT2_BATCH, GPT2_STEPS, GPT2_GEN_CLASSES, GPT2_REQUESTS, GPT2_DECODE_STEPS = 64, 3, 8, 16, 32
+# the f32 GEMM's products a train step (ops/f32_gemm.py): 24 layers x 4 dense and the tied head,
+# each forward, input gradient and weight gradient
+GPT2_PRODUCTS = (24 * 4 + 1) * 3
+# GPT-2 medium's dense layers (name, in, out), width and vocabulary: F1's shapes
+GPT2_DENSE = (("c_attn", 1024, 3072), ("c_proj", 1024, 1024), ("mlp_fc", 1024, 4096), ("mlp_proj", 4096, 1024))
+GPT2_WIDTH, GPT2_VOCAB = 1024, 17384
+# F1's error against a float64 product (max|got - ref| / max|ref|): at most F32_GEMM_CUBLAS_X times the
+# plain f32 product's (cuBLAS on the CUDA cores), and under 1 / F32_GEMM_TF32_DIV of TF32's
+# (allow_tf32): the limits of tests/test_torch_cuda.py
+F32_GEMM_CUBLAS_X, F32_GEMM_TF32_DIV = 4, 50
 GPT2_DECODE_LIMIT = 1e-4  # cached decode vs the full forward, of max|ref| (f32, TF32 off)
 
 
@@ -3433,6 +3467,91 @@ def make_gpt2_algorithm(seed: int, dev, vqgan):
     return AlgorithmRegistry.build(cfg, device=dev), cfg
 
 
+def gpt2_products(rows: int) -> list[tuple[str, tuple, tuple, str]]:
+    """(name, a's shape, b's shape, layout) of GPT-2 medium's 15 products of
+    a train step at ``rows`` rows, as ``ops/f32_gemm.Product`` passes them
+    to the kernel: each dense layer's forward ``x @ w``, input gradient
+    ``gy @ w.T`` and weight gradient ``x.T @ gy``, the tied head's
+    ``h @ wte.T``, ``gy @ wte`` and ``gy.T @ h``. ``a.T`` / ``b.T``: that
+    operand is the transpose of a contiguous tensor of the shape given."""
+    out = []
+    for name, k, n in GPT2_DENSE:
+        out += [(f"{name}.fwd", (rows, k), (k, n), ""), (f"{name}.dx", (rows, n), (k, n), "b.T"),
+                (f"{name}.dw", (rows, k), (rows, n), "a.T")]
+    out += [("head.fwd", (rows, GPT2_WIDTH), (GPT2_VOCAB, GPT2_WIDTH), "b.T"),
+            ("head.dh", (rows, GPT2_VOCAB), (GPT2_VOCAB, GPT2_WIDTH), ""),
+            ("head.dwte", (rows, GPT2_VOCAB), (rows, GPT2_WIDTH), "a.T")]
+    return out
+
+
+def gpt2_operands(spec, gen, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """N(0, 1) operands (a, b) of one of ``gpt2_products``, laid out as it says."""
+    _, sa, sb, how = spec
+    a = torch.randn(sa, generator=gen, device=dev)
+    b = torch.randn(sb, generator=gen, device=dev)
+    return (a.t() if how == "a.T" else a), (b.t() if how == "b.T" else b)
+
+
+def phase_f32_gemm(dev, gen) -> dict:
+    """F1 (``ops/f32_gemm.matmul``) at GPT-2 medium's 15 products of a train
+    step, 64 x 257 rows, in the layouts ``Product`` passes: against its plain
+    version and a float64 product (errors within the limits of
+    ``F32_GEMM_CUBLAS_X`` and ``F32_GEMM_TF32_DIV``), one launch a product,
+    and timed beside its bound and the plain version."""
+    from vector_quantization_tpu_torch.ops import f32_gemm as fg
+    from vector_quantization_tpu_torch.ops.device import card
+
+    def rel(got, ref) -> float:
+        return float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+    rows, step = [], dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+    for spec in gpt2_products(GPT2_BATCH * SEQ):
+        a, b = gpt2_operands(spec, gen, dev)
+        (m, k), n = a.shape, b.shape[1]
+        ref = a.double() @ b.double()
+        before = fg.matmul.launches
+        got, want = fg.matmul(a, b), fg.matmul_reference(a, b)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = torch.mm(a, b)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        ops, byts = 3 * 2 * m * k * n, 4 * (m * k + k * n + m * n)
+        row = {"phase": "f32_gemm", "product": spec[0], "M": m, "K": k, "N": n, "layout": spec[3] or "a @ b",
+               "plan": fg.plan(m, k, n, card(dev).sms)._asdict(), "launches": fg.matmul.launches - before,
+               "err_kernel": rel(got, ref), "err_plain": rel(want, ref), "err_tf32": rel(tf32, ref),
+               "kernel_vs_plain": rel(got, want)}
+        del ref, got, want, tf32
+        if not (row["launches"] == 1 and row["err_kernel"] <= F32_GEMM_CUBLAS_X * row["err_plain"]
+                and row["err_kernel"] < row["err_tf32"] / F32_GEMM_TF32_DIV):
+            emit(row)
+            raise SystemExit(f"f32_gemm {spec[0]}: a launch count or an error against float64 is out of bounds")
+        row.update({"ms": graph_ms([lambda: fg.matmul(a, b)]),
+                    "plain_ms": graph_ms([lambda: fg.matmul_reference(a, b)], replays=3),
+                    "bound_ms": 1e3 * max(ops / TF32_FLOPS, byts / HBM_BYTES_PER_S), "ops": ops, "bytes": byts})
+        each = 1 if spec[0].startswith("head.") else 24  # GPT-2 medium's 24 layers
+        for key in step:
+            step[key] += each * row[key]
+        emit(row)
+        rows.append(row)
+        del a, b
+        torch.cuda.empty_cache()
+    return {
+        "name": "f32_gemm", "route": "cuda", "source": f"{CSRC}/f32_gemm.cu",
+        "replaces": "none: the JAX package leaves GPT-2's products (nn.Dense, the tied head) to XLA",
+        "max_abs_err": max(r["err_kernel"] for r in rows), **step,
+        "bound_by": "operations", "library_ms": step["plain_ms"],
+        "note": ("ms, plain_ms, bound_ms: GPT-2 medium's 291 products of one train step at 16,448 rows "
+                 "(the dense layers' 12 x 24, the head's 3), the prologue and split-K sums included; bound_ms: "
+                 "3 TF32 products (hi.hi + hi.lo + lo.hi) at 495 TFLOP/s; max_abs_err: the largest "
+                 "max|got - ref| / max|ref| against float64; the plain version is the library's f32 "
+                 "product (torch.matmul, cuBLAS), so library_ms = plain_ms"),
+        "shapes": [{key: r[key] for key in ("product", "M", "K", "N", "layout", "ms", "plain_ms", "bound_ms",
+                                              "err_kernel", "err_plain", "err_tf32")} for r in rows],
+    }
+
+
 def phase_ar_gpt2(vqgan, dev, seed: int):
     """GPT-2 medium C2I: 3 train steps on 64 random images (K1 -> the dense
     head -> next-token CE -> AdamW); the cached decode's logits against the
@@ -3497,9 +3616,13 @@ def phase_ar_gpt2(vqgan, dev, seed: int):
            "serving_engine": "shared_column" if server._shared_col else "scatter",
            "served": len(done), "serve_s": serve_s, "serve_tokens_per_s": len(done) * IMAGE_TOKENS / serve_s,
            "k1_launches_train": k1_train, "k1_launches_per_step": [r["k1_launches"] for r in rows],
+           "f32_gemm_launches_per_step": train_launches["f32_gemm"] / GPT2_STEPS,
+           "f32_gemm_split_launches_per_step": train_launches["f32_gemm_split"] / GPT2_STEPS,
+           "f32_gemm_launches_expected_per_step": GPT2_PRODUCTS,
            "k4_launches": k4, "launches": launches, "plain_runs_on_cuda": plain - plain0}
     emit(row)
     ok = (finite(rows) and all(r["k1_launches"] == 1 for r in rows) and k4 == 0 and all(changed)
+          and launches["f32_gemm"] == train_launches["f32_gemm"] == GPT2_PRODUCTS * GPT2_STEPS
           and plain == plain0 and decode_gap <= GPT2_DECODE_LIMIT and row["images_finite"]
           and images.shape == (GPT2_GEN_CLASSES, IMAGE_SIZE, IMAGE_SIZE, 3) and not algo._use_fused()
           and sorted(done) == list(range(GPT2_REQUESTS)) and not server._shared_col
@@ -3832,11 +3955,11 @@ def phase_ar_train_remat_dots(algo, batch) -> dict:
     return dots_launches
 
 
-def phase_zoo(vqgan, dev, seed: int) -> tuple[dict, list]:
+def phase_zoo(vqgan, dev, seed: int) -> tuple[dict, list, dict]:
     """The five phases of the tokenizer zoo and GPT-2: their K1 launches by
-    phase, and one-step profiles of four of them (run after the others'
+    phase, one-step profiles of four of them (run after the others'
     profiles; CVQ-VAE's step is the VQGAN recipe's, and its models are
-    freed here)."""
+    freed here), and every kernel's launches in the GPT-2 phase."""
     out, profiles = {}, []
     for name, run in (("fsq_train", lambda: phase_fsq_train(dev, seed)),
                       ("vqgan_stylegan2_train", lambda: phase_vqgan_stylegan2_train(dev, seed))):
@@ -3852,11 +3975,11 @@ def phase_zoo(vqgan, dev, seed: int) -> tuple[dict, list]:
     out["vqkd_convnext_train"] = launches["nearest_codes"]
     profiles.append(profile)
     torch.cuda.empty_cache()
-    launches, profile = phase_ar_gpt2(vqgan, dev, seed)
-    out["ar_gpt2"] = launches["nearest_codes"]
+    gpt2_launches, profile = phase_ar_gpt2(vqgan, dev, seed)
+    out["ar_gpt2"] = gpt2_launches["nearest_codes"]
     profiles.append(profile)
     torch.cuda.empty_cache()
-    return out, profiles
+    return out, profiles, gpt2_launches
 
 # -- parallelism: the strategies under torch.distributed ---------------------
 # One card: each strategy runs under a one-rank NCCL group at full width
@@ -4775,6 +4898,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     k_flash = phase_flash_attention(dev, gen)
     torch.cuda.empty_cache()
+    k_f32 = phase_f32_gemm(dev, gen)
+    torch.cuda.empty_cache()
     algo, ar_cfg = make_ar_algorithm(args.seed, dev, vqgan)
     ar_launches, ar_state, codes_batch, ar_row = phase_ar_train(algo, ar_cfg, dev, args.seed)
     dots_launches = phase_ar_train_remat_dots(algo, codes_batch)
@@ -4812,7 +4937,7 @@ def main() -> int:
         record_launches = phase_tools_record_check(record)
         emit({"phase": "tools", "wall_s": time.perf_counter() - tools_t0})
     torch.cuda.empty_cache()
-    zoo_launches, zoo_profiles = phase_zoo(vqgan, dev, args.seed)
+    zoo_launches, zoo_profiles, gpt2_launches = phase_zoo(vqgan, dev, args.seed)
     profile_step()
     profile_generate()
     profile_tokenizer()
@@ -4872,7 +4997,10 @@ def main() -> int:
                                  "parallel_fsdp": fsdp_launches[k["name"]],
                                  "parallel_tp": tp_launches["train"][k["name"]],
                                  "parallel_two_ranks_rank0": two_rank_launches[k["name"]]}
-    emit({"kernels": [*k_int8, k_tiled, k_attn, k_vq, *k_flash]})
+    k_f32["launches"] = gpt2_launches["f32_gemm"]
+    k_f32["launches_by_path"] = {"ar_gpt2": gpt2_launches["f32_gemm"],
+                                 "ar_gpt2_prologue": gpt2_launches["f32_gemm_split"]}
+    emit({"kernels": [*k_int8, k_tiled, k_attn, k_vq, *k_flash, k_f32]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})
     return 0

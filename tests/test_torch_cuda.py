@@ -7,12 +7,16 @@ fixture, never at import). On a GPU machine without JAX run them with
 """
 
 import functools
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from vector_quantization_tpu_torch.models.transformers.gpt2 import GPT2Transformer
 from vector_quantization_tpu_torch.models.transformers.llama import LlamaTransformer
+from vector_quantization_tpu_torch.ops import f32_gemm as fg
 from vector_quantization_tpu_torch.ops import flash_attention as fa
 from vector_quantization_tpu_torch.ops import int8_matmul as im
 from vector_quantization_tpu_torch.ops.int8_matmul import (
@@ -1104,3 +1108,164 @@ def test_a_tool_with_the_gpu_hidden_fails_loudly(dev, tmp_path):
                          cwd=repo, capture_output=True, text=True, timeout=300,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0 and "CUDA" in out.stderr and not (tmp_path / "out").exists()
+
+
+# ---- the f32 GEMM (csrc/f32_gemm.cu): GPT-2-medium's products ----------------
+
+_GEMM_LAYERS = [("c_attn", 1024, 3072), ("c_proj", 1024, 1024), ("mlp_fc", 1024, 4096),
+                ("mlp_proj", 4096, 1024), ("ragged", 1028, 1004)]
+_GEMM_PRODUCTS = [(f"{name}.{kind}", k, n, kind) for name, k, n in _GEMM_LAYERS
+                  for kind in ("fwd", "dx", "dw")] + [
+    ("head.fwd", 1024, 17384, "head_fwd"), ("head.dh", 1024, 17384, "head_dh"),
+    ("head.dwte", 1024, 17384, "head_dw")]
+
+
+def _gemm_operands(dev, rows, k, n, kind, seed):
+    """(a, b) of one product as ``ops/f32_gemm.Product`` makes it: the
+    forward ``x @ w``, the input gradient ``gy @ w.T``, the weight gradient
+    ``x.T @ gy``; the head's ``h @ wte.T``, ``gy @ wte``, ``gy.T @ h``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = functools.partial(torch.randn, generator=gen, device=dev)
+    return {"fwd": lambda: (r(rows, k), r(k, n)), "dx": lambda: (r(rows, n), r(k, n).t()),
+            "dw": lambda: (r(rows, k).t(), r(rows, n)), "head_fwd": lambda: (r(rows, k), r(n, k).t()),
+            "head_dh": lambda: (r(rows, n), r(n, k)), "head_dw": lambda: (r(rows, n).t(), r(rows, k))}[kind]()
+
+
+def _err64(got, ref):
+    got, ref = got.detach(), ref.detach()
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("name,k,n,kind", _GEMM_PRODUCTS, ids=[p[0] for p in _GEMM_PRODUCTS])
+def test_f32_gemm_matches_float64(dev, name, k, n, kind):
+    """At 257 x 3 rows (a ragged last tile; the weight gradients sum over
+    them): the kernel's error against float64 within 4x cuBLAS f32's and
+    under 1/50 of TF32's (``allow_tf32``)."""
+    a, b = _gemm_operands(dev, 257 * 3, k, n, kind, k + n)
+    ref = a.double() @ b.double()
+    before = fg.matmul.launches
+    got = fg.matmul(a, b)
+    torch.cuda.synchronize()
+    assert fg.matmul.launches == before + 1 and got.shape == ref.shape
+    cublas = _err64(torch.mm(a, b), ref)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = _err64(torch.mm(a, b), ref)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err = _err64(got, ref)
+    assert err <= 4 * cublas and err < tf32 / 50, (err, cublas, tf32)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_f32_gemm_autograd_matches_float64(dev, transposed):
+    """``dense`` and ``tied_head`` at 2056 rows (8 x 257): the output and
+    the input, weight and bias gradients through the kernel, each within 4x
+    the error of the same computed by cuBLAS f32, against float64."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(8, 257, 1024, generator=gen, device=dev)
+    w = torch.randn(*((4096, 1024) if transposed else (1024, 4096)), generator=gen, device=dev) * 0.03
+    b = torch.randn(4096, generator=gen, device=dev)
+    gy = torch.randn(8, 257, 4096, generator=gen, device=dev)
+
+    def run(x, w, b, fn):
+        x, w, b = (t.detach().requires_grad_() for t in (x, w, b))
+        y = fn(x, w, b)
+        return (y, *torch.autograd.grad(y, (x, w) if transposed else (x, w, b), gy.to(y.dtype)))
+
+    if transposed:
+        kernel_fn, plain_fn = (lambda x, w, b: fg.tied_head(x, w)), (lambda x, w, b: torch.matmul(x, w.t()))
+    else:
+        kernel_fn, plain_fn = fg.dense, (lambda x, w, b: torch.matmul(x, w) + b)
+    before = fg.matmul.launches
+    got = run(x, w, b, kernel_fn)
+    torch.cuda.synchronize()
+    assert fg.matmul.launches == before + 3
+    cublas = run(x, w, b, plain_fn)
+    ref = run(x.double(), w.double(), b.double(), plain_fn)
+    for g, c, r in zip(got, cublas, ref):
+        assert _err64(g, r) <= 4 * _err64(c, r), (_err64(g, r), _err64(c, r))
+
+
+def test_f32_gemm_dispatch(dev):
+    """Decode rows, one row short of ``MIN_ROWS``, bf16 and K or N not a
+    multiple of 4 stay on torch.matmul (the kernel's launches do not move);
+    ``MIN_ROWS`` f32 rows take the kernel, 3 launches with the backward. At
+    1024 -> 4096 the forward's plan swaps the operands, so the bias goes on
+    C's rows: within 4x cuBLAS f32's error against float64."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    cases = [((64, 1024), (1024, 3072), torch.float32), ((fg.MIN_ROWS - 1, 1024), (1024, 1024), torch.float32),
+             ((4096, 1024), (1024, 3072), torch.bfloat16),
+             ((4096, 1022), (1022, 1024), torch.float32), ((4096, 1024), (1024, 1022), torch.float32)]
+    before = (fg.matmul.launches, fg.matmul.split_launches)
+    for xs, ws, dtype in cases:
+        x = torch.randn(*xs, generator=gen, device=dev).to(dtype)
+        w = torch.randn(*ws, generator=gen, device=dev).to(dtype)
+        b = torch.randn(ws[1], generator=gen, device=dev).to(dtype)
+        assert not fg.takes_kernel(x, w)
+        assert torch.equal(fg.dense(x, w, b), torch.matmul(x, w) + b)
+    assert (fg.matmul.launches, fg.matmul.split_launches) == before
+    x = torch.randn(fg.MIN_ROWS, 1024, generator=gen, device=dev, requires_grad=True)
+    w = torch.randn(1024, 4096, generator=gen, device=dev, requires_grad=True)
+    b = torch.randn(4096, generator=gen, device=dev, requires_grad=True)
+    assert fg.takes_kernel(x, w) and fg.plan(fg.MIN_ROWS, 1024, 4096, fg.card(dev).sms).swap
+    y = fg.dense(x, w, b)
+    ref = x.double() @ w.double() + b.double()
+    assert _err64(y, ref) <= 4 * _err64(torch.matmul(x, w) + b, ref)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert (fg.matmul.launches, fg.matmul.split_launches) == (before[0] + 3, before[1] + 3)
+
+
+def test_gpt2_step_products_all_run_the_kernel_under_the_range(dev):
+    """One GPT-2-medium step (8 x 257 tokens, vocabulary 17384) under the
+    profiler: all 291 products (24 layers x 4 dense x 3, the head x 3) launch
+    the kernel inside ``gpt2.gemm``, and no PyTorch matrix product runs
+    inside it (the benchmark's ``gpt2_gemm_kernel_share.train`` reads 100)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmark import readers
+    from benchmark import trace as bt
+
+    model = GPT2Transformer(17384, hidden_size=1024, num_layers=24, num_heads=16, max_length=257).to(dev)
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(0, 17384, (8, 257))).to(dev)
+
+    def step():
+        grads = torch.autograd.grad(model(tokens).square().mean(), list(model.parameters()))
+        torch.cuda.synchronize()
+        return grads
+
+    step()
+    before = fg.matmul.launches
+    with bt.profiled(True, True) as held:
+        with torch.profiler.record_function("window"):
+            step()
+    assert fg.matmul.launches == before + 291
+    t = held.trace
+    kernels = [o for o in t.window_ops() if "f32_gemm_kernel" in o[0]]
+    inside = [o for o in bt.ops_under(t, ("gpt2.gemm",)) if "f32_gemm_kernel" in o[0]]
+    assert len(kernels) == len(inside) == 291
+    assert not set(bt.ops_under(t, ("gpt2.gemm",))) & set(bt.ops_under(t, readers.MATMUL_OPS))
+
+
+def test_gpt2_products_below_min_rows_read_below_100_in_the_kernel_share(dev):
+    """A GPT-2 step at fewer than ``MIN_ROWS`` rows (2 x 16) under the
+    profiler: its products fall to ``torch.matmul`` inside ``gpt2.gemm``,
+    so the benchmark's ``gpt2_gemm_kernel_share.train`` reads below 100, and
+    the kernel does not launch."""
+    from types import SimpleNamespace
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmark import trace as bt
+    from benchmark.harness import load_module
+
+    share = load_module(Path(__file__).resolve().parents[1] / "benchmark/metrics/gpt2_gemm_kernel_share.train.py",
+                        "gpt2_gemm_kernel_share_train")
+    model = GPT2Transformer(64, hidden_size=64, num_layers=2, num_heads=2, max_length=16).to(dev)
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(0, 64, (2, 16))).to(dev)
+    before = fg.matmul.launches
+    with bt.profiled(True, True) as held:
+        with torch.profiler.record_function("window"):
+            torch.autograd.grad(model(tokens).square().mean(), list(model.parameters()))
+            torch.cuda.synchronize()
+    assert fg.matmul.launches == before
+    assert share.read(SimpleNamespace(trace=held.trace, counters={"steps": 1})) < 100

@@ -23,6 +23,15 @@ Held within 1e-4 of max|ref| (per tensor):
   equal to JAX's token for token;
 - the dense ``ARServer`` on GPT-2: its per-row scatter engine (the learned
   positions rule out the shared column) gives JAX's server's streams.
+
+``ops/f32_gemm.py``, which GPT-2's ``_Dense`` and head call, on the CPU:
+the dispatch keeps CPU tensors on ``torch.matmul``; the autograd function,
+with the plain product in the kernel's place, gives the outputs and
+gradients of the products it replaces; every product of either branch
+runs inside the range ``gpt2.gemm``; the plan covers the sum over K; the
+wrapper's operand layouts, emulated with the kernel's indexing, give
+``a @ b``. The kernel itself is held
+against float64 in ``tests/test_torch_cuda.py``.
 """
 
 from pathlib import Path
@@ -44,6 +53,7 @@ from vector_quantization_tpu.tasks.sequence_modeling import next_token_ce as jax
 from vector_quantization_tpu.tasks.serving import ARServer as JaxServer
 from vector_quantization_tpu.utils.config import load_config as jax_load_config
 from vector_quantization_tpu_torch.models.transformers.gpt2 import GPT2Transformer
+from vector_quantization_tpu_torch.ops import f32_gemm
 from vector_quantization_tpu_torch.registries import AlgorithmRegistry
 from vector_quantization_tpu_torch.tasks.sequence_modeling import TokenCodebook, generate, next_token_ce
 from vector_quantization_tpu_torch.tasks.serving import ARServer
@@ -256,3 +266,145 @@ def test_dense_server_streams_match_jax():
     for rid in want:
         np.testing.assert_array_equal(got[rid], want[rid])
         assert int(got[rid].min()) >= 0 and int(got[rid].max()) < 16
+
+
+def _dense_operands(seed, lead, fin, fout):
+    rng = np.random.default_rng(seed)
+    x, w, b = (torch.from_numpy(rng.normal(0.0, 1.0, shape).astype(np.float32))
+               for shape in (lead + (fin,), (fin, fout), (fout,)))
+    return x.requires_grad_(), w.requires_grad_(), b.requires_grad_()
+
+
+@pytest.mark.parametrize("lead", [(5,), (2, 3)])
+def test_dense_and_head_keep_cpu_tensors_on_torch_matmul(lead):
+    x, w, b = _dense_operands(6, lead, 8, 12)
+    launches = f32_gemm.matmul.launches
+    assert not f32_gemm.takes_kernel(x, w)
+    assert torch.equal(f32_gemm.dense(x, w, b), torch.matmul(x, w) + b)
+    assert torch.equal(f32_gemm.tied_head(x, w.t()), torch.matmul(x, w))
+    assert f32_gemm.matmul.launches == launches
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_product_plain_path_matches_the_products_it_replaces(transposed, monkeypatch):
+    """``Product`` with the plain product (``matmul_reference``) in the
+    kernel's place, on CPU tensors: the output equals ``torch.matmul`` (+
+    bias), and its input, weight and bias gradients those autograd takes
+    through ``torch.matmul``."""
+    monkeypatch.setattr(f32_gemm, "matmul", f32_gemm.matmul_reference)
+    x, w, b = _dense_operands(7, (9,), 16, 24)
+    weight = w.detach().t().contiguous().requires_grad_() if transposed else w
+    bias = None if transposed else b
+    gy = torch.from_numpy(np.random.default_rng(8).normal(0.0, 1.0, (9, 24)).astype(np.float32))
+    got = f32_gemm.Product.apply(x, weight, bias, transposed)
+    want = torch.matmul(x, weight.t() if transposed else weight) + (0.0 if transposed else bias)
+    assert torch.equal(got, want)
+    inputs = (x, weight) if transposed else (x, weight, bias)
+    got_grads = torch.autograd.grad(got, inputs, gy)
+    want_grads = torch.autograd.grad(want, inputs, gy)
+    for g, w_ in zip(got_grads, want_grads):
+        torch.testing.assert_close(g, w_, rtol=1e-6, atol=1e-6)
+
+
+def _mm_ranges(run):
+    """Under the CPU profiler: for each ``aten::mm`` that ``run`` reaches,
+    whether ``gpt2.gemm`` encloses it."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        run()
+    out = []
+    for e in prof.events():
+        if e.name == "aten::mm":
+            p = e.cpu_parent
+            while p is not None and p.name != "gpt2.gemm":
+                p = p.cpu_parent
+            out.append(p is not None)
+    return out
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_products_of_either_branch_run_inside_the_range(transposed, monkeypatch):
+    """``dense`` and ``tied_head`` open ``gpt2.gemm`` around the product
+    whichever computes it, so a product that falls to ``torch.matmul``
+    lands inside the range as ``aten::mm`` (the benchmark's
+    ``gpt2_gemm_kernel_share.train`` then reads below 100); ``Product``'s
+    forward and both backward products run inside it too."""
+    x, w, b = _dense_operands(11, (6,), 16, 24)
+    weight = w.detach().t().contiguous().requires_grad_() if transposed else w
+
+    def call():
+        return f32_gemm.tied_head(x, weight) if transposed else f32_gemm.dense(x, weight, b)
+
+    # torch.matmul's forward inside the range; its backward runs on autograd's engine, outside it
+    assert _mm_ranges(lambda: call().sum().backward()) == [True, False, False]
+    monkeypatch.setattr(f32_gemm, "takes_kernel", lambda *_: True)
+    monkeypatch.setattr(f32_gemm, "matmul", f32_gemm.matmul_reference)
+    assert _mm_ranges(lambda: call().sum().backward()) == [True, True, True]
+
+
+def test_gpt2_layers_go_through_dense_and_head(monkeypatch):
+    _, _, tt = _pair(6)
+    calls = []
+    real_dense, real_head = f32_gemm.dense, f32_gemm.tied_head
+    monkeypatch.setattr("vector_quantization_tpu_torch.models.transformers.gpt2.dense",
+                        lambda *a: calls.append("dense") or real_dense(*a))
+    monkeypatch.setattr("vector_quantization_tpu_torch.models.transformers.gpt2.tied_head",
+                        lambda *a: calls.append("head") or real_head(*a))
+    tt(torch.from_numpy(_tokens(9, 2, 5)))
+    assert calls == ["dense"] * 4 * TINY["num_layers"] + ["head"]
+
+
+@pytest.mark.parametrize("m,k,n", [(16448, 1024, 3072), (16448, 3072, 1024), (1024, 16448, 3072),
+                                   (1024, 16448, 1024), (4096, 16448, 1024), (16448, 1024, 17384),
+                                   (17384, 16448, 1024), (771, 1024, 17384), (37, 3000, 8)])
+def test_plan_covers_the_sum(m, k, n):
+    p = f32_gemm.plan(m, k, n, 132)
+    assert p.k_per_split % 32 == 0 and (p.splits - 1) * p.k_per_split < k <= p.splits * p.k_per_split
+    assert p.swap == (2 * m < n) and 1 <= p.blocks <= min(132, p.tiles)
+    rows, cols = (n, m) if p.swap else (m, n)
+    assert p.tiles == -(-rows // 128) * -(-cols // 128) * p.splits
+    assert p == f32_gemm.plan(m, k, n, 132)
+
+
+def _tf32(v):
+    """cvt.rna.tf32.f32: the top 10 mantissa bits, rounded to nearest, ties away."""
+    i = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    i = (i + 0x1000) & 0xFFFFE000
+    return torch.where(i >= 2**31, i - 2**32, i).to(torch.int32).view(torch.float32)
+
+
+def _read(t, transposed, pitch, rows, cols):
+    """The (rows, cols) matrix the kernel reads at t's storage offset."""
+    flat = torch.tensor([], dtype=t.dtype).set_(t.untyped_storage())
+    i, r = torch.meshgrid(torch.arange(rows), torch.arange(cols), indexing="ij")
+    return flat[t.storage_offset() + (r * pitch + i if transposed else i * pitch + r)]
+
+
+@pytest.mark.parametrize("m,k,n,a_t,b_t,bias", [(300, 64, 96, False, False, True), (40, 64, 200, False, False, True),
+                                                (64, 300, 200, True, False, False), (100, 64, 36, False, True, False),
+                                                (8, 3000, 8, True, False, False), (130, 4096, 12, False, False, True)])
+def test_operand_layouts_emulated(m, k, n, a_t, b_t, bias):
+    """``matmul``'s plan and operand layouts (``_as_read``), run through an
+    emulation of the kernel on the CPU (A read as it lies and split, B's
+    TF32 parts as the prologue writes them, the parts of K, the bias on the
+    first part, the store transposed where the plan swaps) give a @ b."""
+    rng = np.random.default_rng(10)
+    a = torch.from_numpy(rng.normal(0.0, 1.0, (k, m) if a_t else (m, k)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0.0, 1.0, (n, k) if b_t else (k, n)).astype(np.float32))
+    a, b = (a.t() if a_t else a), (b.t() if b_t else b)
+    bb = torch.from_numpy(rng.normal(0.0, 1.0, (n,)).astype(np.float32)) if bias else None
+    p = f32_gemm.plan(m, k, n, 4)
+    A, B = (b.t(), a) if p.swap else (a, b.t())
+    A, a_trans, lda = f32_gemm._as_read(A)
+    B, b_trans, ldb = f32_gemm._as_read(B)
+    av, bv = _read(A, a_trans, lda, A.shape[0], k), _read(B, b_trans, ldb, B.shape[0], k)
+    ah, bh = _tf32(av), _tf32(bv)
+    al, bl = _tf32(av - ah), _tf32(bv - bh)
+    out = torch.zeros(p.splits, m, n, dtype=torch.float64)
+    for s in range(p.splits):
+        r = slice(s * p.k_per_split, min(k, (s + 1) * p.k_per_split))
+        c = sum(x[:, r].double() @ y[:, r].double().t() for x, y in ((al, bh), (ah, bl), (ah, bh)))
+        if bb is not None and s == 0:
+            c = c + (bb.double()[:, None] if p.swap else bb.double())
+        out[s] = c.t() if p.swap else c
+    want = a.double() @ b.double() + (0.0 if bb is None else bb.double())
+    assert float((out.sum(0) - want).abs().max() / want.abs().max()) < 1e-6

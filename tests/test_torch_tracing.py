@@ -7,8 +7,12 @@
   ``work_dir/profile/trace.json``.
 - With no profiler recording, ``span`` is one shared no-op context and no
   ``record_function`` is entered.
-- Every span name starts with ``vq.`` and none is one of the benchmark's
-  own range names (``benchmark/trace.py``, ``benchmark/harness.py``).
+- Every span name starts with ``vq.``, but for the f32 GEMM's product
+  range ``gpt2.gemm`` (``ops/f32_gemm.py``), which must not: the
+  benchmark's ``spans.chains`` hands a ``vq.`` span opened on autograd's
+  engine thread to every later engine launch. None is one of the
+  benchmark's own range names (``benchmark/trace.py``,
+  ``benchmark/harness.py``).
 - A ``nearest_codes`` set on its module, as the benchmark's traced runs
   set one, is the one the quantizer calls, and it keeps ``launches``.
 """
@@ -42,6 +46,8 @@ SMOKE = str(REPO / "configs/regression/smoke_anchor.py")
 SPANS = {"vq.train_step", "vq.ar.tokens", "vq.ar.forward", "vq.backward", "vq.optimizer", "vq.codebook_update",
          "vq.ema", "vq.vqgan.generation", "vq.vqgan.aglw", "vq.vqgan.discrimination", "vq.nearest_codes",
          "vq.data_wait"}
+# the products' range of ops/f32_gemm.py, opened in backward too: not a phase
+PRODUCT_RANGE = "gpt2.gemm"
 # the benchmark's own range names: its window, the ranges its idle gaps are labelled by, its entry ranges
 BENCHMARK_RANGES = {"window", "traffic", "stage", "step", "encode", "readback", "k1"}
 
@@ -161,8 +167,8 @@ def test_without_a_profiler_span_is_one_shared_noop(monkeypatch):
 def test_span_names_are_the_ports_and_none_is_the_benchmarks():
     package = REPO / "vector_quantization_tpu_torch"
     names = {m for f in package.rglob("*.py") for m in re.findall(r'\bspan\("([\w.]+)"\)', f.read_text())}
-    assert names == SPANS
-    assert all(n.startswith("vq.") for n in names)
+    assert names == SPANS | {PRODUCT_RANGE}
+    assert all(n.startswith("vq.") for n in SPANS) and not PRODUCT_RANGE.startswith("vq.")
     assert not names & BENCHMARK_RANGES
 
 

@@ -23,9 +23,11 @@ the dense cache. So ``tasks/sequence_modeling.generate`` and the dense
 ``ARServer`` serves it through the per-row scatter, not the shared-column
 engine; there is no paged cache path, as in the JAX package.
 
-No kernel stands behind this module: the JAX GPT-2 reaches no Pallas
-kernel (its attention is einsum, not the flash attention of Llama's
-training path), so the port adds no flash path either.
+The JAX GPT-2 reaches no Pallas kernel (its attention is einsum, not the
+flash attention of Llama's training path), so the port adds no flash path
+either. Its f32 products (``_Dense`` and the head) go through
+``ops/f32_gemm.py``: at training's many rows a hand-written Hopper kernel
+on the tensor cores at f32 accuracy, elsewhere ``torch.matmul``.
 ``supports_fused_ce`` is false: ``ARAlgorithm`` trains it through the
 dense head and ``next_token_ce``.
 
@@ -42,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.f32_gemm import dense, tied_head
 from ...registries import TransformerRegistry
 from .llama import _NEG_MASK, KVCache, _dense_cache_attention, _einsum_attention, make_dense_cache, resolve_dtype
 
@@ -74,7 +77,7 @@ class _Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(fout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype)) + self.bias.to(self.dtype)
+        return dense(x.to(self.dtype), self.kernel.to(self.dtype), self.bias.to(self.dtype))
 
 
 class _GPT2Block(nn.Module):
@@ -178,7 +181,7 @@ class GPT2Transformer(nn.Module):
                 if int8_cache:
                     layer += (cache.k_scale[i], cache.v_scale[i])
             x = block(x, mask, layer, offset)
-        logits = torch.matmul(self.ln_f(x).float(), self.wte.t())  # the tied head, f32
+        logits = tied_head(self.ln_f(x).float(), self.wte)  # the tied head, f32
         if cache is None:
             return logits
         return logits, cache._replace(length=cache.length + t)

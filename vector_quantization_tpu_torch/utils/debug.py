@@ -16,7 +16,9 @@ while a profiler records (``trace``, ``ProfileCallback``, the benchmark's
 traced runs), so the phase lands in the same trace as the kernels it
 launches, on the profiler's clock. While none records it is one shared
 no-op context: the only cost is reading the profiler's flag. Every name
-starts with ``vq.``, apart from the benchmark's own range names.
+starts with ``vq.``, apart from the benchmark's own range names and the f32
+GEMM's product range ``gpt2.gemm`` (``ops/f32_gemm.py``), which is opened in
+backward too and is not a phase.
 """
 
 from __future__ import annotations
