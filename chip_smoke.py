@@ -249,6 +249,25 @@ exits non-zero:
    prologue and split-K sums included) of the kernel and the plain
    version, beside the bound (3 TF32 products at 495 TFLOP/s), per product
    and summed over the step's 291.
+16b. ``deepseek_v3``: F1 on the DeepSeek-V3 prior's path at Moonlight-16B-A3B's
+   widths (``benchmark/configs/moonlight_16b_a3b_c2i.json``). Its products
+   through ``ops/f32_gemm.matmul`` in the layouts ``Product`` passes for a
+   weight used transposed (``x @ w.T``, ``gy @ w``, ``gy.T @ x``): the four
+   MLA projections, the router (N 64), the dense layer's and the shared
+   experts' stacked gate+up (N 22528, 5632) and down (K 11264, 2816) and the
+   head without bias at 16,448 rows, a routed expert's (N 2816, K 1408) at
+   groups of 520, 1542 and 3000 rows, and both gradient products of an
+   expert fed an expanded gradient (strides 0, 1542 rows: the padded copy);
+   each against the plain version and float64 at 16a's gates, one launch
+   each. Then a two-layer prior (the dense layer, one MoE layer holding 8 of
+   64 experts) forward and backward over 12 x 250 tokens, the held experts'
+   groups routed by hand to 3000, 1542, 300, 520, 511, 0, 0 and 0 rows,
+   against ``benchmark/reference/deepseek_v3.py`` on the same weights and
+   routes: logits and every leaf's gradient within 16a's gates of float64
+   (a leaf whose float64 gradient is 0 must read 0), each group's rows
+   counted, F1 launched 60 times (20 products, 3 launches each; the counts
+   zeroed just before), the two groups under ``MIN_ROWS`` on
+   ``torch.matmul`` (4 plain products).
 17. ``ar_train``: ``ARAlgorithm`` from configs/llamagen/c2i_medium_imagenet_ddp.py
    with ``transformer.flash=True`` through the port's config loader and
    registry (Llama-medium, bf16 over f32 params, full per-block remat, fused
@@ -527,7 +546,7 @@ exits non-zero:
    head, launches 0), device time per call, the bound, the plain
    version's and the yardstick's time; F1's row (phase 16a) gives its
    times summed over a GPT-2 step's 291 products and its launches in phase
-   27.
+   27 and, under ``deepseek_v3``, in phase 16b.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA the script
 exits non-zero before printing any result.
@@ -3552,6 +3571,203 @@ def phase_f32_gemm(dev, gen) -> dict:
     }
 
 
+# the DeepSeek-V3 prior (models/transformers/deepseek_v3.py) at Moonlight-16B-A3B's widths
+MOONLIGHT_CONFIG = "benchmark/configs/moonlight_16b_a3b_c2i.json"
+# its products through F1 (name, K, N: x (M, K) @ w.T for w (N, K)) at a step's 64 x 257 rows: the four
+# MLA projections, the router, the dense layer's and the shared experts' stacked gate+up and down, the head
+MOONLIGHT_DENSE = (("q_proj", 2048, 3072), ("kv_a_proj", 2048, 576), ("kv_b_proj", 512, 4096),
+                   ("o_proj", 2048, 2048), ("router", 2048, 64), ("ffn.gate_up", 2048, 22528),
+                   ("ffn.down", 11264, 2048), ("shared.gate_up", 2048, 5632), ("shared.down", 2816, 2048),
+                   ("head", 2048, 17384))
+# a routed expert's (the same layouts) at its groups' rows: just above MIN_ROWS, the deployment's mean
+# (64 x 257 x 6 / 64), about twice it
+MOONLIGHT_EXPERT = (("expert.gate_up", 2048, 2816), ("expert.down", 1408, 2048))
+MOONLIGHT_GROUPS = (520, 1542, 3000)
+# the layer run's groups of held experts 0-7 (rows), routed by hand over 3000 tokens: 300 and 511 fall to
+# torch.matmul, 5-7 take none; each token's other choices go to experts held elsewhere
+MOONLIGHT_RUN_GROUPS = (3000, 1542, 300, 520, 511, 0, 0, 0)
+MOONLIGHT_RUN_SHAPE = (12, 250)
+
+
+def moonlight_products() -> list[tuple[str, tuple, tuple, str]]:
+    """(name, a's shape, b's shape, layout) of the DeepSeek prior's products
+    as ``ops/f32_gemm.Product`` passes them for a weight ``w`` (N, K) used
+    transposed: forward ``x @ w.T``, input gradient ``gy @ w``, weight
+    gradient ``gy.T @ x``; the experts' at each of ``MOONLIGHT_GROUPS``; and
+    both gradient products of an expert's down projection at 1542 rows fed
+    an expanded gradient (strides 0, ``a.0``: a ``sum()``'s)."""
+    def three(name, m, k, n):
+        return [(f"{name}.fwd", (m, k), (n, k), "b.T"), (f"{name}.dx", (m, n), (n, k), ""),
+                (f"{name}.dw", (m, n), (m, k), "a.T")]
+
+    out = [p for name, k, n in MOONLIGHT_DENSE for p in three(name, GPT2_BATCH * SEQ, k, n)]
+    out += [p for m in MOONLIGHT_GROUPS for name, k, n in MOONLIGHT_EXPERT for p in three(f"{name}@{m}", m, k, n)]
+    out += [("expert.down@1542.dx_expanded", (1542, 2048), (2048, 1408), "a.0"),
+            ("expert.down@1542.dw_expanded", (1542, 2048), (1542, 1408), "a.0.T")]
+    return out
+
+
+def moonlight_operands(spec, gen, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """N(0, 1) operands (a, b) of one of ``moonlight_products``; ``a.0``: a
+    is one N(0, 1) number expanded to a's shape (``a.0.T``: then
+    transposed)."""
+    _, sa, sb, how = spec
+    if how.startswith("a.0"):
+        a = torch.randn((), generator=gen, device=dev).expand(sa)
+        a = a.t() if how == "a.0.T" else a
+        return a, torch.randn(sb, generator=gen, device=dev)
+    return gpt2_operands(spec, gen, dev)
+
+
+def _rel(got, ref) -> float:
+    """max|got - ref| / max|ref| (0 where both are 0)."""
+    got, ref = got.detach().double(), ref.detach().double()
+    den, num = float(ref.abs().max()), float((got - ref).abs().max())
+    return num / den if den else num
+
+
+def _tf32(fn):
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _within(err: float, plain: float, tf32: float) -> bool:
+    """16a's gates: at most F32_GEMM_CUBLAS_X times the plain f32 error and
+    under 1 / F32_GEMM_TF32_DIV of TF32's."""
+    return err <= F32_GEMM_CUBLAS_X * plain and err < tf32 / F32_GEMM_TF32_DIV
+
+
+def phase_deepseek_v3(dev, gen, seed: int) -> dict:
+    """F1 on the DeepSeek prior's path at Moonlight's widths. (1) Its products
+    (``moonlight_products``) through ``ops/f32_gemm.matmul`` against the
+    plain version and float64, at 16a's gates, one launch each. (2) A
+    two-layer prior (the dense layer, one MoE layer; no bias anywhere, the
+    head untied) forward and backward over 12 x 250 tokens, its held
+    experts' groups routed by hand (``MOONLIGHT_RUN_GROUPS``), against
+    ``benchmark/reference/deepseek_v3.py`` on the same weights and routes:
+    logits and every leaf's gradient within 16a's gates of float64; every
+    group's rows counted, F1 launched 3 times a product that takes it,
+    groups under MIN_ROWS on torch.matmul. Returns F1's launches on (2)."""
+    import copy
+
+    from vector_quantization_tpu_torch.models.transformers.deepseek_v3 import DeepseekV3Transformer
+    from vector_quantization_tpu_torch.ops import f32_gemm as fg
+    from vector_quantization_tpu_torch.tasks.sequence_modeling import next_token_ce
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from benchmark.reference import deepseek_v3 as ref
+
+    bad = []
+    for spec in moonlight_products():
+        a, b = moonlight_operands(spec, gen, dev)
+        ref64 = a.double() @ b.double()
+        before = fg.matmul.launches
+        got, want = fg.matmul(a, b), fg.matmul_reference(a, b)
+        tf32 = _tf32(lambda: torch.mm(a, b))
+        torch.cuda.synchronize()
+        row = {"phase": "deepseek_v3_products", "product": spec[0], "M": a.shape[0], "K": a.shape[1],
+               "N": b.shape[1], "layout": spec[3] or "a @ b", "launches": fg.matmul.launches - before,
+               "err_kernel": _rel(got, ref64), "err_plain": _rel(want, ref64), "err_tf32": _rel(tf32, ref64)}
+        emit(row)
+        if not (row["launches"] == 1 and _within(row["err_kernel"], row["err_plain"], row["err_tf32"])):
+            bad.append(spec[0])
+        del a, b, ref64, got, want, tf32
+        torch.cuda.empty_cache()
+    if bad:
+        raise SystemExit(f"deepseek_v3_products: a launch count or an error against float64 is out of bounds: {bad}")
+
+    cfg = json.loads((Path(__file__).resolve().parent / MOONLIGHT_CONFIG).read_text())
+    t_cfg = {k: v for k, v in cfg["algorithm"]["transformer"].items() if k != "type"}
+    t_cfg.update(num_layers=2, seed=seed, device=dev)
+    model = DeepseekV3Transformer(cfg["vocab_size"], cfg["max_position_embeddings"], **t_cfg)
+    c = dict(cfg, num_hidden_layers=2)
+    with torch.device("meta"):
+        reference = ref.DeepseekV3(c)
+    reference = reference.to_empty(device=dev)
+    reference.load_state_dict(model.state_dict())
+    ref64 = copy.deepcopy(reference).double()
+    moe = model.moe_layers()[0]
+
+    b, t = MOONLIGHT_RUN_SHAPE
+    n, k = b * t, moe.top_k
+    rng = np.random.default_rng(seed + 31)
+    idx = np.zeros((n, k), dtype=np.int64)
+    start = 0
+    for e, rows in enumerate(MOONLIGHT_RUN_GROUPS[1:], start=1):  # expert 0 takes every token first
+        idx[start:start + rows, 1] = e
+        start += rows
+    idx[start:, 1] = len(MOONLIGHT_RUN_GROUPS)  # the first expert held elsewhere
+    idx[:, 0] = 0
+    for r in range(n):  # the other choices: distinct experts held elsewhere
+        idx[r, 2:] = rng.choice(np.arange(len(MOONLIGHT_RUN_GROUPS) + 1, moe.num_experts), k - 2, replace=False)
+    idx = torch.from_numpy(idx).to(dev)
+
+    def forced(x, _route=moe.route):
+        _, _, s = _route(x)
+        return idx, moe.weigh(s, idx), s
+
+    moe.route = forced
+    tokens = torch.from_numpy(rng.integers(0, cfg["vocab_size"], (b, t))).to(dev)
+    params = [p for _, p in model.named_parameters()]
+    names = [n for n, _ in model.named_parameters()]
+
+    def grads_of(module, loss):
+        return torch.autograd.grad(loss, list(module.parameters()), allow_unused=True, materialize_grads=True)
+
+    rows0 = list(model.counters["expert_rows"][0])
+    plain0 = model.counters["plain_products"]
+    zero_launches()
+    logits, aux = model(tokens, return_aux=True)
+    got = grads_of(model, next_token_ce(logits, tokens) + aux["balance"])
+    torch.cuda.synchronize()
+    launches, _ = read_launches()
+    rows = [a - b for a, b in zip(model.counters["expert_rows"][0], rows0)]
+    plain = model.counters["plain_products"] - plain0
+
+    def reference_side(module, tf32: bool = False):
+        def run():
+            lg, raux = module(tokens, [idx], 0.0, True)
+            return lg, grads_of(module, ref.next_token_ce(lg, tokens) + raux["balance"])
+        with ref.precision(tf32):
+            return run()
+
+    want_logits, want = reference_side(reference)
+    tf32_logits, tf32 = reference_side(reference, tf32=True)
+    truth_logits, truth = reference_side(ref64)
+    errs = {"logits": (_rel(logits, truth_logits), _rel(want_logits, truth_logits), _rel(tf32_logits, truth_logits))}
+    zero = []  # leaves whose float64 gradient is 0 (the experts no token chose) and the program's is not
+    for name, g, w_, t_, r in zip(names, got, want, tf32, truth):
+        if float(r.abs().max()):
+            errs[name] = (_rel(g, r), _rel(w_, r), _rel(t_, r))
+        elif float(g.abs().max()):
+            zero.append(name)
+    failing = sorted(name for name, (e, p, t_) in errs.items() if not _within(e, p, t_))
+    kernel_groups = sum(r >= fg.MIN_ROWS for r in MOONLIGHT_RUN_GROUPS)
+    # Product calls: 4 MLA projections a layer, the dense layer's 2, the router, the shared experts' 2,
+    # 2 a group of at least MIN_ROWS rows, the head; each launches its forward and two gradients
+    want_launches = 3 * (2 * 4 + 2 + 1 + 2 + 2 * kernel_groups + 1)
+    worst = max(errs, key=lambda k: errs[k][0] / max(errs[k][1], 1e-30))
+    row = {"phase": "deepseek_v3", "config": MOONLIGHT_CONFIG, "layers": 2, "tokens": [b, t],
+           "params": sum(p.numel() for p in params), "group_rows": rows, "group_rows_planned": list(MOONLIGHT_RUN_GROUPS),
+           "f32_gemm_launches": launches["f32_gemm"], "f32_gemm_split_launches": launches["f32_gemm_split"],
+           "f32_gemm_launches_expected": want_launches, "plain_products": plain,
+           "plain_products_expected": 2 * sum(0 < r < fg.MIN_ROWS for r in MOONLIGHT_RUN_GROUPS),
+           "err_logits": errs["logits"], "worst_leaf": {worst: errs[worst]},
+           "max_err_kernel": max(e for e, _, _ in errs.values()), "max_err_plain": max(p for _, p, _ in errs.values()),
+           "min_err_tf32": min(t_ for _, _, t_ in errs.values() if t_), "failing": failing,
+           "nonzero_where_zero": zero}
+    emit(row)
+    if not (rows == list(MOONLIGHT_RUN_GROUPS) and launches["f32_gemm"] == want_launches
+            and plain == row["plain_products_expected"] and not failing and not zero):
+        raise SystemExit("deepseek_v3: a check failed (see the deepseek_v3 line)")
+    del model, reference, ref64, got, want, tf32, truth
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_ar_gpt2(vqgan, dev, seed: int):
     """GPT-2 medium C2I: 3 train steps on 64 random images (K1 -> the dense
     head -> next-token CE -> AdamW); the cached decode's logits against the
@@ -4900,6 +5116,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k_f32 = phase_f32_gemm(dev, gen)
     torch.cuda.empty_cache()
+    deepseek_launches = phase_deepseek_v3(dev, gen, args.seed)
     algo, ar_cfg = make_ar_algorithm(args.seed, dev, vqgan)
     ar_launches, ar_state, codes_batch, ar_row = phase_ar_train(algo, ar_cfg, dev, args.seed)
     dots_launches = phase_ar_train_remat_dots(algo, codes_batch)
@@ -4999,7 +5216,9 @@ def main() -> int:
                                  "parallel_two_ranks_rank0": two_rank_launches[k["name"]]}
     k_f32["launches"] = gpt2_launches["f32_gemm"]
     k_f32["launches_by_path"] = {"ar_gpt2": gpt2_launches["f32_gemm"],
-                                 "ar_gpt2_prologue": gpt2_launches["f32_gemm_split"]}
+                                 "ar_gpt2_prologue": gpt2_launches["f32_gemm_split"],
+                                 "deepseek_v3": deepseek_launches["f32_gemm"],
+                                 "deepseek_v3_prologue": deepseek_launches["f32_gemm_split"]}
     emit({"kernels": [*k_int8, k_tiled, k_attn, k_vq, *k_flash, k_f32]})
     print(smi, flush=True)
     emit({"ok": True, "device": device})

@@ -1269,3 +1269,170 @@ def test_gpt2_products_below_min_rows_read_below_100_in_the_kernel_share(dev):
             torch.cuda.synchronize()
     assert fg.matmul.launches == before
     assert share.read(SimpleNamespace(trace=held.trace, counters={"steps": 1})) < 100
+
+
+# ---- the DeepSeek-V3 prior's MoE on F1 (models/transformers/deepseek_v3.py) ----
+
+def _bench_module(name):
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmark.harness import load_module
+
+    return load_module(Path(__file__).resolve().parents[1] / f"benchmark/metrics/{name}.py", name.replace(".", "_"))
+
+
+def test_moe_expert_groups_through_f1_match_the_reference(dev):
+    """A Moonlight MoE layer at its published widths (hidden 2048, experts
+    of 1408), 8 of 64 experts held, its groups of 0, 100, 511, 512 and 3,000
+    rows: the experts' output and its input and weight gradients within 4x
+    the error of the same computed by cuBLAS f32 against float64 (the
+    groups under ``MIN_ROWS`` on ``torch.matmul``); a group of 0 rows
+    launches nothing."""
+    from vector_quantization_tpu_torch.models.transformers.deepseek_v3 import _MoE, new_counters
+
+    counters = new_counters(1, 8)
+    moe = _MoE(2048, 1408, 64, 6, 2, range(8), 2.446, 1e-4, counters, 0).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    with torch.no_grad():
+        for p in moe.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.02)
+    counts = [0, 100, 511, 512, 3000, 0, 0, 0]
+    xs = torch.randn(sum(counts), 2048, generator=gen, device=dev)
+    gy = torch.randn(sum(counts), 2048, generator=gen, device=dev)
+    experts = [moe.experts[str(e)] for e, c in enumerate(counts) if c]
+    weights = [p for m in experts for p in (m.gate_proj.weight, m.up_proj.weight, m.down_proj.weight)]
+
+    def plain(x, ws, dtype):
+        out, start = [], 0
+        for j, c in enumerate(c for c in counts if c):
+            g, u, d = (w.to(dtype) for w in ws[3 * j: 3 * j + 3])
+            xe = x[start: start + c]
+            out.append((torch.nn.functional.silu(xe @ g.t()) * (xe @ u.t())) @ d.t())
+            start += c
+        return torch.cat(out)
+
+    def grads(y, x, ws):
+        return (y, *torch.autograd.grad(y, (x, *ws), gy.to(y.dtype)))
+
+    before = fg.matmul.launches
+    x = xs.detach().requires_grad_()
+    got = grads(moe.run_experts(x, counts), x, weights)
+    torch.cuda.synchronize()
+    # the 512- and 3000-row groups: 2 products (gate and up stacked, down) and 4 in the backward each
+    assert fg.matmul.launches == before + 12
+    assert counters["kernel_products"] == 4 and counters["plain_products"] == 4
+    assert counters["expert_rows"] == [counts]
+    x = xs.detach().requires_grad_()
+    cublas = grads(plain(x, weights, torch.float32), x, weights)
+    x64 = xs.detach().double().requires_grad_()
+    w64 = [w.detach().double().requires_grad_() for w in weights]
+    ref = grads(plain(x64, w64, torch.float64), x64, w64)
+    for g, c, r in zip(got, cublas, ref):
+        assert _err64(g, r) <= 4 * _err64(c, r), (_err64(g, r), _err64(c, r))
+
+
+class _Planted(torch.autograd.Function):
+    """Identity that launches ``flip`` twice forward and twice backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.flip(0).flip(0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.flip(0).flip(0)
+
+
+@pytest.mark.parametrize("where,metric", [("mla", "mla_ms.moe"), ("experts", "moe_expert_ms.moe"),
+                                          ("route", "moe_routing_ms.moe")])
+def test_moe_metrics_attribute_a_planted_launch_to_its_part(dev, where, metric, monkeypatch):
+    """A small DeepSeek-V3 train step under the profiler with a planted
+    ``flip`` pair in the MLA's output, the experts' output or the router's
+    scores, forward and backward: every planted launch lands in its part's
+    metric and in neither other part's; each metric reads above 0."""
+    from types import SimpleNamespace
+
+    from benchmark import moe_trace
+    from benchmark import trace as bt
+    from vector_quantization_tpu_torch.models.transformers import deepseek_v3 as dsm
+
+    if where == "mla":
+        orig = dsm._MLA.forward
+        monkeypatch.setattr(dsm._MLA, "forward", lambda self, *a: _Planted.apply(orig(self, *a)))
+    elif where == "experts":
+        orig = dsm._MoE.run_experts
+        monkeypatch.setattr(dsm._MoE, "run_experts", lambda self, *a: _Planted.apply(orig(self, *a)))
+    else:
+        orig = dsm._MoE.route
+
+        def route(self, x):  # the scores: the cut layer's weights are detached, the balance loss reads s
+            idx, w, s = orig(self, x)
+            return idx, w, _Planted.apply(s)
+
+        monkeypatch.setattr(dsm._MoE, "route", route)
+    model = dsm.DeepseekV3Transformer(256, 65, hidden_size=256, num_layers=3, num_heads=4, kv_lora_rank=64,
+                                      qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+                                      intermediate_size=512, moe_intermediate_size=128, n_routed_experts=16,
+                                      num_experts_per_tok=4, experts_held=8).to(dev)
+    tokens = torch.from_numpy(np.random.default_rng(16).integers(0, 256, (16, 65))).to(dev)
+
+    def step():
+        logits, aux = model(tokens, return_aux=True)
+        loss = logits.square().mean() + aux["balance"]
+        torch.autograd.grad(loss, list(model.parameters()), allow_unused=True, materialize_grads=True)
+        torch.cuda.synchronize()
+
+    step()
+    with bt.profiled(True, True) as held:
+        with torch.profiler.record_function("window"):
+            with torch.profiler.record_function("vq.backward"):
+                step()
+    run = SimpleNamespace(trace=held.trace, counters={"steps": 1})
+    planted = set(bt.ops_under(held.trace, ("aten::flip",)))
+    layers = 3 if where == "mla" else 2
+    assert len(planted) == 4 * layers
+    parts = {}
+    for name in ("mla_ms.moe", "moe_expert_ms.moe", "moe_routing_ms.moe"):
+        m = _bench_module(name)
+        parts[name] = set(moe_trace.part_ops(run, m.FORWARD, m.BACKWARD, m.EXCLUDE))
+        assert m.read(run) > 0
+    for name, ops in parts.items():
+        assert (planted <= ops) if name == metric else not (planted & ops), (name, len(planted & ops))
+
+
+def test_moe_products_keep_out_of_gpt2s_range_and_take_f1(dev):
+    """A DeepSeek-V3 step whose balancing bias sends every token to experts
+    0 and 1 (two groups of 4,112 rows, two of none): its products launch F1
+    under their own ranges, none inside ``gpt2.gemm`` (GPT-2's metrics read
+    nothing of it), and the experts' kernel share reads 100."""
+    from types import SimpleNamespace
+
+    from benchmark import readers
+    from benchmark import trace as bt
+    from vector_quantization_tpu_torch.models.transformers.deepseek_v3 import DeepseekV3Transformer
+
+    model = DeepseekV3Transformer(256, 257, hidden_size=256, num_layers=2, num_heads=4, kv_lora_rank=64,
+                                  qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32, intermediate_size=512,
+                                  moe_intermediate_size=128, n_routed_experts=8, num_experts_per_tok=2,
+                                  experts_held=4).to(dev)
+    for moe in model.moe_layers():
+        moe.gate.e_score_correction_bias[:2] = 1.0
+    tokens = torch.from_numpy(np.random.default_rng(17).integers(0, 256, (16, 257))).to(dev)
+
+    def step():
+        logits, aux = model(tokens, return_aux=True)
+        torch.autograd.grad(logits.square().mean() + aux["balance"], list(model.parameters()),
+                            allow_unused=True, materialize_grads=True)
+        torch.cuda.synchronize()
+
+    step()
+    with bt.profiled(True, True) as held:
+        with torch.profiler.record_function("window"):
+            step()
+    run = SimpleNamespace(trace=held.trace, counters={"steps": 1})
+    assert model.counters["plain_products"] == 0 and model.counters["kernel_products"] == 2 * 2 * 2
+    assert model.counters["expert_rows"] == [[2 * 4112, 2 * 4112, 0, 0]]
+    assert not bt.ops_under(held.trace, ("gpt2.gemm",))
+    assert _bench_module("gpt2_gemm_ms.train").read(run) is None
+    assert _bench_module("moe_expert_kernel_share.moe").read(run) == pytest.approx(100.0)
+    assert any("f32_gemm_kernel" in o[0] for o in bt.ops_under(held.trace, ("moe.expert.gemm",)))
+    assert readers.device_ms(run, ("mla.gemm",)) > 0 and readers.device_ms(run, ("head.gemm",)) > 0

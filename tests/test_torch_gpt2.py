@@ -379,6 +379,18 @@ def _read(t, transposed, pitch, rows, cols):
     return flat[t.storage_offset() + (r * pitch + i if transposed else i * pitch + r)]
 
 
+@pytest.mark.parametrize("rows", [37, 40])
+def test_an_operand_that_lies_otherwise_is_copied_to_aligned_rows(rows):
+    """An expanded gradient (strides 0, as a sum's), transposed as a weight
+    gradient reads it, over a ragged number of rows: ``_as_read`` copies it
+    to rows padded to a multiple of 4 elements, which the kernel reads as
+    the operand itself."""
+    t = torch.arange(12, dtype=torch.float32)[:, None].expand(12, rows).t().t()
+    got, transposed, pitch = f32_gemm._as_read(t)
+    assert not transposed and pitch % 4 == 0 and pitch >= rows and got.stride(0) == pitch
+    assert torch.equal(_read(got, False, pitch, 12, rows), t)
+
+
 @pytest.mark.parametrize("m,k,n,a_t,b_t,bias", [(300, 64, 96, False, False, True), (40, 64, 200, False, False, True),
                                                 (64, 300, 200, True, False, False), (100, 64, 36, False, True, False),
                                                 (8, 3000, 8, True, False, False), (130, 4096, 12, False, False, True)])

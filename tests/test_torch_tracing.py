@@ -8,11 +8,12 @@
 - With no profiler recording, ``span`` is one shared no-op context and no
   ``record_function`` is entered.
 - Every span name starts with ``vq.``, but for the f32 GEMM's product
-  range ``gpt2.gemm`` (``ops/f32_gemm.py``), which must not: the
-  benchmark's ``spans.chains`` hands a ``vq.`` span opened on autograd's
-  engine thread to every later engine launch. None is one of the
-  benchmark's own range names (``benchmark/trace.py``,
-  ``benchmark/harness.py``).
+  ranges (``gpt2.gemm`` of ``ops/f32_gemm.py``, the DeepSeek-V3 prior's
+  ``*.gemm``) and the backward ranges (``*.backward``,
+  ``utils/debug.BackwardRange``), which must not: the benchmark's
+  ``spans.chains`` hands a ``vq.`` span opened on autograd's engine thread
+  to every later engine launch. None is one of the benchmark's own range
+  names (``benchmark/trace.py``, ``benchmark/harness.py``).
 - A ``nearest_codes`` set on its module, as the benchmark's traced runs
   set one, is the one the quantizer calls, and it keeps ``launches``.
 """
@@ -45,9 +46,12 @@ SMOKE = str(REPO / "configs/regression/smoke_anchor.py")
 # the spans of the port's layer boundaries (PERF.md section 3)
 SPANS = {"vq.train_step", "vq.ar.tokens", "vq.ar.forward", "vq.backward", "vq.optimizer", "vq.codebook_update",
          "vq.ema", "vq.vqgan.generation", "vq.vqgan.aglw", "vq.vqgan.discrimination", "vq.nearest_codes",
-         "vq.data_wait"}
-# the products' range of ops/f32_gemm.py, opened in backward too: not a phase
-PRODUCT_RANGE = "gpt2.gemm"
+         "vq.data_wait", "vq.ar.after_step", "vq.mla", "vq.moe.route", "vq.moe.balance", "vq.moe.dispatch",
+         "vq.moe.experts", "vq.moe.combine", "vq.moe.shared"}
+# the products' ranges of ops/f32_gemm.py and the backward ranges, opened in backward too: not phases
+PRODUCT_RANGES = {"gpt2.gemm", "mla.gemm", "ffn.gemm", "moe.router.gemm", "moe.expert.gemm", "moe.shared.gemm",
+                  "head.gemm"}
+BACKWARD_RANGES = {"mla.backward", "moe.backward", "moe.experts.backward", "moe.shared.backward"}
 # the benchmark's own range names: its window, the ranges its idle gaps are labelled by, its entry ranges
 BENCHMARK_RANGES = {"window", "traffic", "stage", "step", "encode", "readback", "k1"}
 
@@ -166,10 +170,15 @@ def test_without_a_profiler_span_is_one_shared_noop(monkeypatch):
 
 def test_span_names_are_the_ports_and_none_is_the_benchmarks():
     package = REPO / "vector_quantization_tpu_torch"
-    names = {m for f in package.rglob("*.py") for m in re.findall(r'\bspan\("([\w.]+)"\)', f.read_text())}
-    assert names == SPANS | {PRODUCT_RANGE}
-    assert all(n.startswith("vq.") for n in SPANS) and not PRODUCT_RANGE.startswith("vq.")
-    assert not names & BENCHMARK_RANGES
+    sources = [f.read_text() for f in package.rglob("*.py")]
+    names = {m for text in sources for m in re.findall(r'\bspan\("([\w.]+)"\)', text)}
+    assert names == SPANS
+    ranges = {m for text in sources for m in re.findall(r'"([\w.]+\.gemm)"', text)}
+    backward = {m for text in sources for m in re.findall(r'BackwardRange\("([\w.]+)"\)', text)}
+    assert ranges == PRODUCT_RANGES and backward == BACKWARD_RANGES
+    assert all(n.startswith("vq.") for n in SPANS)
+    assert not any(n.startswith("vq.") for n in PRODUCT_RANGES | BACKWARD_RANGES)
+    assert not (names | ranges | backward) & BENCHMARK_RANGES
 
 
 def test_a_nearest_codes_set_on_its_module_is_the_one_the_quantizer_calls(monkeypatch):

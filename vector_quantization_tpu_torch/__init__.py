@@ -77,6 +77,7 @@ from .models.autoencoders import vqgan as _vqgan  # noqa: F401
 from .models.autoencoders import vit as _vit  # noqa: F401
 from .models.quantizers import fsq as _fsq  # noqa: F401
 from .models.quantizers import vq as _vq  # noqa: F401
+from .models.transformers import deepseek_v3 as _deepseek_v3  # noqa: F401
 from .models.transformers import gpt2 as _gpt2  # noqa: F401
 from .models.transformers import llama as _llama  # noqa: F401
 from .parallel import sharding as _sharding  # noqa: F401

@@ -20,7 +20,10 @@ tokenizer, so a VQGAN or reconstruction checkpoint leaves it unchanged.
 ``train_step``: tokens -> the fused-CE loss (or the dense head +
 ``next_token_ce``) -> gradients -> the optimizer, in place; inside the
 span ``vq.train_step``, the spans ``vq.ar.tokens``, ``vq.ar.forward``,
-``vq.backward`` and ``vq.optimizer`` (``utils.debug.span``).
+``vq.backward`` and ``vq.optimizer`` (``utils.debug.span``). A model with
+``returns_aux`` (the DeepSeek-V3 prior) also gives an auxiliary loss,
+added to the CE, and its ``after_step`` runs after the optimizer, inside
+``vq.ar.after_step`` (its experts' balancing bias).
 ``eval_step``: the dense head's CE and the teacher-forced sampling
 accuracy (with ``eval_generate``, also the generated images of the
 batch's classes). ``generate_step``: classes -> images through
@@ -95,6 +98,9 @@ class ARAlgorithm(Algorithm):
         t_cfg = dict(transformer)
         t_cfg.setdefault("vocabulary_size", num_cond + codebook_size)
         t_cfg.setdefault("max_length", 1 + self.image_hw * self.image_hw)
+        kind = t_cfg["type"]
+        if getattr(TransformerRegistry.get(kind) if isinstance(kind, str) else kind, "builds_on_device", False):
+            t_cfg.setdefault("device", self.device)  # its weights drawn there, not on the host
         super().__init__(model=TransformerRegistry.build(t_cfg).to(self.device), **kwargs)
 
     @property
@@ -155,14 +161,23 @@ class ARAlgorithm(Algorithm):
                 tokens = self._tokens(state, batch, train=True)
             model = state.model
             params = state.params()
+            aux = None
             with span("vq.ar.forward"):
                 if self._use_fused():
                     loss = model(tokens, fused_ce_targets=tokens)
+                elif getattr(model, "returns_aux", False):
+                    logits, aux = model(tokens, return_aux=True)
+                    loss = next_token_ce(logits, tokens) + aux["balance"]
                 else:
                     loss = next_token_ce(model(tokens), tokens)
             with span("vq.backward"):
-                grads = list(torch.autograd.grad(loss, params))
+                # a routed expert that no token chose this step takes a zero gradient
+                grads = list(torch.autograd.grad(loss, params, allow_unused=aux is not None,
+                                                 materialize_grads=aux is not None))
             self.apply_gradients(self.tx(), params, grads, state.opt_state)
+            if aux is not None:
+                with span("vq.ar.after_step"):
+                    model.after_step(aux)
             state.step += 1
         return state, {"loss": loss.detach()}
 

@@ -1,8 +1,13 @@
 """f32 matrix products on the tensor cores at f32 accuracy: GPT-2's dense
-layers and its tied head.
+layers and its tied head, and every projection of the DeepSeek-V3 prior
+(``models/transformers/deepseek_v3.py``), its experts' ragged groups of
+rows included.
 
-``dense(x (..., K), kernel (K, N), bias (N,))`` is ``x @ kernel + bias``;
-``tied_head(h (..., C), wte (V, C))`` is ``h @ wte.T``. Where the call is
+``product(x (..., K), w, bias=None, transposed=False, name=...)`` is
+``x @ w (+ bias)`` for ``w`` (K, N), or ``x @ w.T`` for ``w`` (N, K) where
+``transposed``; ``dense(x, kernel (K, N), bias (N,))`` is ``x @ kernel +
+bias`` and ``tied_head(h (..., C), wte (V, C))`` is ``h @ wte.T``, both in
+the range ``gpt2.gemm``. Where the call is
 f32 on a CUDA device with at least ``MIN_ROWS`` rows and K and N multiples
 of 4, it runs through :class:`Product`, an autograd function whose forward
 and both backward products go through the hand-written Hopper kernel
@@ -20,13 +25,13 @@ it lies and the other (B) as TF32 parts that a prologue launch writes
 K-major into a workspace; :func:`plan` makes B the smaller side (computing
 ``(b.T @ a.T).T`` and storing it transposed where ``a`` is less than half
 of ``b``) and splits the sum over K across blocks where the output's tiles
-do not fill the card. Every product of :func:`dense` and
-:func:`tied_head` runs inside the profiler range ``gpt2.gemm``
-(``utils/debug.py`` ``span``: only while a profiler records): the forward,
-whether the kernel or ``torch.matmul`` computes it, and :class:`Product`'s
-two backward products. (``torch.matmul``'s own backward runs on autograd's
-engine outside it.) ``matmul.launches`` counts the product kernel's
-launches, ``matmul.split_launches`` the prologue's.
+do not fill the card. Every product of :func:`product` runs inside the
+profiler range its caller names (``utils/debug.py`` ``span``: only while a
+profiler records; ``gpt2.gemm`` for :func:`dense` and :func:`tied_head`):
+the forward, whether the kernel or ``torch.matmul`` computes it, and
+:class:`Product`'s two backward products. (``torch.matmul``'s own backward
+runs on autograd's engine outside it.) ``matmul.launches`` counts the
+product kernel's launches, ``matmul.split_launches`` the prologue's.
 :func:`matmul_reference` is the plain product that tests and
 ``chip_smoke.py`` hold the kernel against.
 """
@@ -43,8 +48,11 @@ from ..utils.debug import span
 from . import _build
 from .device import card
 
-__all__ = ["MIN_ROWS", "GemmPlan", "Product", "dense", "matmul", "matmul_reference", "plan",
-           "takes_kernel", "tied_head"]
+__all__ = ["MIN_ROWS", "RANGE", "GemmPlan", "Product", "dense", "matmul", "matmul_reference", "plan",
+           "product", "takes_kernel", "tied_head"]
+
+# the range of GPT-2's products (the benchmark's gpt2_gemm_ms.train reads it)
+RANGE = "gpt2.gemm"
 
 # the kernel's tile (csrc/f32_gemm.cu): rows and columns of C, depth per stage
 _BM, _BN, _BK = 128, 128, 32
@@ -120,15 +128,18 @@ def _functions():
 def _as_read(t: torch.Tensor) -> tuple[torch.Tensor, bool, int]:
     """(t', transposed, pitch): t (rows, cols) as the kernel reads it, rows
     ``pitch`` elements apart (or, transposed, columns), 16-byte aligned;
-    a copy where ``t`` lies otherwise."""
-    if t.stride(1) == 1 and t.stride(0) % 4 == 0 and t.data_ptr() % 16 == 0:
-        return t, False, max(t.stride(0), t.shape[1])
-    if t.stride(0) == 1 and t.stride(1) % 4 == 0 and t.data_ptr() % 16 == 0:
-        return t, True, max(t.stride(1), t.shape[0])
-    t = t.contiguous()
-    if t.stride(0) % 4 or t.data_ptr() % 16:
-        raise ValueError(f"f32 matmul: rows of {t.shape[1]} elements are not 16-byte aligned")
-    return t, False, max(t.stride(0), t.shape[1])
+    where ``t`` lies otherwise (an expanded gradient, whose strides are 0,
+    over an expert's ragged number of rows, say), a copy whose rows are
+    padded to a multiple of 4 elements."""
+    rows, cols = t.shape
+    if t.stride(1) == 1 and t.stride(0) % 4 == 0 and t.stride(0) >= cols and t.data_ptr() % 16 == 0:
+        return t, False, t.stride(0)
+    if t.stride(0) == 1 and t.stride(1) % 4 == 0 and t.stride(1) >= rows and t.data_ptr() % 16 == 0:
+        return t, True, t.stride(1)
+    pitch = -(-cols // 4) * 4
+    copy = torch.empty((rows, pitch), dtype=t.dtype, device=t.device)[:, :cols]
+    copy.copy_(t)
+    return copy, False, pitch
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -184,27 +195,27 @@ def matmul_reference(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor | None
 class Product(torch.autograd.Function):
     """``x (M, K) @ w (+ bias)`` with ``w`` (K, N), or ``x @ w.T`` with ``w``
     (N, K) where ``transposed``, through the kernel; its backward takes the
-    input gradient and the weight gradient by the same kernel, inside
-    ``gpt2.gemm`` (``bias``'s gradient is the rows' sum)."""
+    input gradient and the weight gradient by the same kernel, inside the
+    range ``name`` (``bias``'s gradient is the rows' sum)."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, transposed):
+    def forward(ctx, x, w, bias, transposed, name=RANGE):
         ctx.save_for_backward(x, w)
-        ctx.transposed, ctx.has_bias = transposed, bias is not None
+        ctx.transposed, ctx.has_bias, ctx.name = transposed, bias is not None, name
         return matmul(x, w.t() if transposed else w, bias)
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         gx = gw = gb = None
-        with span("gpt2.gemm"):
+        with span(ctx.name):
             if ctx.needs_input_grad[0]:
                 gx = matmul(gy, w if ctx.transposed else w.t())
             if ctx.needs_input_grad[1]:
                 gw = matmul(gy.t(), x) if ctx.transposed else matmul(x.t(), gy)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             gb = gy.sum(0)
-        return gx, gw, gb, None
+        return gx, gw, gb, None, None
 
 
 def takes_kernel(x: torch.Tensor, w: torch.Tensor) -> bool:
@@ -216,20 +227,25 @@ def takes_kernel(x: torch.Tensor, w: torch.Tensor) -> bool:
             and w.shape[0] % 4 == 0 and w.shape[1] % 4 == 0)
 
 
+def product(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None, *, transposed: bool = False,
+            name: str = RANGE) -> torch.Tensor:
+    """``x (..., K) @ w (K, N) (+ bias (N,))``, or ``x @ w.T`` for ``w`` (N,
+    K) where ``transposed``, inside the range ``name``: through
+    :class:`Product` where :func:`takes_kernel`, else ``torch.matmul``."""
+    n = w.shape[0] if transposed else w.shape[1]
+    with span(name):
+        if takes_kernel(x, w):
+            y = Product.apply(x.reshape(-1, x.shape[-1]), w, bias, transposed, name)
+            return y.reshape(*x.shape[:-1], n)
+        y = torch.matmul(x, w.t() if transposed else w)
+    return y if bias is None else y + bias
+
+
 def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """``x (..., K) @ kernel (K, N) + bias`` (GPT-2's ``_Dense``)."""
-    with span("gpt2.gemm"):
-        if takes_kernel(x, kernel):
-            y = Product.apply(x.reshape(-1, x.shape[-1]), kernel, bias, False)
-            return y.reshape(*x.shape[:-1], kernel.shape[1])
-        y = torch.matmul(x, kernel)
-    return y + bias
+    return product(x, kernel, bias)
 
 
 def tied_head(h: torch.Tensor, wte: torch.Tensor) -> torch.Tensor:
     """``h (..., C) @ wte.T`` for ``wte`` (V, C) (GPT-2's tied head)."""
-    with span("gpt2.gemm"):
-        if takes_kernel(h, wte):
-            y = Product.apply(h.reshape(-1, h.shape[-1]), wte, None, True)
-            return y.reshape(*h.shape[:-1], wte.shape[0])
-        return torch.matmul(h, wte.t())
+    return product(h, wte, transposed=True)

@@ -17,8 +17,15 @@ traced runs), so the phase lands in the same trace as the kernels it
 launches, on the profiler's clock. While none records it is one shared
 no-op context: the only cost is reading the profiler's flag. Every name
 starts with ``vq.``, apart from the benchmark's own range names and the f32
-GEMM's product range ``gpt2.gemm`` (``ops/f32_gemm.py``), which is opened in
-backward too and is not a phase.
+GEMM's product ranges (``gpt2.gemm``, and those ``ops/f32_gemm.py``'s
+``product`` is given by name), which are opened in backward too and are
+not phases.
+
+:class:`BackwardRange` names the backward of a region of the forward: a
+range opened on autograd's thread when the gradient reaches the region's
+output and closed when it leaves the region's input. Its names never
+start with ``vq.``: a ``vq.`` span opened on autograd's thread would be
+handed on to later launches there (``benchmark/spans.py``).
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch.distributed as dist
 
 from .flags import Store
 
-__all__ = ["assert_replicated", "digest", "span", "trace"]
+__all__ = ["BackwardRange", "assert_replicated", "digest", "span", "trace"]
 
 _OFF = contextlib.nullcontext()
 
@@ -45,6 +52,65 @@ def span(name: str):
     if torch.autograd.profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return _OFF
+
+
+class _Opens(torch.autograd.Function):
+    """Identity; its backward opens the region's range."""
+
+    @staticmethod
+    def forward(ctx, x, region):
+        ctx.region = region
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.region.open()
+        return g, None
+
+
+class _Closes(torch.autograd.Function):
+    """Identity; its backward closes the region's range."""
+
+    @staticmethod
+    def forward(ctx, x, region):
+        ctx.region = region
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.region.close()
+        return g, None
+
+
+class BackwardRange:
+    """The profiler range ``name`` around the backward of one region of the
+    forward: ``x = r.input(x)`` where the region starts, ``y = r.output(y)``
+    where it ends. Autograd's engine runs the nodes with the higher
+    sequence numbers first, so the region's nodes run between the output's
+    marker and the input's. Where no profiler records, or no gradient is
+    taken, both return their argument and nothing is added to the graph.
+    The input must be used inside the region alone."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._on = torch.autograd.profiler._is_profiler_enabled and torch.is_grad_enabled()
+        self._range = None
+
+    def input(self, x: torch.Tensor) -> torch.Tensor:
+        return _Closes.apply(x, self) if self._on and x.requires_grad else x
+
+    def output(self, y: torch.Tensor) -> torch.Tensor:
+        return _Opens.apply(y, self) if self._on and y.requires_grad else y
+
+    def open(self) -> None:
+        if self._range is None:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+
+    def close(self) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
 
 
 def digest(x: torch.Tensor) -> torch.Tensor:
